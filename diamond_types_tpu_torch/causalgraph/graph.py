@@ -1,0 +1,511 @@
+"""The causal graph ("time DAG") and its query toolkit.
+
+Columnar redesign of the reference's parents store + DAG algorithms
+(reference: src/causalgraph/graph/mod.rs:26-53, src/causalgraph/graph/tools.rs).
+Entries are runs of LVs `[start, end)` whose parents are implicit-linear inside
+the run; each run stores the parents of its first LV, plus a `shadow`: the
+earliest LV such that the whole run transitively descends from every LV in
+`[shadow, start)` — the dominator-skip optimization the reference relies on
+(reference: src/causalgraph/graph/mod.rs:29-31).
+
+Storage is struct-of-arrays (parallel Python lists; numpy export via
+`as_arrays()`) so the same layout ships to the device tier as dense
+CSR-style adjacency.
+
+ROOT is represented as -1 so natural integer ordering sorts it below every
+real LV (the reference uses usize::MAX plus wrapping tricks; -1 needs none).
+"""
+
+from __future__ import annotations
+
+import heapq
+from bisect import bisect_right
+from enum import IntEnum
+from typing import Callable, List, Optional, Sequence, Tuple
+
+from ..core.frontier import (
+    Frontier, frontier_from, insert_nonoverlapping, replace_with_1,
+)
+from ..core.span import Span, push_reversed_rle, span_is_empty
+
+ROOT = -1
+
+
+class DiffFlag(IntEnum):
+    ONLY_A = 0
+    ONLY_B = 1
+    SHARED = 2
+
+
+class Graph:
+    """RLE time-DAG. Mirrors capability of reference Graph (graph/mod.rs:47-53)."""
+
+    __slots__ = ("starts", "ends", "shadows", "parents", "child_idxs",
+                 "root_child_idxs")
+
+    def __init__(self) -> None:
+        self.starts: List[int] = []
+        self.ends: List[int] = []
+        self.shadows: List[int] = []
+        self.parents: List[Tuple[int, ...]] = []
+        self.child_idxs: List[List[int]] = []
+        self.root_child_idxs: List[int] = []
+
+    # --- construction ---------------------------------------------------
+
+    def __len__(self) -> int:
+        return len(self.starts)
+
+    def next_lv(self) -> int:
+        return self.ends[-1] if self.ends else 0
+
+    def push(self, parents: Sequence[int], start: int, end: int) -> None:
+        """Append a run of LVs `[start, end)` with `parents` for the first LV.
+
+        Extends the previous run when the history is linear (reference:
+        graph/mod.rs:85-96 fast path), otherwise computes the shadow and wires
+        child indexes.
+        """
+        assert end > start
+        if self.starts:
+            last = len(self.starts) - 1
+            if (len(parents) == 1 and parents[0] == self.ends[last] - 1
+                    and self.ends[last] == start):
+                self.ends[last] = end
+                return
+
+        # Shadow: walk down while our immediate predecessor LV is a parent.
+        shadow = start
+        pset = tuple(parents)
+        while shadow >= 1 and (shadow - 1) in pset:
+            shadow = self.shadows[self.find_idx(shadow - 1)]
+
+        new_idx = len(self.starts)
+        if not parents:
+            self.root_child_idxs.append(new_idx)
+        else:
+            for p in pset:
+                self.child_idxs[self.find_idx(p)].append(new_idx)
+
+        self.starts.append(start)
+        self.ends.append(end)
+        self.shadows.append(shadow)
+        self.parents.append(tuple(sorted(pset)))
+        self.child_idxs.append([])
+
+    # --- lookup ---------------------------------------------------------
+
+    def find_idx(self, v: int) -> int:
+        """Index of the run containing LV `v`."""
+        i = bisect_right(self.starts, v) - 1
+        if i < 0 or v >= self.ends[i]:
+            raise KeyError(f"LV {v} not in graph")
+        return i
+
+    def parents_at(self, v: int) -> Tuple[int, ...]:
+        """Parents of a single LV (implicit v-1 inside a run)."""
+        i = self.find_idx(v)
+        if v > self.starts[i]:
+            return (v - 1,)
+        return self.parents[i]
+
+    def entry_span(self, idx: int) -> Span:
+        return (self.starts[idx], self.ends[idx])
+
+    def _entry_contains(self, idx: int, v: int) -> bool:
+        return self.starts[idx] <= v < self.ends[idx]
+
+    def _is_direct_descendant_coarse(self, a: int, b: int) -> bool:
+        # reference: graph/tools.rs:52-59
+        if a == b:
+            return True
+        if b == ROOT:
+            return True
+        return a > b and self._entry_contains(self.find_idx(a), b)
+
+    # --- containment ----------------------------------------------------
+
+    def frontier_contains_version(self, frontier: Sequence[int], target: int) -> bool:
+        """Does `frontier` dominate LV `target`? (reference: graph/tools.rs:88-146)."""
+        if target == ROOT:
+            return True
+        if target in frontier:
+            return True
+        if not frontier:
+            return False
+
+        # Fast path via shadows.
+        for o in frontier:
+            if o > target:
+                i = self.find_idx(o)
+                if self.shadows[i] <= target:
+                    return True
+
+        heap: List[int] = [-o for o in frontier if o > target]
+        heapq.heapify(heap)
+        while heap:
+            order = -heapq.heappop(heap)
+            i = self.find_idx(order)
+            if self.shadows[i] <= target:
+                return True
+            start = self.starts[i]
+            while heap and -heap[0] >= start:
+                heapq.heappop(heap)
+            for p in self.parents[i]:
+                if p == target:
+                    return True
+                elif p > target:
+                    heapq.heappush(heap, -p)
+        return False
+
+    def frontier_contains_frontier(self, a: Sequence[int], b: Sequence[int]) -> bool:
+        if list(a) == list(b):
+            return True
+        return all(self.frontier_contains_version(a, bb) for bb in b)
+
+    def version_cmp(self, v1: int, v2: int) -> Optional[int]:
+        """-1 if v1 < v2 (v2 dominates), 0 equal, 1 if v1 > v2; None concurrent."""
+        if v1 == v2:
+            return 0
+        if v1 < v2:
+            return -1 if self.frontier_contains_version([v2], v1) else None
+        return 1 if self.frontier_contains_version([v1], v2) else None
+
+    # --- diff -----------------------------------------------------------
+
+    def diff(self, a: Sequence[int], b: Sequence[int]) -> Tuple[List[Span], List[Span]]:
+        """(spans only in a's history, spans only in b's) ascending order."""
+        only_a, only_b = self.diff_rev(a, b)
+        return only_a[::-1], only_b[::-1]
+
+    def diff_rev(self, a: Sequence[int], b: Sequence[int]) -> Tuple[List[Span], List[Span]]:
+        # Fast paths (reference: graph/tools.rs:176-203)
+        if list(a) == list(b):
+            return [], []
+        if len(a) == 1 and len(b) == 1:
+            aa, bb = a[0], b[0]
+            if self._is_direct_descendant_coarse(aa, bb):
+                return [(bb + 1, aa + 1)], []
+            if self._is_direct_descendant_coarse(bb, aa):
+                return [], [(aa + 1, bb + 1)]
+        return self._diff_slow(a, b)
+
+    def _diff_slow(self, a: Sequence[int], b: Sequence[int]) -> Tuple[List[Span], List[Span]]:
+        only_a: List[Span] = []
+        only_b: List[Span] = []
+
+        def mark(lo: int, hi: int, flag: DiffFlag) -> None:
+            # marks [lo, hi] inclusive
+            if flag == DiffFlag.SHARED:
+                return
+            out = only_a if flag == DiffFlag.ONLY_A else only_b
+            push_reversed_rle(out, (lo, hi + 1))
+
+        self._diff_slow_internal(a, b, mark)
+        return only_a, only_b
+
+    def _diff_slow_internal(self, a: Sequence[int], b: Sequence[int],
+                            mark: Callable[[int, int, DiffFlag], None]) -> None:
+        # Two-color max-heap walk (reference: graph/tools.rs:225-292).
+        heap: List[Tuple[int, int]] = []  # (-lv, flag)
+        for v in a:
+            heap.append((-v, DiffFlag.ONLY_A))
+        for v in b:
+            heap.append((-v, DiffFlag.ONLY_B))
+        heapq.heapify(heap)
+        num_shared = 0
+
+        while heap:
+            nord, flag = heapq.heappop(heap)
+            ord_ = -nord
+            if flag == DiffFlag.SHARED:
+                num_shared -= 1
+
+            # Merge duplicate heads.
+            while heap and -heap[0][0] == ord_:
+                _, pf = heapq.heappop(heap)
+                if pf != flag:
+                    flag = DiffFlag.SHARED
+                if pf == DiffFlag.SHARED:
+                    num_shared -= 1
+
+            i = self.find_idx(ord_)
+            start = self.starts[i]
+
+            # Consume heads that fall inside this same run.
+            while heap and -heap[0][0] >= start:
+                peek_ord = -heap[0][0]
+                peek_flag = heap[0][1]
+                if peek_flag != flag:
+                    mark(peek_ord + 1, ord_, flag)
+                    ord_ = peek_ord
+                    flag = DiffFlag.SHARED
+                if peek_flag == DiffFlag.SHARED:
+                    num_shared -= 1
+                heapq.heappop(heap)
+
+            mark(start, ord_, flag)
+
+            for p in self.parents[i]:
+                heapq.heappush(heap, (-p, flag))
+                if flag == DiffFlag.SHARED:
+                    num_shared += 1
+
+            if len(heap) == num_shared:
+                break
+
+    # --- conflicts ------------------------------------------------------
+
+    def find_conflicting(self, a: Sequence[int], b: Sequence[int],
+                         visit: Callable[[Span, DiffFlag], None]) -> Frontier:
+        """Visit spans (in reverse LV order) reachable from `a` or `b` but not
+        their common ancestor; returns the common ancestor frontier
+        (reference: graph/tools.rs:454-484).
+        """
+        if list(a) == list(b):
+            return list(a)
+        if len(a) == 1 and len(b) == 1:
+            aa, bb = a[0], b[0]
+            if self._is_direct_descendant_coarse(aa, bb):
+                visit((bb + 1, aa + 1), DiffFlag.ONLY_A)
+                return [bb] if bb != ROOT else []
+            if self._is_direct_descendant_coarse(bb, aa):
+                visit((aa + 1, bb + 1), DiffFlag.ONLY_B)
+                return [aa] if aa != ROOT else []
+        return self._find_conflicting_slow(a, b, visit)
+
+    def _find_conflicting_slow(self, a: Sequence[int], b: Sequence[int],
+                               visit: Callable[[Span, DiffFlag], None]) -> Frontier:
+        # Time points: (last, merged_with). Max-heap: highest `last` first; among
+        # equal `last`, fewest merged_with first (reference: graph/tools.rs:296-445).
+        def tp(front: Sequence[int]) -> Tuple[int, Tuple[int, ...]]:
+            f = list(front)
+            if not f:
+                return (ROOT, ())
+            return (f[-1], tuple(f[:-1]))
+
+        def key(t: Tuple[int, Tuple[int, ...]]) -> Tuple[int, int, Tuple[int, ...]]:
+            return (-t[0], len(t[1]), t[1])
+
+        heap: List[Tuple[Tuple[int, int, Tuple[int, ...]],
+                         Tuple[int, Tuple[int, ...]], int]] = []
+        heapq.heappush(heap, (key(tp(a)), tp(a), DiffFlag.ONLY_A))
+        heapq.heappush(heap, (key(tp(b)), tp(b), DiffFlag.ONLY_B))
+
+        while True:
+            _, time, flag = heapq.heappop(heap)
+            t = time[0]
+
+            if t == ROOT:
+                return []
+
+            # Merge duplicate whole time points.
+            while heap and heap[0][1] == time:
+                _, _, pf = heapq.heappop(heap)
+                if pf != flag:
+                    flag = DiffFlag.SHARED
+
+            if not heap:
+                frontier = list(time[1]) + [t]
+                return frontier
+
+            # Shatter merge points.
+            if time[1]:
+                for t2 in time[1]:
+                    e = (t2, ())
+                    heapq.heappush(heap, (key(e), e, flag))
+
+            i = self.find_idx(t)
+            rng: Span = (self.starts[i], t + 1)
+
+            while True:
+                if heap:
+                    peek_time = heap[0][1]
+                    if peek_time[0] != ROOT and peek_time[0] >= self.starts[i]:
+                        _, time2, next_flag = heapq.heappop(heap)
+                        if time2[0] + 1 < rng[1]:
+                            offset = time2[0] + 1 - self.starts[i]
+                            rem = (rng[0] + offset, rng[1])
+                            rng = (rng[0], rng[0] + offset)
+                            visit(rem, flag)
+                        if time2[1]:
+                            for t2 in time2[1]:
+                                e = (t2, ())
+                                heapq.heappush(heap, (key(e), e, next_flag))
+                        if next_flag != flag:
+                            flag = DiffFlag.SHARED
+                    else:
+                        visit(rng, flag)
+                        e = tp(self.parents[i])
+                        heapq.heappush(heap, (key(e), e, flag))
+                        break
+                else:
+                    return [rng[1] - 1]
+
+    def find_conflicting_simple(self, a: Sequence[int], b: Sequence[int]):
+        """Returns (common_ancestor_frontier, rev_spans)."""
+        rev_spans: List[Span] = []
+        common = self.find_conflicting(a, b, lambda s, f: push_reversed_rle(rev_spans, s))
+        return common, rev_spans
+
+    # --- dominators -----------------------------------------------------
+
+    def _find_dominators_full_internal(self, versions: Sequence[int],
+                                       stop_at_shadow: Optional[int],
+                                       visit: Callable[[int, bool], None]) -> None:
+        # reference: graph/tools.rs:580-651. Inputs encoded with LSB=0 so the
+        # "normal" (descendant-reached) copy of an LV pops before the input copy.
+        if len(versions) <= 1:
+            for v in versions:
+                visit(v, True)
+            return
+
+        def enc_input(v: int) -> int:
+            return v << 1
+
+        def enc_normal(v: int) -> int:
+            return (v << 1) + 1
+
+        heap = [-enc_input(v) for v in versions]
+        heapq.heapify(heap)
+        inputs_remaining = len(heap)
+        last_emitted: Optional[int] = None
+
+        while heap:
+            v_enc = -heapq.heappop(heap)
+            is_input, v = (v_enc % 2 == 0), v_enc >> 1
+
+            if is_input:
+                visit(v, True)
+                last_emitted = v
+                inputs_remaining -= 1
+
+            i = self.find_idx(v)
+            if stop_at_shadow is not None and self.shadows[i] <= stop_at_shadow:
+                break
+
+            start = self.starts[i]
+            while heap:
+                v2_enc = -heap[0]
+                is_input2, v2 = (v2_enc % 2 == 0), v2_enc >> 1
+                if v2 < start:
+                    break
+                heapq.heappop(heap)
+                if is_input2:
+                    if last_emitted != v2:
+                        visit(v2, False)
+                        last_emitted = v2
+                    inputs_remaining -= 1
+            if inputs_remaining == 0:
+                break
+            for p in self.parents[i]:
+                if p != ROOT:
+                    heapq.heappush(heap, -enc_normal(p))
+
+    def find_dominators(self, versions: Sequence[int]) -> Frontier:
+        versions = sorted(versions)
+        if len(versions) <= 1:
+            return list(versions)
+        min_v, max_v = versions[0], versions[-1]
+        i = self.find_idx(max_v)
+        if self.shadows[i] <= min_v:
+            return [max_v]
+        out: List[int] = []
+        self._find_dominators_full_internal(
+            versions, min_v, lambda v, dom: out.append(v) if dom else None)
+        return out[::-1]
+
+    def find_dominators_2(self, v1: Sequence[int], v2: Sequence[int]) -> Frontier:
+        """Union of two frontiers that are each already dominator sets
+        (reference: graph/tools.rs:545-578)."""
+        if not v1:
+            return list(v2)
+        if not v2:
+            return list(v1)
+        if len(v1) == 1 and len(v2) == 1:
+            a, b = v1[0], v2[0]
+            c = self.version_cmp(a, b)
+            if c is None:
+                return sorted((a, b))
+            return [a] if c > 0 else [b]
+        first_v = min(v1[0], v2[0])
+        out: List[int] = []
+        self._find_dominators_full_internal(
+            list(v1) + list(v2), first_v,
+            lambda v, dom: out.append(v) if dom else None)
+        return out[::-1]
+
+    def version_union(self, a: Sequence[int], b: Sequence[int]) -> Frontier:
+        out: List[int] = []
+        self._find_dominators_full_internal(
+            list(a) + list(b), None,
+            lambda v, dom: out.append(v) if dom else None)
+        return out[::-1]
+
+    # --- frontier movement ----------------------------------------------
+
+    def advance_frontier(self, f: Frontier, rng: Span) -> None:
+        """Advance `f` in place across a (fully applied) range of LVs
+        (reference: src/frontier.rs:199-214)."""
+        start, end = rng
+        i = self.find_idx(start)
+        while True:
+            e_end = min(self.ends[i], end)
+            parents = self.parents_at(start)
+            self._advance_known_run(f, parents, (start, e_end))
+            if e_end >= end:
+                break
+            start = e_end
+            i += 1
+
+    def _advance_known_run(self, f: Frontier, parents: Sequence[int], span: Span) -> None:
+        # reference: src/frontier.rs:251-281
+        last = span[1] - 1
+        if len(parents) == 1 and len(f) == 1 and parents[0] == f[0]:
+            f[0] = last
+        elif list(f) == list(parents):
+            replace_with_1(f, last)
+        else:
+            pset = set(parents)
+            f[:] = [o for o in f if o not in pset]
+            insert_nonoverlapping(f, last)
+
+    def retreat_frontier(self, f: Frontier, rng: Span) -> None:
+        """Undo a range of LVs from frontier `f` (reference: src/frontier.rs:290-340)."""
+        if span_is_empty(rng):
+            return
+        start, end = rng
+        i = self.find_idx(end - 1)
+        while True:
+            last_order = end - 1
+            t_start = self.starts[i]
+            if len(f) == 1:
+                if start > t_start:
+                    f[0] = start - 1
+                    break
+                f[:] = list(self.parents[i])
+            else:
+                f[:] = [t for t in f if t != last_order]
+                for parent in self.parents_at(max(start, t_start)):
+                    if not self.frontier_contains_version(f, parent):
+                        insert_nonoverlapping(f, parent)
+
+            if start >= t_start:
+                break
+            end = t_start
+            i -= 1
+
+    # --- export for the device tier --------------------------------------
+
+    def as_arrays(self):
+        """Columnar export: (starts, ends, shadows, parent_idx CSR) as numpy."""
+        import numpy as np
+        starts = np.asarray(self.starts, dtype=np.int64)
+        ends = np.asarray(self.ends, dtype=np.int64)
+        shadows = np.asarray(self.shadows, dtype=np.int64)
+        indptr = np.zeros(len(self.parents) + 1, dtype=np.int64)
+        flat: List[int] = []
+        for j, ps in enumerate(self.parents):
+            flat.extend(ps)
+            indptr[j + 1] = len(flat)
+        return starts, ends, shadows, indptr, np.asarray(flat, dtype=np.int64)

@@ -1,0 +1,305 @@
+"""The document operation log.
+
+Capability mirror of the reference ListOpLog (reference: src/list/mod.rs:104-126,
+src/list/oplog.rs): an append-only columnar op table + causal graph + content
+arenas. Every public entry point of the reference's stable list API is here:
+local/remote append paths, checkout, transformed-op iteration, stats.
+
+The port keeps the pure-Python engine only: there is no native context, no
+native batched ingest session, and conflict counting runs the Python
+transform. `oplog_from_columns` rebuilds an oplog from plain columns, so
+histories carry across from any other implementation without sharing its
+objects.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+from ..causalgraph.causal_graph import CausalGraph
+from ..core.span import Span
+from ..listmerge.transform import TransformedOps
+from .op import DEL, INS, OpRun, OpStore
+
+
+class OpLog:
+    __slots__ = ("cg", "ops", "doc_id")
+
+    def __init__(self) -> None:
+        self.cg = CausalGraph()
+        self.ops = OpStore()
+        self.doc_id: Optional[str] = None
+
+    def __len__(self) -> int:
+        return len(self.cg)
+
+    def get_or_create_agent_id(self, name: str) -> int:
+        return self.cg.get_or_create_agent(name)
+
+    @property
+    def version(self) -> List[int]:
+        return list(self.cg.version)
+
+    # --- local append path (reference: src/list/oplog.rs:203-296) ---------
+
+    def add_insert_at(self, agent: int, parents: Sequence[int], pos: int,
+                      content: str) -> int:
+        """Append an insert op; returns the last new LV."""
+        lv = len(self)
+        self.ops.push_op(lv, INS, pos, pos + len(content), True, content)
+        self.cg.assign_local_op_with_parents(parents, agent, len(content))
+        return lv + len(content) - 1
+
+    def add_delete_at(self, agent: int, parents: Sequence[int], start: int,
+                      end: int, content: Optional[str] = None) -> int:
+        lv = len(self)
+        n = end - start
+        assert n > 0
+        self.ops.push_op(lv, DEL, start, end, True, content)
+        self.cg.assign_local_op_with_parents(parents, agent, n)
+        return lv + n - 1
+
+    def add_insert(self, agent: int, pos: int, content: str) -> int:
+        return self.add_insert_at(agent, self.version, pos, content)
+
+    def add_delete_without_content(self, agent: int, start: int, end: int) -> int:
+        return self.add_delete_at(agent, self.version, start, end)
+
+    def apply_local_patches(self, agent: int,
+                            patches: Sequence[Tuple[int, int, str]]) -> int:
+        """Bulk local ingest: apply `[(pos, num_deleted, ins_text), ...]`
+        patches (delete first, then insert — the editing-trace convention)
+        as one linear chain on top of the current version. Semantically
+        identical to calling add_delete_without_content/add_insert per
+        patch, but the RLE grouping and bookkeeping are vectorized so
+        ingest runs at array speed instead of Python-call speed
+        (reference: the grouped-RLE apply path, crates/bench/src/main.rs
+        local/apply_grouped_rle:56-72). Returns the last new LV.
+
+        The positional RLE merge rules mirror OpStore.push_op /
+        can_append_ops (op_metrics.rs:235-256): forward insert runs chain
+        end-to-start, delete-key runs repeat one position, backspace runs
+        chain start-to-end. A chain's direction is fixed by its first
+        link; a direction flip starts a new run (at worst slightly less
+        compact than the sequential merger, never wrong).
+        """
+        import numpy as np
+
+        if len(patches) == 0:
+            return len(self) - 1
+        pos_l, nd_l, txt_l = zip(*patches)
+        return self.apply_local_patch_columns(
+            agent,
+            np.array(pos_l, dtype=np.int64),
+            np.array(nd_l, dtype=np.int64),
+            np.array(list(map(len, txt_l)), dtype=np.int64),
+            "".join(txt_l))
+
+    def apply_local_patch_columns(self, agent: int, pos, nd, ni,
+                                  ins_text: str) -> int:
+        """Columnar core of apply_local_patches: `pos`/`nd`/`ni` are int64
+        arrays (patch position, deleted count, inserted count) and
+        `ins_text` is every patch's inserted text concatenated. Pure
+        array math end-to-end — the shape the trace loader (and any
+        network ingest path) can produce directly."""
+        import numpy as np
+
+        has_d = nd > 0
+        has_i = ni > 0
+        cnt = has_d.astype(np.int64) + has_i.astype(np.int64)
+        m = int(cnt.sum())
+        if m == 0:
+            return len(self) - 1
+        # interleave per-patch (delete, insert) ops into one dense stream
+        slot = np.cumsum(cnt) - cnt
+        kind = np.empty(m, np.int64)
+        s = np.empty(m, np.int64)
+        e = np.empty(m, np.int64)
+        ds = slot[has_d]
+        kind[ds] = DEL
+        s[ds] = pos[has_d]
+        e[ds] = pos[has_d] + nd[has_d]
+        is_ = (slot + has_d)[has_i]
+        kind[is_] = INS
+        s[is_] = pos[has_i]
+        e[is_] = pos[has_i] + ni[has_i]
+        ln = e - s
+
+        # pairwise link types between op i and i+1:
+        #   1 = forward chain (ins end-to-start / delete-key same-start)
+        #   2 = backspace chain, 0 = no merge
+        pk, ck = kind[:-1], kind[1:]
+        link_fwd = ((pk == ck)
+                    & (((ck == INS) & (s[1:] == e[:-1]))
+                       | ((ck == DEL) & (s[1:] == s[:-1]))))
+        link_back = (pk == DEL) & (ck == DEL) & (e[1:] == s[:-1])
+        ltype = np.where(link_fwd, 1, np.where(link_back, 2, 0))
+        brk = np.empty(m, dtype=bool)
+        brk[0] = True
+        brk[1:] = ltype == 0
+        if m > 2:
+            # direction flip inside a live chain starts a new run
+            brk[2:] |= (ltype[:-1] != 0) & (ltype[1:] != ltype[:-1])
+
+        firsts = np.flatnonzero(brk)
+        counts = np.diff(np.append(firsts, m))
+        lasts = firsts + counts - 1
+        g_len = np.add.reduceat(ln, firsts)
+        tip = len(self)
+        g_lv = tip + np.cumsum(g_len) - g_len
+        g_kind = kind[firsts]
+        g_back = np.zeros(len(firsts), dtype=bool)
+        multi = counts > 1
+        g_back[multi] = ltype[firsts[multi]] == 2
+        g_start = np.where(g_back, s[lasts], s[firsts])
+        g_end = np.where(g_back, e[firsts], g_start + g_len)
+
+        # insert contents: one arena append, cumulative char offsets
+        base, _ = self.ops._arenas[INS].push(ins_text) if ins_text \
+            else (0, 0)
+        ins_ln = np.where(kind == INS, ln, 0)
+        coff = np.cumsum(ins_ln) - ins_ln
+
+        # one tolist() per column (C-speed int conversion) — per-element
+        # numpy scalar indexing made this loop the whole ingest cost
+        runs = self.ops.runs
+        cp0 = (base + coff[firsts]).tolist()
+        for lv, k, st, en, back, c0, gl in zip(
+                g_lv.tolist(), g_kind.tolist(), g_start.tolist(),
+                g_end.tolist(), g_back.tolist(), cp0, g_len.tolist()):
+            runs.append(OpRun(lv, k, st, en, not back,
+                              (c0, c0 + gl) if k == INS else None))
+
+        total = int(g_len.sum())
+        self.cg.assign_local_op_with_parents(self.version, agent, total)
+        return tip + total - 1
+
+    # --- remote append path ------------------------------------------------
+
+    def add_remote_op(self, agent: int, seq_start: int, parents: Sequence[int],
+                      kind: int, start: int, end: int, fwd: bool,
+                      content: Optional[str]) -> Span:
+        """Merge a remote op run; dedups already-known spans via the causal
+        graph (reference: decode path, causalgraph.rs:132)."""
+        n = end - start
+        span = self.cg.merge_and_assign(parents, agent, seq_start, n)
+        new_len = span[1] - span[0]
+        if new_len > 0:
+            skip = n - new_len
+            if skip and content is not None:
+                content = content[skip:]
+            if skip:
+                from .op import sub_op_loc
+                start, end = sub_op_loc(kind, start, end, fwd, skip, n)
+            self.ops.push_op(span[0], kind, start, end, fwd, content)
+        return span
+
+    # --- transformed ops ---------------------------------------------------
+
+    def get_xf_operations_full(self, from_frontier: Sequence[int],
+                               merge_frontier: Sequence[int]) -> TransformedOps:
+        return TransformedOps(self.cg.graph, self.cg.agent_assignment, self.ops,
+                              list(from_frontier), list(merge_frontier))
+
+    def iter_xf_operations_from(self, from_frontier: Sequence[int],
+                                merge_frontier: Sequence[int]
+                                ) -> Iterator[Tuple[Span, Optional[OpRun], Optional[str]]]:
+        """Yield (lv_span, transformed_op | None, content | None)."""
+        xf = self.get_xf_operations_full(from_frontier, merge_frontier)
+        for lv, op, pos in xf:
+            n = len(op)
+            if pos is None:
+                yield ((lv, lv + n), None, None)
+            else:
+                moved = OpRun(op.lv, op.kind, pos, pos + n, op.fwd, op.content_pos)
+                yield ((lv, lv + n), moved, self.ops.get_run_content(op))
+
+    def iter_xf_operations(self):
+        return self.iter_xf_operations_from([], self.version)
+
+    # --- conflict detection --------------------------------------------------
+
+    def count_conflicts_when_merging(
+            self, from_frontier: Sequence[int],
+            merge_frontier: Optional[Sequence[int]] = None) -> int:
+        """How many genuinely colliding concurrent inserts the merge from
+        `from_frontier` to `merge_frontier` (default: tip) resolves —
+        concurrent inserts landing in the same document gap, the YjsMod
+        tie-break actually firing. 0 means the merge is trivial: positions
+        transform cleanly with no insert-order ambiguity. The exact count
+        is engine-granularity-specific (RLE runs, not chars); only
+        zero-vs-nonzero is engine-independent — the reference likewise
+        keeps only a boolean flag.
+
+        Reference: `has_conflicts_when_merging` (src/list/merge.rs:51) and
+        the merge_conflict_checks collision flag (listmerge/mod.rs:50-51,
+        merge.rs:176-179)."""
+        merge = list(self.version) if merge_frontier is None \
+            else list(merge_frontier)
+        frm = [int(x) for x in from_frontier]
+        xf = self.get_xf_operations_full(frm, merge)
+        for _ in xf:
+            pass
+        return xf.collisions
+
+    def has_conflicts_when_merging(
+            self, from_frontier: Sequence[int],
+            merge_frontier: Optional[Sequence[int]] = None) -> bool:
+        return self.count_conflicts_when_merging(
+            from_frontier, merge_frontier) > 0
+
+    # --- checkout ----------------------------------------------------------
+
+    def checkout(self, frontier: Sequence[int]):
+        from .branch import Branch
+        b = Branch()
+        b.merge(self, frontier)
+        return b
+
+    def checkout_tip(self):
+        return self.checkout(self.version)
+
+    # --- misc ---------------------------------------------------------------
+
+    def print_stats(self) -> None:
+        print(f"oplog: {len(self)} LVs in {len(self.ops.runs)} op runs, "
+              f"{len(self.cg.graph)} graph runs, "
+              f"{len(self.cg.agent_assignment.agent_names)} agents, "
+              f"ins arena {self.ops.arena_len(INS)} chars, "
+              f"del arena {self.ops.arena_len(DEL)} chars")
+
+
+def oplog_from_columns(cols: Dict) -> OpLog:
+    """Build an OpLog from plain columns, one row per op run in LV order.
+
+    Keys: `agents` (list of agent names); per run `lv_start`, `lv_end`,
+    `agent` (index into `agents`), `seq` (the agent's first seq),
+    `parents_indptr` / `parents` (CSR of the run's parent LVs), `kind`
+    (INS / DEL), `start`, `end`, `fwd`, all numpy arrays, and `content`
+    (a list of str or None). Every run goes through the remote append
+    path, so LV numbering, parents, agents and positions carry over and
+    the result has the same version and checkout as the source."""
+    out = OpLog()
+    agent_ids = [out.get_or_create_agent_id(str(a)) for a in cols["agents"]]
+    indptr = cols["parents_indptr"]
+    flat = cols["parents"]
+    content = cols["content"]
+    for r in range(len(cols["lv_start"])):
+        lv0 = int(cols["lv_start"][r])
+        n = int(cols["lv_end"][r]) - lv0
+        if lv0 != len(out):
+            raise ValueError(f"run {r} starts at LV {lv0}, expected "
+                             f"{len(out)}: runs must be dense and in order")
+        parents = [int(p) for p in flat[int(indptr[r]):int(indptr[r + 1])]]
+        start = int(cols["start"][r])
+        end = int(cols["end"][r])
+        if end - start != n:
+            raise ValueError(f"run {r}: loc span {end - start} != LV span {n}")
+        span = out.add_remote_op(agent_ids[int(cols["agent"][r])],
+                                 int(cols["seq"][r]), parents,
+                                 int(cols["kind"][r]), start, end,
+                                 bool(cols["fwd"][r]), content[r])
+        if span != (lv0, lv0 + n):
+            raise ValueError(f"run {r} landed at LVs {span}, "
+                             f"expected {(lv0, lv0 + n)}")
+    return out

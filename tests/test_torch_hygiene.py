@@ -1,0 +1,78 @@
+"""Import hygiene of the PyTorch port.
+
+The port imports nothing of JAX and nothing of the JAX package, not even
+its JAX-free modules, and its device entry points refuse to run on the
+CPU unless the caller asks for it.
+"""
+
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import diamond_types_tpu_torch
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _port_modules():
+    pkg = diamond_types_tpu_torch
+    return sorted(m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                        pkg.__name__ + "."))
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    mods = _port_modules()
+    assert "diamond_types_tpu_torch.gpu.kernels" in mods
+    assert "diamond_types_tpu_torch.gpu.flush_fuse" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {['diamond_types_tpu_torch'] + mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'diamond_types_tpu')"
+        " or m.startswith(('jax.', 'jaxlib', 'diamond_types_tpu.'))]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_import_builds_nothing():
+    """Kernels build at first launch, never at import."""
+    from diamond_types_tpu_torch.gpu import kernels
+    assert kernels._libs == {}
+
+
+def test_device_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from diamond_types_tpu_torch import OpLog
+    from diamond_types_tpu_torch.gpu import batch, flush_fuse, kernels
+    from diamond_types_tpu_torch.gpu import resolve_device
+    ol = OpLog()
+    ol.add_insert(ol.get_or_create_agent_id("a"), 0, "abc")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        flush_fuse.FusedDocSession(ol)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batch.replay_batch([[0]], [[0]], [[1]], [[[97]]], cap=256)
+    assert resolve_device("cpu") == torch.device("cpu")
+    s = flush_fuse.FusedDocSession(ol, device="cpu")
+    assert s.text() == "abc" and s.docs.device.type == "cpu"
+    assert isinstance(kernels.apply_ops_window.launches, int)
+
+
+def test_chip_smoke_fails_without_cuda():
+    """The smoke test drives the card only: without one it exits nonzero
+    and prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the smoke would run")
+    r = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                       cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout and "CUDA" in r.stderr

@@ -1,0 +1,148 @@
+"""Shared inputs for the port's parity tests (tests/test_torch_*.py).
+
+One seeded edit history is driven into several OpLogs at once: one from
+the JAX package and one from the PyTorch port. Every decision comes from a
+numpy generator and the FIRST oplog's state, and the same calls go to
+every oplog, so any divergence between the packages shows up as unequal
+versions, transformed ops or text.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence
+
+import numpy as np
+
+ASCII = "abcdefghij"
+# astral-plane emoji and math letters, CJK, combining marks, RTL text
+UNICODE = "aé中文😀🎉ßΏñ𝔘ש‍क़"
+
+
+def rand_text(rng: np.random.Generator, n: int, alphabet: str) -> str:
+    return "".join(alphabet[i] for i in rng.integers(0, len(alphabet), n))
+
+
+class TwinDocs:
+    """The same document history in each of `oplogs` (same agents, same
+    calls). Each agent edits on its own Branch, forked from the oplog's
+    tip when the agent first appears, and merges the tip back in now and
+    then, so the histories are concurrent."""
+
+    def __init__(self, oplogs: Sequence, seed: int,
+                 alphabet: str = ASCII) -> None:
+        self.oplogs = list(oplogs)
+        self.rng = np.random.default_rng(seed)
+        self.alphabet = alphabet
+        self.branches: List[Dict[str, object]] = [{} for _ in self.oplogs]
+
+    def _branches(self, name: str) -> list:
+        out = []
+        for ol, br in zip(self.oplogs, self.branches):
+            if name not in br:
+                ol.get_or_create_agent_id(name)
+                br[name] = ol.checkout_tip()
+            out.append(br[name])
+        return out
+
+    def insert(self, name: str, pos: int, text: str) -> None:
+        for ol, b in zip(self.oplogs, self._branches(name)):
+            b.insert(ol, ol.get_or_create_agent_id(name), pos, text)
+
+    def delete(self, name: str, start: int, end: int) -> None:
+        for ol, b in zip(self.oplogs, self._branches(name)):
+            b.delete(ol, ol.get_or_create_agent_id(name), start, end)
+
+    def merge_tip(self, name: str) -> None:
+        for ol, b in zip(self.oplogs, self._branches(name)):
+            b.merge(ol, ol.version)
+
+    def doc_len(self, name: str) -> int:
+        return len(self._branches(name)[0])
+
+    def type_base(self, name: str, n: int) -> None:
+        """One agent types `n` chars at the tip, in runs of up to 64."""
+        done = 0
+        while done < n:
+            k = min(64, n - done)
+            self.insert(name, done, rand_text(self.rng, k, self.alphabet))
+            done += k
+
+    def edits(self, name: str, n: int, max_ins: int = 12,
+              max_del: int = 9) -> None:
+        """`n` random edits by `name`: inserts of 1..max_ins chars,
+        deletes of 1..max_del chars, delete-key and backspace runs."""
+        rng = self.rng
+        for _ in range(n):
+            cur = self.doc_len(name)
+            r = rng.random()
+            if cur and r < 0.2:
+                # backspace run: consecutive single deletes moving left,
+                # which the op store merges into one reversed delete run
+                p = int(rng.integers(1, cur + 1))
+                for _ in range(int(rng.integers(2, 5))):
+                    if p == 0:
+                        break
+                    self.delete(name, p - 1, p)
+                    p -= 1
+            elif cur and r < 0.3:
+                # delete-key run: repeated deletes at one position
+                p = int(rng.integers(0, cur))
+                for _ in range(int(rng.integers(2, 5))):
+                    if p >= self.doc_len(name):
+                        break
+                    self.delete(name, p, p + 1)
+            elif cur and r < 0.5:
+                p = int(rng.integers(0, cur))
+                end = min(p + int(rng.integers(1, max_del + 1)), cur)
+                self.delete(name, p, end)
+            else:
+                p = int(rng.integers(0, cur + 1))
+                k = int(rng.integers(1, max_ins + 1))
+                self.insert(name, p, rand_text(rng, k, self.alphabet))
+
+    def concurrent_round(self, names: Sequence[str], n_each: int,
+                         max_ins: int = 12, max_del: int = 9) -> None:
+        """Each agent makes `n_each` edits on its own branch (concurrently
+        with the others), then the first one merges the tip and edits once
+        more on top of the merge."""
+        for name in names:
+            self.edits(name, n_each, max_ins, max_del)
+        self.merge_tip(names[0])
+        self.edits(names[0], 1, max_ins, max_del)
+
+
+def export_columns(ol) -> dict:
+    """An OpLog's history as the plain columns `oplog_from_columns` takes:
+    one row per op run, split at graph-entry and agent-run boundaries (the
+    walk `__graft_entry__._prefix_oplog` does)."""
+    aa = ol.cg.agent_assignment
+    cols = {"agents": list(aa.agent_names), "lv_start": [], "lv_end": [],
+            "agent": [], "seq": [], "parents": [], "parents_indptr": [0],
+            "kind": [], "start": [], "end": [], "fwd": [], "content": []}
+    for lo, hi, parents, agent, seq in ol.cg.iter_entries():
+        for piece in ol.ops.iter_range((lo, hi)):
+            cols["lv_start"].append(piece.lv)
+            cols["lv_end"].append(piece.lv + len(piece))
+            cols["agent"].append(agent)
+            cols["seq"].append(seq + piece.lv - lo)
+            ps = list(parents) if piece.lv == lo else [piece.lv - 1]
+            cols["parents"].extend(ps)
+            cols["parents_indptr"].append(len(cols["parents"]))
+            cols["kind"].append(piece.kind)
+            cols["start"].append(piece.start)
+            cols["end"].append(piece.end)
+            cols["fwd"].append(piece.fwd)
+            cols["content"].append(ol.ops.get_run_content(piece))
+    for k in ("lv_start", "lv_end", "seq", "parents", "parents_indptr",
+              "start", "end"):
+        cols[k] = np.asarray(cols[k], np.int64)
+    cols["agent"] = np.asarray(cols["agent"], np.int32)
+    cols["kind"] = np.asarray(cols["kind"], np.int8)
+    cols["fwd"] = np.asarray(cols["fwd"], bool)
+    return cols
+
+
+def xf_rows(ol, frm, to) -> list:
+    """The transformed-op stream as comparable tuples."""
+    return [(lv, op.kind, len(op), op.fwd, pos, ol.ops.get_run_content(op))
+            for lv, op, pos in ol.get_xf_operations_full(frm, to)]
