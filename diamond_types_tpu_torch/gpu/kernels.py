@@ -1,11 +1,19 @@
 """Hand-written Hopper kernels: build, load, wrappers and plain versions.
 
-K1, `apply_ops_window`, replays a whole flush window (`[b, n]` op tape over
-`[b, cap]` document rows) in one launch of `csrc/apply_ops.cu`. It is the
-port of the JAX package's Pallas kernel `tpu/pallas_kernels.py::
-apply_op_block`, which applies one op per row and is launched n times per
-window inside a scan (`tpu/flush_fuse.py::make_pallas_replay_body`); the
-source's header says how it is laid out and what bounds it.
+Each is the port of one Pallas kernel of the JAX package's
+`tpu/pallas_kernels.py`; each source's header says how it is laid out and
+what bounds it.
+
+  K1 `apply_ops_window` (`csrc/apply_ops.cu`, from `apply_op_block`):
+     replays a whole flush window (`[b, n]` op tape over `[b, cap]` document
+     rows) in one launch; the TPU kernel applies one op per row and is
+     launched n times per window inside a scan.
+  K2 `xform_positions` (`csrc/xform_positions.cu`, from
+     `xform_positions_pallas`): the device transform's position scans over
+     a bucket's doc-order columns `[b, n]`, one launch per bucket.
+  K3 `materialize_runs` (`csrc/materialize.cu`, from `materialize_pallas`):
+     the device checkout's text assembly for a batch of documents, one
+     launch per batch, any run count.
 
 Build: each `csrc/*.cu` compiles with `nvcc` for `sm_90a` into a shared
 library with a plain C interface, at first use, into `_build/` beside this
@@ -33,6 +41,7 @@ from typing import Dict, Iterable, Optional, Tuple
 import torch
 
 from .batch import _apply_ops_batched
+from .linearize import materialize
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -40,7 +49,9 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # kernel name -> its source in csrc/
-SOURCES = {"apply_ops": "apply_ops.cu"}
+SOURCES = {"apply_ops": "apply_ops.cu",
+           "xform_positions": "xform_positions.cu",
+           "materialize": "materialize.cu"}
 # dynamic shared memory one block may use on Hopper (227 KB)
 MAX_SMEM_BYTES = 232448
 
@@ -122,12 +133,42 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.dt_apply_ops_window.restype = i
         lib.dt_apply_ops_window_smem_bytes.argtypes = [i, i, i]
         lib.dt_apply_ops_window_smem_bytes.restype = i
+    elif name == "xform_positions":
+        lib.dt_xform_positions.argtypes = [p, p, p, p, p, i, i, p]
+        lib.dt_xform_positions.restype = i
+    elif name == "materialize":
+        lib.dt_materialize_runs.argtypes = [p, p, p, p, p, p, p,
+                                            i, i, i, i, i, p]
+        lib.dt_materialize_runs.restype = i
+        lib.dt_materialize_runs_smem_bytes.argtypes = [i]
+        lib.dt_materialize_runs_smem_bytes.restype = i
 
 
 def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.dt_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")
+
+
+def _check_int32(device: torch.device, **ts: torch.Tensor) -> None:
+    for name, t in ts.items():
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def _launch_device(device: torch.device, **ts: torch.Tensor) -> bool:
+    """True for CUDA tensors (launch the kernel; they must be contiguous),
+    False for CPU tensors (run the plain version); raises otherwise."""
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    for name, t in ts.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -196,15 +237,10 @@ def apply_ops_window(docs: torch.Tensor, lens: torch.Tensor,
 
     CUDA tensors launch K1 once; CPU tensors run `apply_ops_window_plain`."""
     _check_window(docs, lens, pos, dlen, ilen, chars, max_ins)
-    if docs.device.type == "cpu":
+    if not _launch_device(docs.device, docs=docs, lens=lens, pos=pos,
+                          dlen=dlen, ilen=ilen, chars=chars):
         return apply_ops_window_plain(docs, lens, pos, dlen, ilen, chars,
                                       max_ins)
-    if docs.device.type != "cuda":
-        raise ValueError(f"unsupported device {docs.device}")
-    for name, t in (("docs", docs), ("lens", lens), ("pos", pos),
-                    ("dlen", dlen), ("ilen", ilen), ("chars", chars)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     b, cap = docs.shape
     n = pos.shape[1]
     out_docs = torch.empty_like(docs)
@@ -227,3 +263,107 @@ def apply_ops_window(docs: torch.Tensor, lens: torch.Tensor,
 
 
 apply_ops_window.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: the device transform's position scans over a bucket
+# ---------------------------------------------------------------------------
+
+def xform_positions_plain(nv: torch.Tensor, ov: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """K2's plain version over doc-order columns nv, ov [b, n] int32:
+    (pos [b, n] = exclusive prefix sum of nv, new_len [b] = sum of nv,
+    peak [b] = max(0, max prefix sum of nv - ov)), int32 throughout."""
+    b, n = nv.shape
+    if n == 0:
+        z = torch.zeros(b, dtype=torch.int32, device=nv.device)
+        return torch.zeros_like(nv), z, z.clone()
+    cum = torch.cumsum(nv, dim=1, dtype=torch.int32)
+    delta = torch.cumsum(nv - ov, dim=1, dtype=torch.int32)
+    return cum - nv, cum[:, -1], delta.max(dim=1).values.clamp(min=0)
+
+
+def xform_positions(nv: torch.Tensor, ov: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(pos [b, n], new_len [b], peak [b]) for doc-order columns nv, ov
+    [b, n] int32 on one device. CUDA tensors launch K2 once; CPU tensors
+    run `xform_positions_plain`."""
+    if nv.dim() != 2 or nv.shape != ov.shape:
+        raise ValueError(f"nv and ov must be one [b, n] shape, got "
+                         f"{tuple(nv.shape)} and {tuple(ov.shape)}")
+    _check_int32(nv.device, nv=nv, ov=ov)
+    if not _launch_device(nv.device, nv=nv, ov=ov):
+        return xform_positions_plain(nv, ov)
+    b, n = nv.shape
+    pos = torch.empty_like(nv)
+    new_len = torch.empty(b, dtype=torch.int32, device=nv.device)
+    peak = torch.empty_like(new_len)
+    if b == 0:
+        return pos, new_len, peak
+    lib = _lib("xform_positions")
+    with torch.cuda.device(nv.device):
+        stream = torch.cuda.current_stream(nv.device).cuda_stream
+        rc = lib.dt_xform_positions(nv.data_ptr(), ov.data_ptr(),
+                                    pos.data_ptr(), new_len.data_ptr(),
+                                    peak.data_ptr(), b, n, stream)
+    _raise_on(lib, rc, "xform_positions launch")
+    xform_positions.launches += 1
+    return pos, new_len, peak
+
+
+xform_positions.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: the device checkout's text assembly over a batch of documents
+# ---------------------------------------------------------------------------
+
+def materialize_runs(perm: torch.Tensor, vis_len: torch.Tensor,
+                     arena_off: torch.Tensor, arena: torch.Tensor,
+                     cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lay each row's runs out in perm order: perm, vis_len, arena_off
+    [b, n] int32, arena [b, pool] int32 (pool >= 1), cap >= 1. Returns
+    (text [b, cap] int32, total [b] int32, not clipped at cap).
+
+    CUDA tensors launch K3 once; CPU tensors run its plain version,
+    `linearize.materialize`. In contract vis_len >= 0 and each perm row
+    is a permutation of range(n)."""
+    if perm.dim() != 2 or not perm.shape == vis_len.shape == arena_off.shape:
+        raise ValueError("perm, vis_len and arena_off must be one [b, n] "
+                         f"shape, got {tuple(perm.shape)}, "
+                         f"{tuple(vis_len.shape)}, {tuple(arena_off.shape)}")
+    b, n = perm.shape
+    if arena.dim() != 2 or arena.shape[0] != b or arena.shape[1] < 1:
+        raise ValueError(f"arena must be [b={b}, pool>=1], got "
+                         f"{tuple(arena.shape)}")
+    if cap < 1:
+        raise ValueError(f"cap must be >= 1, got {cap}")
+    ts = {"perm": perm, "vis_len": vis_len, "arena_off": arena_off,
+          "arena": arena}
+    _check_int32(perm.device, **ts)
+    if not _launch_device(perm.device, **ts):
+        return materialize(perm, vis_len, arena_off, arena, cap)
+    out = torch.empty((b, cap), dtype=torch.int32, device=perm.device)
+    total = torch.empty(b, dtype=torch.int32, device=perm.device)
+    if b == 0:
+        return out, total
+    lib = _lib("materialize")
+    # the static warp-total buffer shares the block's shared memory
+    in_smem = lib.dt_materialize_runs_smem_bytes(n) <= MAX_SMEM_BYTES - 1024
+    scratch = (None if in_smem else
+               torch.empty((b, n + 1), dtype=torch.int32, device=perm.device))
+    with torch.cuda.device(perm.device):
+        stream = torch.cuda.current_stream(perm.device).cuda_stream
+        rc = lib.dt_materialize_runs(
+            perm.data_ptr(), vis_len.data_ptr(), arena_off.data_ptr(),
+            arena.data_ptr(), out.data_ptr(), total.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(), b, n,
+            arena.shape[1], cap, int(in_smem),
+            stream)
+    _raise_on(lib, rc, "materialize_runs launch")
+    materialize_runs.launches += 1
+    return out, total
+
+
+materialize_runs.launches = 0

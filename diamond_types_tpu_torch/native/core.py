@@ -1,0 +1,227 @@
+"""ctypes bindings over the port's build of the C++ merge core.
+
+The part of the JAX package's `native/core.py` that the device transform
+and the device checkout use: `NativeContext` (a C++ mirror of an OpLog's
+graph, agent runs and op runs) with the tracker transform and its dumps,
+`content_columns` and `get_native_ctx`. The library comes from
+`native/build.py` at first use, never at import.
+"""
+
+from __future__ import annotations
+
+import ctypes as ct
+import threading
+from typing import Sequence
+
+import numpy as np
+
+from ..core.span import UNDERWATER_START as UNDERWATER
+from ..text.op import INS
+from .build import build
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def _load():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            path, _secs = build()
+            lib = ct.CDLL(str(path))
+            _configure(lib)
+            _lib = lib
+        return _lib
+
+
+def _configure(lib) -> None:
+    i64, vp = ct.c_int64, ct.c_void_p
+    a64 = np.ctypeslib.ndpointer(np.int64, flags="C")
+    a32 = np.ctypeslib.ndpointer(np.int32, flags="C")
+    au8 = np.ctypeslib.ndpointer(np.uint8, flags="C")
+    lib.dt_ctx_new.restype = vp
+    lib.dt_ctx_free.argtypes = [vp]
+    lib.dt_add_agent.argtypes = [vp, ct.c_char_p]
+    lib.dt_load_graph.argtypes = [vp, i64] + [a64] * 5
+    lib.dt_load_agent_runs.argtypes = [vp, i64] + [a64] * 4
+    lib.dt_load_ops.argtypes = [vp, i64, a64, au8, au8, a64, a64, a64]
+    lib.dt_load_ins_arena.argtypes = [vp, i64, a32]
+    lib.dt_merge_into_doc.argtypes = [vp, a32, i64, a64, i64, a64, i64]
+    lib.dt_merge_into_doc.restype = i64
+    lib.dt_get_doc.argtypes = [vp, a32]
+    lib.dt_transform.argtypes = [vp, a64, i64, a64, i64]
+    lib.dt_transform.restype = i64
+    lib.dt_get_out.argtypes = [vp, a64, a64, au8, au8, a64]
+    lib.dt_get_out_frontier.argtypes = [vp, a64, i64]
+    lib.dt_get_out_frontier.restype = i64
+    lib.dt_dump_tracker.argtypes = [vp, i64, a64, a64, a64, a64, a64, au8]
+    lib.dt_dump_tracker.restype = i64
+    lib.dt_dump_del_rows.argtypes = [vp, i64, a64, a64, a64, a64, au8]
+    lib.dt_dump_del_rows.restype = i64
+    lib.dt_get_zone_common.argtypes = [vp, a64, i64]
+    lib.dt_get_zone_common.restype = i64
+    lib.dt_release_tracker.argtypes = [vp]
+
+
+def _read_frontier(fn, ptr, first: int = 16):
+    buf = np.empty(first, dtype=np.int64)
+    k = fn(ptr, buf, first)
+    if k > first:
+        buf = np.empty(k, dtype=np.int64)
+        fn(ptr, buf, k)
+    return [int(x) for x in buf[:k]]
+
+
+class NativeContext:
+    """A C++ mirror of an OpLog's merge-relevant state (graph, agent runs,
+    op runs). Rebuilt lazily when the oplog grows."""
+
+    def __init__(self, oplog) -> None:
+        self._lib = _load()
+        self._ptr = self._lib.dt_ctx_new()
+        self._built_len = -1
+        self._oplog = oplog
+
+    def __del__(self):
+        try:
+            self._lib.dt_ctx_free(self._ptr)
+        except Exception:
+            pass
+
+    def sync(self) -> None:
+        ol = self._oplog
+        if self._built_len == len(ol):
+            return
+        lib = self._lib
+        # rebuild from scratch (bulk load is cheap: O(n) columnar copies)
+        lib.dt_ctx_free(self._ptr)
+        self._ptr = lib.dt_ctx_new()
+        for name in ol.cg.agent_assignment.agent_names:
+            lib.dt_add_agent(self._ptr, name.encode("utf8"))
+        starts, ends, shadows, indptr, flat = ol.cg.graph.as_arrays()
+        if flat.size == 0:
+            flat = np.zeros(1, dtype=np.int64)
+        lib.dt_load_graph(self._ptr, len(starts),
+                          np.ascontiguousarray(starts),
+                          np.ascontiguousarray(ends),
+                          np.ascontiguousarray(shadows),
+                          np.ascontiguousarray(indptr),
+                          np.ascontiguousarray(flat))
+        gr = ol.cg.agent_assignment.global_runs
+        cols = [np.asarray([r[k] for r in gr], dtype=np.int64)
+                for k in range(4)]
+        lib.dt_load_agent_runs(self._ptr, len(gr), *cols)
+        runs = ol.ops.runs
+        lv = np.asarray([r.lv for r in runs], dtype=np.int64)
+        kind = np.asarray([r.kind for r in runs], dtype=np.uint8)
+        fwd = np.asarray([1 if r.fwd else 0 for r in runs], dtype=np.uint8)
+        st = np.asarray([r.start for r in runs], dtype=np.int64)
+        en = np.asarray([r.end for r in runs], dtype=np.int64)
+        cp, arena, arena_chars = content_columns(ol)
+        lib.dt_load_ops(self._ptr, len(runs), lv, kind, fwd, st, en, cp)
+        lib.dt_load_ins_arena(self._ptr, arena_chars,
+                              np.ascontiguousarray(arena))
+        self._built_len = len(ol)
+
+    def transform(self, from_frontier: Sequence[int],
+                  merge_frontier: Sequence[int]):
+        """Returns (lv, len, kind, fwd, pos arrays, final_frontier)."""
+        self.sync()
+        lib = self._lib
+        f = np.asarray(sorted(from_frontier), dtype=np.int64)
+        m = np.asarray(sorted(merge_frontier), dtype=np.int64)
+        n = lib.dt_transform(self._ptr, f, len(f), m, len(m))
+        lv = np.empty(n, dtype=np.int64)
+        ln = np.empty(n, dtype=np.int64)
+        kind = np.empty(n, dtype=np.uint8)
+        fwd = np.empty(n, dtype=np.uint8)
+        pos = np.empty(n, dtype=np.int64)
+        if n:
+            lib.dt_get_out(self._ptr, lv, ln, kind, fwd, pos)
+        frontier = _read_frontier(lib.dt_get_out_frontier, self._ptr)
+        return lv, ln, kind, fwd, pos, frontier
+
+    def release_tracker(self) -> None:
+        """Free the tracker tables retained for dump_tracker/zone_common."""
+        self._lib.dt_release_tracker(self._ptr)
+
+    def zone_common(self):
+        """Common-ancestor frontier of the last transform's conflict zone
+        (the version whose document the underwater id space tiles)."""
+        return _read_frontier(self._lib.dt_get_zone_common, self._ptr, 64)
+
+    def dump_tracker(self, keep_underwater: bool = False):
+        """Item table of the last transform's tracker, in DOCUMENT order:
+        (ids, len, origin_left, origin_right, state, ever) arrays.
+        Underwater sentinel rows (ids >= 1<<62) are the pre-zone document
+        text (anchor targets for zone items); filtered unless requested."""
+        lib = self._lib
+        z = np.zeros(0, dtype=np.int64)
+        zu = np.zeros(0, dtype=np.uint8)
+        n = lib.dt_dump_tracker(self._ptr, 0, z, z, z, z, z, zu)
+        ids, ln, ol, orr, st = (np.empty(n, dtype=np.int64)
+                                for _ in range(5))
+        ev = np.empty(n, dtype=np.uint8)
+        if n:
+            lib.dt_dump_tracker(self._ptr, n, ids, ln, ol, orr, st, ev)
+        if not keep_underwater:
+            keep = ids < UNDERWATER
+            return (ids[keep], ln[keep], ol[keep], orr[keep], st[keep],
+                    ev[keep])
+        return (ids, ln, ol, orr, st, ev)
+
+    def dump_del_rows(self):
+        """Delete-target rows of the last transform's tracker, sorted by
+        op LV: (lv0, lv1, t0, t1, fwd) arrays — op lv0+k deletes item
+        t0+k (fwd) or t1-1-k (reversed)."""
+        lib = self._lib
+        z = np.zeros(0, dtype=np.int64)
+        zu = np.zeros(0, dtype=np.uint8)
+        n = lib.dt_dump_del_rows(self._ptr, 0, z, z, z, z, zu)
+        lv0, lv1, t0, t1 = (np.empty(n, dtype=np.int64) for _ in range(4))
+        fwd = np.empty(n, dtype=np.uint8)
+        if n:
+            lib.dt_dump_del_rows(self._ptr, n, lv0, lv1, t0, t1, fwd)
+        o = np.argsort(lv0, kind="stable")
+        return lv0[o], lv1[o], t0[o], t1[o], fwd[o]
+
+    def merge_to_string(self, init: str, from_frontier: Sequence[int],
+                        merge_frontier: Sequence[int]):
+        """Full native merge: returns (final_doc_str, final_frontier)."""
+        self.sync()
+        lib = self._lib
+        init_arr = np.frombuffer(init.encode("utf-32-le"), dtype=np.int32)
+        if init_arr.size == 0:
+            init_arr = np.zeros(1, dtype=np.int32)
+        f = np.asarray(sorted(from_frontier), dtype=np.int64)
+        m = np.asarray(sorted(merge_frontier), dtype=np.int64)
+        n = lib.dt_merge_into_doc(self._ptr, np.ascontiguousarray(init_arr),
+                                  len(init), f, len(f), m, len(m))
+        out = np.empty(max(int(n), 1), dtype=np.int32)
+        lib.dt_get_doc(self._ptr, out)
+        doc = out[:n].tobytes().decode("utf-32-le")
+        return doc, _read_frontier(lib.dt_get_out_frontier, self._ptr, 64)
+
+
+def get_native_ctx(oplog) -> NativeContext:
+    """The oplog's cached NativeContext (created on first use)."""
+    ctx = oplog._native_ctx
+    if ctx is None:
+        ctx = NativeContext(oplog)
+        oplog._native_ctx = ctx
+    return ctx
+
+
+def content_columns(oplog):
+    """(cp, arena, arena_chars) in the layout dt_load_ops /
+    dt_load_ins_arena expect: per-run insert-arena offset (-1 = no
+    content) and the whole INS arena as utf-32 code points."""
+    runs = oplog.ops.runs
+    cp = np.asarray(
+        [r.content_pos[0] if r.content_pos is not None else -1
+         for r in runs], dtype=np.int64)
+    arena_str = oplog.ops._arenas[INS].get((0, oplog.ops.arena_len(INS)))
+    arena = np.frombuffer(arena_str.encode("utf-32-le"), dtype=np.int32)
+    if arena.size == 0:
+        arena = np.zeros(1, dtype=np.int32)
+    return cp, arena, len(arena_str)

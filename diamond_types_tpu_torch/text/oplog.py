@@ -5,11 +5,12 @@ src/list/oplog.rs): an append-only columnar op table + causal graph + content
 arenas. Every public entry point of the reference's stable list API is here:
 local/remote append paths, checkout, transformed-op iteration, stats.
 
-The port keeps the pure-Python engine only: there is no native context, no
-native batched ingest session, and conflict counting runs the Python
-transform. `oplog_from_columns` rebuilds an oplog from plain columns, so
-histories carry across from any other implementation without sharing its
-objects.
+Checkout, merge and conflict counting run the pure-Python engine; the port
+has no native batched ingest session. The device transform and the device
+checkout reach the C++ merge core through `native.core.get_native_ctx`,
+which caches its `NativeContext` on the oplog (`_native_ctx`).
+`oplog_from_columns` rebuilds an oplog from plain columns, so histories
+carry across from any other implementation without sharing its objects.
 """
 
 from __future__ import annotations
@@ -23,12 +24,13 @@ from .op import DEL, INS, OpRun, OpStore
 
 
 class OpLog:
-    __slots__ = ("cg", "ops", "doc_id")
+    __slots__ = ("cg", "ops", "doc_id", "_native_ctx")
 
     def __init__(self) -> None:
         self.cg = CausalGraph()
         self.ops = OpStore()
         self.doc_id: Optional[str] = None
+        self._native_ctx = None
 
     def __len__(self) -> int:
         return len(self.cg)

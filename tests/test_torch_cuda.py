@@ -1,9 +1,9 @@
 """The port's hand-written kernels on a CUDA card.
 
-K1 has no CPU mode, so these tests skip without a card (each decides
-inside the test). They import nothing of JAX: run them on a card host with
-`python -m pytest tests/test_torch_cuda.py -m cuda -q`. `chip_smoke.py`
-covers the same ground at the main path's full shapes.
+K1, K2 and K3 have no CPU mode, so these tests skip without a card (each
+decides inside the test). They import nothing of JAX: run them on a card
+host with `python -m pytest tests/test_torch_cuda.py -m cuda -q`.
+`chip_smoke.py` covers the same ground at the main path's full shapes.
 """
 
 import numpy as np
@@ -12,14 +12,16 @@ import torch
 
 from diamond_types_tpu_torch import OpLog
 from diamond_types_tpu_torch.gpu import flush_fuse as ff
-from diamond_types_tpu_torch.gpu import kernels
+from diamond_types_tpu_torch.gpu import (kernels, linearize, merge_kernel,
+                                         xform)
 
 pytestmark = pytest.mark.cuda
 
 
 def _need_card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1 has no interpret mode")
+        pytest.skip("needs a CUDA card: the CUDA kernels have no "
+                    "interpret mode")
 
 
 def _window(seed, b, n, cap, mi):
@@ -100,3 +102,80 @@ def test_kernel_rung_on_card_matches_cpu_sessions():
         for g, c, ol in zip(gpu, cpu, ols):
             assert g.text() == c.text() == ol.checkout_tip().snapshot()
             assert torch.equal(g.docs.cpu(), c.docs)
+
+
+@pytest.mark.parametrize("b,n", [(1, 2), (3, 511), (8, 513), (4, 4096)])
+def test_k2_matches_plain_on_card(b, n):
+    _need_card()
+    rng = np.random.default_rng(b * n)
+    nv = rng.integers(0, 9, (b, n))
+    ov = rng.integers(0, 9, (b, n))
+    ov[-1] = nv[-1] + 1                  # prefix sum negative throughout
+    nv, ov = (torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+              for a in (nv, ov))
+    launches = kernels.xform_positions.launches
+    got = kernels.xform_positions(nv, ov)
+    torch.cuda.synchronize()
+    assert kernels.xform_positions.launches == launches + 1
+    want = kernels.xform_positions_plain(nv, ov)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[2][-1]) == 0
+
+
+@pytest.mark.parametrize("b,n,cap", [(2, 1, 8), (3, 100, 64),
+                                     (4, 16384, 8192), (2, 70000, 4096)])
+def test_k3_matches_plain_on_card(b, n, cap):
+    """Truncation (cap < total), empty runs, runs past cap; the last shape
+    keeps the run starts in device memory instead of shared memory."""
+    _need_card()
+    rng = np.random.default_rng(b + n + cap)
+    pool = 3 * n + 16
+    perm = np.stack([rng.permutation(n) for _ in range(b)])
+    vis = rng.integers(0, 6, (b, n)) * (rng.random((b, n)) < 0.7)
+    off = rng.integers(0, pool, (b, n))
+    arena = rng.integers(1, 0x10FFFF, (b, pool))
+    args = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+            for a in (perm, vis, off, arena)]
+    launches = kernels.materialize_runs.launches
+    got_t, got_n = kernels.materialize_runs(*args, cap)
+    torch.cuda.synchronize()
+    assert kernels.materialize_runs.launches == launches + 1
+    want_t, want_n = linearize.materialize(*args, cap)
+    assert torch.equal(got_t, want_t) and torch.equal(got_n, want_n)
+
+
+def test_device_transform_and_checkout_on_card_match_cpu():
+    """plan_tails_device and checkout_batch_device on CUDA sessions (K2,
+    K3) give the CPU plain path's plans and texts."""
+    _need_card()
+    from torch_parity import TwinDocs
+    twins = []
+    for i in range(4):
+        tw = TwinDocs([OpLog()], 20 + i)
+        tw.type_base("a", 80 + 40 * i)
+        tw.fork(["a", "b", "c"])
+        tw.concurrent_round(["a", "b", "c"], 5)
+        twins.append(tw)
+    ols = [tw.oplogs[0] for tw in twins]
+    for tw in twins:
+        tw.concurrent_round(["a", "b", "c"], 5)
+    gpu = [ff.FusedDocSession(ol, max_ins=4, device="cuda") for ol in ols]
+    cpu = [ff.FusedDocSession(ol, max_ins=4, device="cpu") for ol in ols]
+    for tw in twins:
+        tw.concurrent_round(["a", "b", "c"], 5)
+    launches = kernels.xform_positions.launches
+    gplans, gstats = xform.plan_tails_device(gpu)
+    cplans, cstats = xform.plan_tails_device(cpu)
+    assert gstats == cstats and gstats["device_docs"] > 0
+    assert kernels.xform_positions.launches == launches + 1
+    for g, c in zip(gplans, cplans):
+        assert g.frontier == c.frontier and g.new_len == c.new_len
+        assert np.array_equal(g.pos, c.pos) and np.array_equal(g.chars,
+                                                               c.chars)
+    docs = [merge_kernel.prepare_doc(ol) for ol in ols]
+    launches = kernels.materialize_runs.launches
+    got = merge_kernel.checkout_batch_device(docs)
+    assert kernels.materialize_runs.launches == launches + 1
+    assert got == merge_kernel.checkout_batch_device(docs, device="cpu") \
+        == [ol.checkout_tip().snapshot() for ol in ols]

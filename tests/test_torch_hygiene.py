@@ -28,6 +28,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     mods = _port_modules()
     assert "diamond_types_tpu_torch.gpu.kernels" in mods
     assert "diamond_types_tpu_torch.gpu.flush_fuse" in mods
+    for m in ("native.core", "native.build", "listmerge.columnar",
+              "gpu.linearize", "gpu.xform", "gpu.merge_kernel"):
+        assert f"diamond_types_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {['diamond_types_tpu_torch'] + mods!r}:\n"
@@ -42,9 +45,45 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_import_builds_nothing():
-    """Kernels build at first launch, never at import."""
-    from diamond_types_tpu_torch.gpu import kernels
-    assert kernels._libs == {}
+    """Kernels and the native library build at first use, never at
+    import: a fresh process that imports every module of the port has
+    loaded neither."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from diamond_types_tpu_torch.gpu import kernels\n"
+        "from diamond_types_tpu_torch.native import core\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "bad = (kernels._libs or core._lib is not None or 'dt_core' in maps\n"
+        "       or 'diamond_types_tpu_torch/_build' in maps)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_port_never_loads_the_jax_packages_native_library():
+    """A native call loads the port's own build under `_build/`, never
+    `native/libdt_core.so` (the JAX package's build output)."""
+    code = (
+        "from diamond_types_tpu_torch import OpLog\n"
+        "from diamond_types_tpu_torch.native.core import get_native_ctx\n"
+        "ol = OpLog()\n"
+        "ol.add_insert(ol.get_or_create_agent_id('a'), 0, 'abc')\n"
+        "print(get_native_ctx(ol).merge_to_string('', [], ol.version)[0])\n"
+        "for ln in open('/proc/self/maps'):\n"
+        "    if 'dt_core' in ln:\n"
+        "        print(ln.split()[-1])\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.split()
+    assert lines[0] == "abc"
+    libs = {Path(p).resolve() for p in lines[1:]}
+    assert libs and all(p.parent == REPO / "diamond_types_tpu_torch" /
+                        "_build" for p in libs), libs
+    assert (REPO / "native" / "libdt_core.so").resolve() not in libs
 
 
 def test_device_entry_points_raise_without_cuda():
@@ -65,6 +104,25 @@ def test_device_entry_points_raise_without_cuda():
     s = flush_fuse.FusedDocSession(ol, device="cpu")
     assert s.text() == "abc" and s.docs.device.type == "cpu"
     assert isinstance(kernels.apply_ops_window.launches, int)
+
+
+def test_device_entry_points_of_the_transform_and_checkout_raise():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from diamond_types_tpu_torch import OpLog
+    from diamond_types_tpu_torch.gpu import kernels, merge_kernel, xform
+    ol = OpLog()
+    ol.add_insert(ol.get_or_create_agent_id("a"), 0, "abc")
+    doc = merge_kernel.prepare_doc(ol)
+    for call in (lambda: xform.resolve_positions([]),
+                 lambda: merge_kernel.checkout_batch_device([doc]),
+                 lambda: merge_kernel.checkout_device(ol, doc),
+                 lambda: merge_kernel.merge_device(ol, [])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert merge_kernel.checkout_device(ol, doc, device="cpu") == "abc"
+    assert isinstance(kernels.xform_positions.launches, int)
+    assert isinstance(kernels.materialize_runs.launches, int)
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -56,6 +56,12 @@ class TwinDocs:
         for ol, b in zip(self.oplogs, self._branches(name)):
             b.merge(ol, ol.version)
 
+    def fork(self, names: Sequence[str]) -> None:
+        """Give each of `names` its own branch at the current tip now, so
+        their next edits are concurrent with each other."""
+        for name in names:
+            self._branches(name)
+
     def doc_len(self, name: str) -> int:
         return len(self._branches(name)[0])
 
