@@ -13,12 +13,16 @@ package), in phases, each printing one JSON line:
   2. kernel   - each kernel against its plain PyTorch version on the card,
                 exactly equal on every shape:
                 K1 (`apply_ops_window`) over random windows: poisoned rows,
-                padding rows, deletes into the roll's wrap region;
-                b in {1, 8, 256}, cap in {256, 4096, 32768, 65536} (the
-                last keeps the row in device memory), n in {1, 64, 256}.
+                padding rows, deletes into the roll's wrap region, ops past
+                cap; b in {1, 8, 256}, cap in {256, 4096, 32768, 65536},
+                n in {1, 64, 256}; then cap 4,100 (no multiple of the
+                tile), cap == max_ins (16 and 64), b 8 at caps 8,192 and
+                16,384, and tapes of 1,024 and 2,048 ops.
                 K2 (`xform_positions`) on random [b, n] columns, b in
-                {1, 8, 256}, n in {2, 511, 512, 513, 4096}, with rows whose
-                prefix sum of nv - ov is negative throughout.
+                {1, 7, 8, 256, 257}, n from 0 to 4,096 around the edges of
+                its warp's 128-element chunks and of 32 lanes (31-33,
+                255-257, 2,047-2,049), with rows whose prefix sum of
+                nv - ov is negative throughout.
                 K3 (`materialize_runs`) on random run tables up to 70,000
                 runs (past shared memory: starts in device memory), with
                 cap < total, empty runs and runs that start past cap.
@@ -48,11 +52,22 @@ package), in phases, each printing one JSON line:
   5. kernels  - one line for K1, K2 and K3: launches on the main path (K1
                 and K2 in the serve phase, K3 in the checkout phase), max
                 error against the plain version (on the kernel phase's
-                shapes and on every captured main-path call), time (CUDA
-                events) at the main path's widest call beside its HBM
-                bound, the plain version's time and the library yardstick's
-                (`torch.cumsum` for K2); then the card's name and power
-                limit.
+                shapes and on every captured main-path call), and at the
+                main path's widest call two times: `call_ms` (CUDA events
+                around back-to-back wrapper calls: host and device) and
+                `device_ms` (the card's own time per call: CUDA events
+                around calls queued behind a sleep on the card, so the
+                host's work is not in it). "ms", "plain_ms" and
+                "library_ms" are call times, as in earlier slices. Beside
+                them the HBM bound and the library yardstick's call_ms and
+                device_ms (`torch.cumsum` for K2); then the card's name and
+                power limit. The serve line carries K1's call_ms and
+                device_ms at every captured bucket, and K1's CTAs per
+                launch as derived from the launcher's grid rule
+                (b * ceil(cap / 512)), not observed.
+
+Each phase draws from its own generator, seeded by (--seed, phase), so the
+served documents do not change when the kernel phases' shapes do.
 
 Each phase's counts are set to 0 just before it drives its path and read
 just after. The last line is {"ok": true, "device": {...}}; any failure
@@ -77,9 +92,21 @@ import torch
 
 MAX_INS = 16
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
-KERNEL_SHAPES = [(b, cap, n) for b in (1, 8, 256)
-                 for cap in (256, 4096, 32768, 65536) for n in (1, 64, 256)]
-K2_SHAPES = [(b, n) for b in (1, 8, 256) for n in (2, 511, 512, 513, 4096)]
+# (b, cap, n, max_ins): the PR 1 grid, then the hazards of K1's tiled
+# gather: a cap that is no multiple of the tile (4,100), cap == max_ins,
+# the main path's flush-docs buckets at every cap, tapes of 1,024 and 2,048
+# ops (past one staging tile of the op scalars)
+KERNEL_SHAPES = ([(b, cap, n, MAX_INS) for b in (1, 8, 256)
+                  for cap in (256, 4096, 32768, 65536) for n in (1, 64, 256)]
+                 + [(8, 4100, 256, MAX_INS), (3, 4100, 64, MAX_INS),
+                    (8, MAX_INS, 64, MAX_INS), (8, 64, 64, 64),
+                    (8, 8192, 256, MAX_INS), (8, 16384, 256, MAX_INS),
+                    (8, 8192, 1024, MAX_INS), (8, 8192, 2048, MAX_INS)])
+# K2 at the edges of its warp's 128-element chunks and of 32 lanes, past
+# 2,048 elements, and at the PR 2 shapes
+K2_SHAPES = [(b, n) for b in (1, 7, 8, 256, 257)
+             for n in (0, 1, 2, 31, 32, 33, 255, 256, 257, 511, 512, 513,
+                       2047, 2048, 2049, 4096)]
 # (b, runs, cap, arena pool): one run; truncation with runs past cap; past
 # the TPU kernel's 8,192-run table; a main-path-like batch; truncation at
 # 16,384 runs; run starts too many for shared memory
@@ -176,22 +203,22 @@ def phase_kernel_vs_plain(rng: np.random.Generator, device) -> dict:
     from diamond_types_tpu_torch.gpu import kernels
     worst = 0
     shapes = []
-    for b, cap, n in KERNEL_SHAPES:
-        args = random_window(rng, b, n, cap, MAX_INS, device)
-        got_d, got_l = kernels.apply_ops_window(*args, MAX_INS)
-        want_d, want_l = kernels.apply_ops_window_plain(*args, MAX_INS)
+    for b, cap, n, mi in KERNEL_SHAPES:
+        args = random_window(rng, b, n, cap, mi, device)
+        got_d, got_l = kernels.apply_ops_window(*args, mi)
+        want_d, want_l = kernels.apply_ops_window_plain(*args, mi)
         torch.cuda.synchronize()
         err = max(exact_err(got_d, want_d), exact_err(got_l, want_l))
         poisoned = int((want_l == -1).sum())
         check(err == 0 and torch.equal(got_d, want_d)
               and torch.equal(got_l, want_l),
               f"K1 differs from its plain version at b={b} cap={cap} "
-              f"n={n}: max abs err {err}")
+              f"n={n} max_ins={mi}: max abs err {err}")
         worst = max(worst, err)
-        shapes.append([b, cap, n, poisoned])
+        shapes.append([b, cap, n, mi, poisoned])
     return {"phase": "kernel_vs_plain", "kernel": "apply_ops_window",
             "shapes": len(shapes), "max_abs_err": worst,
-            "b_cap_n_poisoned": shapes, "exact": True}
+            "b_cap_n_maxins_poisoned": shapes, "exact": True}
 
 
 def k2_err(nv: torch.Tensor, ov: torch.Tensor) -> int:
@@ -592,8 +619,9 @@ def run_checkout(ols, frontiers0, device, n_merge: int = 16) -> dict:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Mean device milliseconds per call, CUDA events over `reps` calls
-    after one warm-up call."""
+    """call_ms: mean milliseconds per call of `fn`, CUDA events around
+    `reps` back-to-back calls after one warm-up call. Where the host work
+    of a call is longer than its device work, this is the host's time."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -606,10 +634,54 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """device_ms: the card's own time per call of `fn`. `reps` calls are
+    queued behind a sleep on the card (`torch.cuda._sleep`), so the card
+    runs them back to back after the host has queued them all; CUDA events
+    around them time the kernels and the card's own gaps between launches,
+    not the host. The sleep must outlast the host's queueing (checked with
+    events around it against the host clock); if it did not, it is
+    lengthened and the calls run again. (`torch.profiler` was not used:
+    on the H100 it has recorded no event at all in whole sessions.)"""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 24
+    for _ in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = 1e3 * (time.perf_counter() - t)
+        ev[2].record()
+        torch.cuda.synchronize()
+        if ev[0].elapsed_time(ev[1]) > 1.5 * host_ms + 0.5:
+            return ev[1].elapsed_time(ev[2]) / reps
+        cycles *= 4
+    raise SmokeFailure("the card's sleep never outlasted the host's queueing")
+
+
+def timings(fn, call_reps: int, device_reps: int) -> dict:
+    """call_ms and device_ms of `fn` (see `time_ms` and `device_ms`)."""
+    return {"call_ms": time_ms(fn, call_reps),
+            "device_ms": device_ms(fn, device_reps)}
+
+
+def k1_ctas(b: int, cap: int):
+    """CTAs one K1 launch uses at (b, cap) by the launcher's grid rule
+    (`dt_apply_ops_window_ctas`): derived, not observed; None where the
+    library has no such rule."""
+    from diamond_types_tpu_torch.gpu import kernels
+    fn = getattr(kernels._lib("apply_ops"), "dt_apply_ops_window_ctas", None)
+    return None if fn is None else int(fn(b, cap))
+
+
 def time_captured(captured, mi: int, wide_window: int) -> dict:
     """K1 at every captured main-path bucket: held exactly against its
-    plain version on the same inputs, then timed; the widest bucket's
-    plain version is timed too."""
+    plain version on the same inputs, then its call_ms and device_ms; the
+    widest bucket's plain version is timed too."""
     from diamond_types_tpu_torch.gpu import kernels
     per = {"flush_docs": [], "wide": []}
     widest = None
@@ -622,12 +694,13 @@ def time_captured(captured, mi: int, wide_window: int) -> dict:
         check(err == 0, f"K1 differs from its plain version at a main-path "
               f"bucket (window {w}, {b} docs): max abs err {err}")
         worst = max(worst, err)
-        ms = time_ms(lambda: kernels.apply_ops_window(*args, mi), 5)
         bp, cap = args[0].shape
         n = args[2].shape[1]
         row = {"window": w, "docs": b, "b": bp, "cap": cap, "n": n,
-               "ms": ms, "bound_ms": 1e3 * window_bytes(bp, n, cap, mi)
+               "bound_ms": 1e3 * window_bytes(bp, n, cap, mi)
                / HBM_BYTES_PER_S}
+        row.update(timings(lambda: kernels.apply_ops_window(*args, mi), 5, 20))
+        row["ms"] = row["call_ms"]
         per["wide" if w == wide_window else "flush_docs"].append(row)
         if widest is None or bp * cap > widest[0]["b"] * widest[0]["cap"]:
             widest = (row, args)
@@ -640,28 +713,31 @@ def time_captured(captured, mi: int, wide_window: int) -> dict:
 
 def time_k2(calls) -> dict:
     """K2 at every main-path resolve: held exactly against its plain
-    version, then timed at the widest call beside its plain version and
-    the library yardstick `torch.cumsum(nv, 1)`."""
+    version, then timed at the widest call (call_ms and device_ms) beside
+    its plain version and the library yardstick `torch.cumsum(nv, 1)`."""
     from diamond_types_tpu_torch.gpu import kernels
     worst = max(k2_err(nv, ov) for nv, ov in calls)
     check(worst == 0, f"K2 differs from its plain version at a main-path "
           f"resolve: max abs err {worst}")
     nv, ov = max(calls, key=lambda a: a[0].numel())
     b, n = nv.shape
-    return {"max_abs_err": worst, "calls_checked": len(calls),
-            "shape": {"b": b, "n": n},
-            "ms": time_ms(lambda: kernels.xform_positions(nv, ov), 50),
-            "plain_ms": time_ms(
-                lambda: kernels.xform_positions_plain(nv, ov), 20),
-            "library_ms": time_ms(lambda: torch.cumsum(nv, 1), 50),
-            # nv and ov read once, pos written once, new_len and peak
-            "bound_ms": 1e3 * 4 * (3 * b * n + 2 * b) / HBM_BYTES_PER_S}
+    out = {"max_abs_err": worst, "calls_checked": len(calls),
+           "shape": {"b": b, "n": n},
+           "plain_ms": time_ms(
+               lambda: kernels.xform_positions_plain(nv, ov), 20),
+           "library": timings(lambda: torch.cumsum(nv, 1), 50, 50),
+           # nv and ov read once, pos written once, new_len and peak
+           "bound_ms": 1e3 * 4 * (3 * b * n + 2 * b) / HBM_BYTES_PER_S}
+    out.update(timings(lambda: kernels.xform_positions(nv, ov), 50, 50))
+    out["ms"] = out["call_ms"]
+    out["library_ms"] = out["library"]["call_ms"]
+    return out
 
 
 def time_k3(calls) -> dict:
     """K3 at every main-path checkout: held exactly against its plain
-    version, then timed at the widest call (b * cap) beside its plain
-    version."""
+    version, then timed at the widest call (b * cap), call_ms and
+    device_ms, beside its plain version."""
     from diamond_types_tpu_torch.gpu import kernels, linearize
     worst = max(k3_err(list(args[:4]), args[4]) for args in calls)
     check(worst == 0, f"K3 differs from its plain version at a main-path "
@@ -673,15 +749,16 @@ def time_k3(calls) -> dict:
     # run tables read once, the visible text read once, the text and the
     # totals written once
     nbytes = 4 * (3 * b * n + int(totals.sum()) + b * cap + b)
-    return {"max_abs_err": worst, "calls_checked": len(calls),
-            "shape": {"b": b, "runs": n, "cap": cap,
-                      "pool": arena.shape[1]},
-            "ms": time_ms(lambda: kernels.materialize_runs(
-                perm, vis, off, arena, cap), 20),
-            "plain_ms": time_ms(lambda: linearize.materialize(
-                perm, vis, off, arena, cap), 5),
-            "library_ms": None,
-            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+    out = {"max_abs_err": worst, "calls_checked": len(calls),
+           "shape": {"b": b, "runs": n, "cap": cap, "pool": arena.shape[1]},
+           "plain_ms": time_ms(lambda: linearize.materialize(
+               perm, vis, off, arena, cap), 5),
+           "library_ms": None,
+           "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+    out.update(timings(lambda: kernels.materialize_runs(
+        perm, vis, off, arena, cap), 20, 20))
+    out["ms"] = out["call_ms"]
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -708,71 +785,81 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
         return 2
-    rng = np.random.default_rng(args.seed)
+    def rng(phase: int) -> np.random.Generator:
+        return np.random.default_rng([args.seed, phase])
+
     device = torch.device("cuda")
     try:
         build = phase_build()
         build.update({"torch": torch.__version__, "cuda": torch.version.cuda})
         emit(build)
         t = time.perf_counter()
-        kvp = phase_kernel_vs_plain(rng, device)
+        kvp = phase_kernel_vs_plain(rng(1), device)
         kvp["seconds"] = time.perf_counter() - t
         emit(kvp)
-        k2p = phase_k2_vs_plain(rng, device)
+        k2p = phase_k2_vs_plain(rng(2), device)
         emit(k2p)
-        k3p = phase_k3_vs_plain(rng, device)
+        k3p = phase_k3_vs_plain(rng(3), device)
         emit(k3p)
         cfg = ServeConfig()
-        serve, ols, frontiers0 = run_serve(rng, device, cfg, capture=True)
+        serve, ols, frontiers0 = run_serve(rng(4), device, cfg, capture=True)
         timing = time_captured(serve.pop("captured"), cfg.max_ins,
                                cfg.wide_window)
         k2 = time_k2(serve.pop("k2_args"))
         per = timing["per_bucket"]
-        serve["k1_ms_flush_docs_buckets"] = [r["ms"]
-                                             for r in per["flush_docs"]]
+        serve["k1_flush_docs_buckets"] = [
+            {k: r[k] for k in ("window", "docs", "cap", "n", "call_ms",
+                               "device_ms")}
+            for r in per["flush_docs"]]
         serve["k1_wide_buckets"] = per["wide"]
         serve["plain_ms_widest"] = timing["widest"]["plain_ms"]
         serve["buckets_checked_against_plain"] = timing["buckets_checked"]
+        widest = timing["widest"]
+        serve["k1_ctas_derived"] = {
+            "rule": "b * ceil(cap / 512), the launcher's grid",
+            "b8_cap32768": k1_ctas(8, 32768),
+            "widest": k1_ctas(widest["b"], widest["cap"])}
         # K1's device time as a share of the window's flush wall time
         # (plan + replay + fence), for the two windows whose buckets were
         # all captured and timed
         flush_s = serve["flush_s_per_window"]
         serve["k1_share_of_flush"] = {
-            "window0": sum(r["ms"] for r in per["flush_docs"])
+            "window0": sum(r["device_ms"] for r in per["flush_docs"])
             / (1e3 * flush_s[0]),
-            "wide_window": sum(r["ms"] for r in per["wide"])
+            "wide_window": sum(r["device_ms"] for r in per["wide"])
             / (1e3 * flush_s[cfg.wide_window])}
         emit(serve)
         checkout = run_checkout(ols, frontiers0, device)
         k3 = time_k3(checkout.pop("k3_args"))
         emit(checkout)
-        widest = timing["widest"]
+        timed = ("ms", "call_ms", "device_ms", "plain_ms", "bound_ms",
+                 "library_ms")
         kerns = [
             {"name": "apply_ops_window", "route": "cuda",
              "source": "diamond_types_tpu_torch/csrc/apply_ops.cu",
              "replaces": "diamond_types_tpu/tpu/pallas_kernels.py:99",
              "launches": serve["launches"],
              "max_abs_err": max(kvp["max_abs_err"], timing["max_abs_err"]),
-             "ms": widest["ms"], "plain_ms": widest["plain_ms"],
-             "bound_ms": widest["bound_ms"], "bound_by": "bytes",
-             "library_ms": None,
-             "shape": {k: widest[k] for k in ("b", "cap", "n")}},
+             "bound_by": "bytes", "library_ms": None,
+             **{k: widest[k] for k in timed if k in widest},
+             "shape": {k: widest[k] for k in ("b", "cap", "n")},
+             "flush_docs_device_ms": [r["device_ms"]
+                                      for r in per["flush_docs"]]},
             {"name": "xform_positions", "route": "cuda",
              "source": "diamond_types_tpu_torch/csrc/xform_positions.cu",
              "replaces": "diamond_types_tpu/tpu/pallas_kernels.py:315",
              "launches": serve["k2_launches"],
              "max_abs_err": max(k2p["max_abs_err"], k2["max_abs_err"]),
-             "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-             "bound_ms": k2["bound_ms"], "bound_by": "bytes",
-             "library_ms": k2["library_ms"], "shape": k2["shape"]},
+             "bound_by": "bytes", **{k: k2[k] for k in timed},
+             "shape": k2["shape"],
+             "library": {"call": "torch.cumsum(nv, 1)", **k2["library"]}},
             {"name": "materialize_runs", "route": "cuda",
              "source": "diamond_types_tpu_torch/csrc/materialize.cu",
              "replaces": "diamond_types_tpu/tpu/pallas_kernels.py:211",
              "launches": checkout["launches"],
              "max_abs_err": max(k3p["max_abs_err"], k3["max_abs_err"]),
-             "ms": k3["ms"], "plain_ms": k3["plain_ms"],
-             "bound_ms": k3["bound_ms"], "bound_by": "bytes",
-             "library_ms": None, "shape": k3["shape"]}]
+             "bound_by": "bytes", **{k: k3[k] for k in timed},
+             "shape": k3["shape"]}]
         card = nvidia_smi_line()
         emit({"kernels": kerns})
         print(card, flush=True)

@@ -6,11 +6,14 @@ what bounds it.
 
   K1 `apply_ops_window` (`csrc/apply_ops.cu`, from `apply_op_block`):
      replays a whole flush window (`[b, n]` op tape over `[b, cap]` document
-     rows) in one launch; the TPU kernel applies one op per row and is
+     rows) in one launch, as a gather: each output element's source is
+     found by walking the tape backwards, over a grid of rows times tiles
+     of the cap axis; the TPU kernel applies one op per row and is
      launched n times per window inside a scan.
   K2 `xform_positions` (`csrc/xform_positions.cu`, from
      `xform_positions_pallas`): the device transform's position scans over
-     a bucket's doc-order columns `[b, n]`, one launch per bucket.
+     a bucket's doc-order columns `[b, n]`, one launch per bucket, one warp
+     per row.
   K3 `materialize_runs` (`csrc/materialize.cu`, from `materialize_pallas`):
      the device checkout's text assembly for a batch of documents, one
      launch per batch, any run count.
@@ -111,6 +114,9 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
 
 
 def _lib(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _libs_lock:
         lib = _libs.get(name)
         if lib is None:
@@ -129,10 +135,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     lib.dt_cuda_error_string.restype = ctypes.c_char_p
     if name == "apply_ops":
         lib.dt_apply_ops_window.argtypes = [p, p, p, p, p, p, p, p,
-                                            i, i, i, i, i, p]
+                                            i, i, i, i, p]
         lib.dt_apply_ops_window.restype = i
-        lib.dt_apply_ops_window_smem_bytes.argtypes = [i, i, i]
-        lib.dt_apply_ops_window_smem_bytes.restype = i
+        lib.dt_apply_ops_window_ctas.argtypes = [i, i]
+        lib.dt_apply_ops_window_ctas.restype = ctypes.c_longlong
     elif name == "xform_positions":
         lib.dt_xform_positions.argtypes = [p, p, p, p, p, i, i, p]
         lib.dt_xform_positions.restype = i
@@ -142,6 +148,26 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.dt_materialize_runs.restype = i
         lib.dt_materialize_runs_smem_bytes.argtypes = [i]
         lib.dt_materialize_runs_smem_bytes.restype = i
+
+
+# The current CUDA device and a device's current raw stream, through the
+# bindings PyTorch's own generated code uses where this build has them
+# (one C call each), else through the public API.
+_current_device = getattr(torch._C, "_cuda_getDevice", None)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _launch_on(device: torch.device, fn, *args) -> int:
+    """Call the C launcher `fn(*args, stream)` on `device`'s current
+    stream, switching the current device only when it is another one."""
+    cur = (_current_device or torch.cuda.current_device)()
+    idx = cur if device.index is None else device.index
+    get_stream = _raw_stream or (
+        lambda d: torch.cuda.current_stream(d).cuda_stream)
+    if idx == cur:
+        return fn(*args, get_stream(idx))
+    with torch.cuda.device(idx):
+        return fn(*args, get_stream(idx))
 
 
 def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
@@ -248,15 +274,16 @@ def apply_ops_window(docs: torch.Tensor, lens: torch.Tensor,
     if b == 0:
         return out_docs, out_lens
     lib = _lib("apply_ops")
-    in_smem = int(lib.dt_apply_ops_window_smem_bytes(cap, max_ins, 1)
-                  <= MAX_SMEM_BYTES)
-    with torch.cuda.device(docs.device):
-        stream = torch.cuda.current_stream(docs.device).cuda_stream
-        rc = lib.dt_apply_ops_window(
-            docs.data_ptr(), lens.data_ptr(), pos.data_ptr(),
-            dlen.data_ptr(), ilen.data_ptr(), chars.data_ptr(),
-            out_docs.data_ptr(), out_lens.data_ptr(), b, n, cap, max_ins,
-            in_smem, stream)
+    # the kernel indexes a row's chars tape, and its grid, in int32
+    if n * max_ins >= 1 << 31 or \
+            lib.dt_apply_ops_window_ctas(b, cap) >= 1 << 31:
+        raise ValueError(f"window too large for one launch: b={b}, "
+                         f"n={n}, cap={cap}, max_ins={max_ins}")
+    rc = _launch_on(docs.device, lib.dt_apply_ops_window,
+                    docs.data_ptr(), lens.data_ptr(), pos.data_ptr(),
+                    dlen.data_ptr(), ilen.data_ptr(), chars.data_ptr(),
+                    out_docs.data_ptr(), out_lens.data_ptr(), b, n, cap,
+                    max_ins)
     _raise_on(lib, rc, "apply_ops_window launch")
     apply_ops_window.launches += 1
     return out_docs, out_lens
@@ -302,11 +329,9 @@ def xform_positions(nv: torch.Tensor, ov: torch.Tensor
     if b == 0:
         return pos, new_len, peak
     lib = _lib("xform_positions")
-    with torch.cuda.device(nv.device):
-        stream = torch.cuda.current_stream(nv.device).cuda_stream
-        rc = lib.dt_xform_positions(nv.data_ptr(), ov.data_ptr(),
-                                    pos.data_ptr(), new_len.data_ptr(),
-                                    peak.data_ptr(), b, n, stream)
+    rc = _launch_on(nv.device, lib.dt_xform_positions, nv.data_ptr(),
+                    ov.data_ptr(), pos.data_ptr(), new_len.data_ptr(),
+                    peak.data_ptr(), b, n)
     _raise_on(lib, rc, "xform_positions launch")
     xform_positions.launches += 1
     return pos, new_len, peak
@@ -353,14 +378,12 @@ def materialize_runs(perm: torch.Tensor, vis_len: torch.Tensor,
     in_smem = lib.dt_materialize_runs_smem_bytes(n) <= MAX_SMEM_BYTES - 1024
     scratch = (None if in_smem else
                torch.empty((b, n + 1), dtype=torch.int32, device=perm.device))
-    with torch.cuda.device(perm.device):
-        stream = torch.cuda.current_stream(perm.device).cuda_stream
-        rc = lib.dt_materialize_runs(
-            perm.data_ptr(), vis_len.data_ptr(), arena_off.data_ptr(),
-            arena.data_ptr(), out.data_ptr(), total.data_ptr(),
-            0 if scratch is None else scratch.data_ptr(), b, n,
-            arena.shape[1], cap, int(in_smem),
-            stream)
+    rc = _launch_on(perm.device, lib.dt_materialize_runs,
+                    perm.data_ptr(), vis_len.data_ptr(),
+                    arena_off.data_ptr(), arena.data_ptr(), out.data_ptr(),
+                    total.data_ptr(),
+                    0 if scratch is None else scratch.data_ptr(), b, n,
+                    arena.shape[1], cap, int(in_smem))
     _raise_on(lib, rc, "materialize_runs launch")
     materialize_runs.launches += 1
     return out, total

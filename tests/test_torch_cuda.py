@@ -61,6 +61,47 @@ def test_kernel_matches_plain_on_card(b, n, cap):
         assert torch.equal(a, a0)
 
 
+@pytest.mark.parametrize("b,n,cap,mi", [(8, 256, 32768, 16),
+                                        (8, 256, 4100, 16),
+                                        (5, 64, 16, 16), (4, 40, 64, 64),
+                                        (3, 1, 4100, 16),
+                                        (2, 1500, 8192, 16)])
+def test_k1_tiled_gather_hazards_on_card(b, n, cap, mi):
+    """K1's tiled gather at the main path's bucket (b 8, cap 32,768), at a
+    cap that is no multiple of the tile, at cap == max_ins, with one op,
+    and with a tape past one staging tile of op scalars."""
+    _need_card()
+    args = _window(cap * 7 + n, b, n, cap, mi)
+    before = [a.clone() for a in args]
+    launches = kernels.apply_ops_window.launches
+    got_d, got_l = kernels.apply_ops_window(*args, mi)
+    torch.cuda.synchronize()
+    assert kernels.apply_ops_window.launches == launches + 1
+    want_d, want_l = kernels.apply_ops_window_plain(*args, mi)
+    assert torch.equal(got_d, want_d) and torch.equal(got_l, want_l)
+    for a, a0 in zip(args, before):
+        assert torch.equal(a, a0)
+
+
+@pytest.mark.parametrize("b,n,cap", [(8, 256, 32768), (4, 1300, 8192)])
+def test_k1_jumps_past_the_edits_on_card(b, n, cap):
+    """Edits in the first quarter of each row, so the warps past them jump
+    every staged tile of ops (one tile, and a tape of three)."""
+    _need_card()
+    mi = 16
+    args = _window(cap + 3 * n, b, n, cap, mi)
+    args[2] = args[2] // 4
+    before = [a.clone() for a in args]
+    launches = kernels.apply_ops_window.launches
+    got_d, got_l = kernels.apply_ops_window(*args, mi)
+    torch.cuda.synchronize()
+    assert kernels.apply_ops_window.launches == launches + 1
+    want_d, want_l = kernels.apply_ops_window_plain(*args, mi)
+    assert torch.equal(got_d, want_d) and torch.equal(got_l, want_l)
+    for a, a0 in zip(args, before):
+        assert torch.equal(a, a0)
+
+
 def test_kernel_rung_on_card_matches_cpu_sessions():
     """The same oplogs flushed through CUDA sessions (K1) and CPU
     sessions (K1's plain version): equal fences, texts and buffers; a
@@ -121,6 +162,34 @@ def test_k2_matches_plain_on_card(b, n):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int(got[2][-1]) == 0
+
+
+@pytest.mark.parametrize("b", [1, 7, 256, 257])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 255, 256, 257, 2047, 2048,
+                               2049, 4096])
+def test_k2_row_path_edges_on_card(b, n):
+    """K2 at the edges of its warp's 128-element chunks and past 2,048
+    elements, with a row whose prefix sum of nv - ov is negative
+    throughout and a row that wraps int32."""
+    _need_card()
+    rng = np.random.default_rng(b * 10007 + n)
+    nv = rng.integers(0, 49, (b, n))
+    ov = rng.integers(0, 49, (b, n))
+    ov[-1] = nv[-1] + 1
+    if b > 1:
+        nv[0] = rng.integers(1 << 29, 1 << 30, n)     # wraps past 2**31
+    nv, ov = (torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+              for a in (nv, ov))
+    before = (nv.clone(), ov.clone())
+    launches = kernels.xform_positions.launches
+    got = kernels.xform_positions(nv, ov)
+    torch.cuda.synchronize()
+    assert kernels.xform_positions.launches == launches + 1
+    want = kernels.xform_positions_plain(nv, ov)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[2][-1]) == 0
+    assert torch.equal(nv, before[0]) and torch.equal(ov, before[1])
 
 
 @pytest.mark.parametrize("b,n,cap", [(2, 1, 8), (3, 100, 64),

@@ -67,6 +67,17 @@ def test_k2_plain_on_empty_rows_and_bad_inputs():
         kernels.xform_positions(z.long(), z.long())
 
 
+def test_k2_wrapper_rejects_devices_it_does_not_run_on():
+    """The wrapper refuses a device that is neither the CPU nor CUDA, and
+    columns on two devices."""
+    m = torch.zeros((2, 4), dtype=torch.int32, device="meta")
+    c = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.xform_positions(m, m)
+    with pytest.raises(ValueError, match="expected"):
+        kernels.xform_positions(c, m)
+
+
 def _twins(bases, seed, alphabet):
     twins = []
     for i, n in enumerate(bases):
