@@ -24,8 +24,12 @@ package), in phases, each printing one JSON line:
                 255-257, 2,047-2,049), with rows whose prefix sum of
                 nv - ov is negative throughout.
                 K3 (`materialize_runs`) on random run tables up to 70,000
-                runs (past shared memory: starts in device memory), with
-                cap < total, empty runs and runs that start past cap.
+                runs, with cap < total, empty runs and runs that start
+                past cap, a cap that is no multiple of its gather's
+                512-output tile and b 1 at cap 65,536; and on the tiled
+                gather's hazards: total 0, one run spanning every tile,
+                a tile's worth of zero-length runs sharing a live run's
+                start, arena offsets past the pool.
   3. serve    - the main path: 256 documents, each typed by one agent
                 (2,048-12,288 chars), resident as `FusedDocSession`s on the
                 card; 6 flush windows in which two more agents fork from
@@ -43,12 +47,20 @@ package), in phases, each printing one JSON line:
                 K2 launches == resolves, and every text equal to the host
                 checkout after every window.
   4. checkout - `merge_kernel.prepare_doc` and `checkout_batch_device`
-                (`fugue_linearize` and one K3 launch per call) over all 256
-                served documents, grouped by pow2 cap; then `merge_device`
-                of 16 documents from their window-0 frontier. Every text
-                must equal the host's (the tip checkout; a `Branch` checked
-                out at that frontier that merges the tip), and K3 launches
-                == calls.
+                (`fugue_linearize` and one K3 call per checkout: a row
+                scan and a tiled gather, two kernels counted as one
+                launch) over all 256 served documents, grouped by pow2
+                cap; then `merge_device` of 16 documents from their
+                window-0 frontier. Every text must equal the host's (the
+                tip checkout; a `Branch` checked out at that frontier that
+                merges the tip), and K3 launches == calls. Then every one
+                of those K3 calls is held against its plain version and
+                timed (b, runs, cap, call_ms, device_ms, bound_ms, and the
+                gather's CTAs as derived from the launcher's grid rule, b
+                * ceil(cap / 512), not observed), and one batch call per
+                cap is taken apart: `pad_docs` + upload (host clock),
+                `fugue_linearize` and K3 (CUDA events), download + decode
+                (host clock).
   5. kernels  - one line for K1, K2 and K3: launches on the main path (K1
                 and K2 in the serve phase, K3 in the checkout phase), max
                 error against the plain version (on the kernel phase's
@@ -57,8 +69,10 @@ package), in phases, each printing one JSON line:
                 around back-to-back wrapper calls: host and device) and
                 `device_ms` (the card's own time per call: CUDA events
                 around calls queued behind a sleep on the card, so the
-                host's work is not in it). "ms", "plain_ms" and
-                "library_ms" are call times, as in earlier slices. Beside
+                host's work is not in it); for K3 also `device_ms` with
+                the L2 cold (a 256 MB buffer overwritten before each call)
+                and its `device_ms` at each merge call. "ms", "plain_ms"
+                and "library_ms" are call times, as in earlier slices. Beside
                 them the HBM bound and the library yardstick's call_ms and
                 device_ms (`torch.cumsum` for K2); then the card's name and
                 power limit. The serve line carries K1's call_ms and
@@ -107,12 +121,25 @@ KERNEL_SHAPES = ([(b, cap, n, MAX_INS) for b in (1, 8, 256)
 K2_SHAPES = [(b, n) for b in (1, 7, 8, 256, 257)
              for n in (0, 1, 2, 31, 32, 33, 255, 256, 257, 511, 512, 513,
                        2047, 2048, 2049, 4096)]
-# (b, runs, cap, arena pool): one run; truncation with runs past cap; past
-# the TPU kernel's 8,192-run table; a main-path-like batch; truncation at
-# 16,384 runs; run starts too many for shared memory
-K3_CASES = [(1, 1, 8, 8), (8, 511, 256, 2048), (8, 16384, 65536, 40000),
-            (256, 4096, 8192, 16384), (4, 16384, 4096, 40000),
-            (2, 70000, 8192, 150000)]
+# (kind, b, runs, cap, arena pool): random tables - one run; truncation
+# with runs past cap; past the TPU kernel's 8,192-run table; a main-path-
+# like batch; truncation at 16,384 runs; 70,000 runs; a cap that is no
+# multiple of the gather's 512-output tile; b 1 at cap 65,536, truncated
+# and zero-filled - then the tiled gather's hazards by name
+K3_CASES = [("random", 1, 1, 8, 8), ("random", 8, 511, 256, 2048),
+            ("random", 8, 16384, 65536, 40000),
+            ("random", 256, 4096, 8192, 16384),
+            ("random", 4, 16384, 4096, 40000),
+            ("random", 2, 70000, 8192, 150000),
+            ("random", 3, 900, 4100, 5000),
+            ("random", 1, 2048, 65536, 40000),
+            ("random", 1, 512, 65536, 40000),
+            ("total_zero", 2, 64, 1024, 64),
+            ("one_run_spans_every_tile", 2, 6, 16384, 16584),
+            ("zero_length_runs_then_live_run", 2, 1600, 2048, 4096),
+            ("arena_off_past_pool", 3, 256, 2048, 512)]
+K3_TILE = 512                      # outputs per CTA of K3's gather
+L2_FLUSH_BYTES = 256 << 20         # overwritten before each cold-L2 call
 # device activity only: tracing every host op would multiply the window's
 # wall time
 PROFILED = [torch.profiler.ProfilerActivity.CUDA]
@@ -257,25 +284,60 @@ def k3_err(args: List[torch.Tensor], cap: int) -> int:
     return max(exact_err(g, w) for g, w in zip(got, want))
 
 
+def k3_table(rng: np.random.Generator, kind: str, b: int, n: int, cap: int,
+             pool: int, device) -> List[torch.Tensor]:
+    """perm, vis_len, arena_off, arena for K3. "random": lengths 0-5 (0-99
+    on every other row, runs of several warps) with 30% empty runs. The
+    hazards, with runs set in document (perm) order: "total_zero" (every
+    run empty); "one_run_spans_every_tile" (one run longer than cap, in
+    the last row behind a zero-length run at the same start);
+    "zero_length_runs_then_live_run" (a live run, then three tiles' worth
+    of empty runs that start where it ends - the next tile's first output,
+    in the last row inside a thread's 4 outputs - then live runs); "arena_off_past_pool" (offsets past the pool in the first
+    row, negative in half the last row's runs: the clamp's work)."""
+    perm = np.stack([rng.permutation(n) for _ in range(b)])
+    vl = rng.integers(0, 6, (b, n))
+    vl[::2] = rng.integers(0, 100, (len(vl[::2]), n))
+    vl *= rng.random((b, n)) < 0.7
+    off = rng.integers(0, pool, (b, n))
+    if kind == "total_zero":
+        vl[:] = 0
+    elif kind == "one_run_spans_every_tile":
+        vl[:] = 0
+        vl[:, 0] = cap + 100
+        vl[-1, 0], vl[-1, 1] = 0, cap + 3
+        off[:] = rng.integers(0, pool - cap - 100, (b, n))
+    elif kind == "zero_length_runs_then_live_run":
+        vl[:, :3 * K3_TILE + 2] = 0
+        vl[:, 0] = K3_TILE
+        vl[-1, 0] = K3_TILE - 2
+        vl[:, 3 * K3_TILE + 1] = 5
+    elif kind == "arena_off_past_pool":
+        off[0] = rng.integers(pool, pool + 5000, n)
+        off[-1, ::2] = -rng.integers(1, 5000, (n + 1) // 2)
+    if kind != "random":                  # lengths given in perm order
+        vis, offs = np.zeros_like(vl), np.zeros_like(off)
+        for r in range(b):
+            vis[r, perm[r]] = vl[r]
+            offs[r, perm[r]] = off[r]
+        vl, off = vis, offs
+    arena = rng.integers(1, 0x10FFFF, (b, pool))
+    return [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+            for a in (perm, vl, off, arena)]
+
+
 def phase_k3_vs_plain(rng: np.random.Generator, device) -> dict:
     worst = 0
     cases = []
-    for b, n, cap, pool in K3_CASES:
-        perm = np.stack([rng.permutation(n) for _ in range(b)])
-        vis = rng.integers(0, 6, (b, n))
-        vis[::2] = rng.integers(0, 100, (len(vis[::2]), n))  # multi-warp
-        vis *= rng.random((b, n)) < 0.7                      # empty runs
-        off = rng.integers(0, pool, (b, n))
-        arena = rng.integers(1, 0x10FFFF, (b, pool))
-        args = [torch.from_numpy(np.ascontiguousarray(a, np.int32))
-                .to(device) for a in (perm, vis, off, arena)]
+    for kind, b, n, cap, pool in K3_CASES:
+        args = k3_table(rng, kind, b, n, cap, pool, device)
         err = k3_err(args, cap)
-        check(err == 0, f"K3 differs from its plain version at b={b} "
-              f"runs={n} cap={cap}: max abs err {err}")
+        check(err == 0, f"K3 differs from its plain version on {kind} at "
+              f"b={b} runs={n} cap={cap}: max abs err {err}")
         worst = max(worst, err)
-        cases.append([b, n, cap, int(vis.sum(axis=1).max())])
+        cases.append([kind, b, n, cap, int(args[1].long().sum(1).max())])
     return {"phase": "kernel_vs_plain", "kernel": "materialize_runs",
-            "shapes": len(cases), "b_runs_cap_maxtotal": cases,
+            "shapes": len(cases), "kind_b_runs_cap_maxtotal": cases,
             "max_abs_err": worst, "exact": True}
 
 
@@ -391,6 +453,53 @@ class Spy:
         if self.keep:
             self.args.append(args)
         return out
+
+
+class Stamp(Spy):
+    """A Spy that also keeps, for each call, the host clock at entry and
+    at return and CUDA events recorded just before and just after it. With
+    sync=True it waits for the card before it returns, so the host clock
+    after it starts from an idle card."""
+
+    def __init__(self, owner, name: str, sync: bool = False) -> None:
+        super().__init__(owner, name)
+        self.sync = sync
+        self.marks: List[tuple] = []
+
+    def __call__(self, *args, **kwargs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t = time.perf_counter()
+        ev[0].record()
+        out = self.real(*args, **kwargs)
+        ev[1].record()
+        if self.sync:
+            torch.cuda.synchronize()
+        self.marks.append((t, time.perf_counter(), *ev))
+        return out
+
+
+def checkout_breakdown(docs, cap: int, device) -> dict:
+    """One `checkout_batch_device` call taken apart: `pad_docs` and the
+    upload of its arrays (host clock), `fugue_linearize` and K3 (CUDA
+    events around each), then the download and decode (host clock, from an
+    idle card: the card is synchronized right after K3)."""
+    from diamond_types_tpu_torch.gpu import kernels
+    from diamond_types_tpu_torch.gpu import merge_kernel as mk
+    with Stamp(mk, "pad_docs") as pad, \
+            Stamp(mk, "fugue_linearize") as lin, \
+            Stamp(kernels, "materialize_runs", sync=True) as k3:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mk.checkout_batch_device(docs, cap=cap, device=device)
+        call_s = time.perf_counter() - t
+    p0, p1, _, _ = pad.marks[0]
+    l0, _, le0, le1 = lin.marks[0]
+    _, k1, ke0, ke1 = k3.marks[0]
+    return {"cap": cap, "docs": len(docs), "call_ms": 1e3 * call_s,
+            "pad_docs_ms": 1e3 * (p1 - p0), "upload_ms": 1e3 * (l0 - p1),
+            "fugue_linearize_ms": le0.elapsed_time(le1),
+            "k3_ms": ke0.elapsed_time(ke1),
+            "download_decode_ms": 1e3 * (t + call_s - k1)}
 
 
 def run_serve(rng: np.random.Generator, device, cfg: ServeConfig,
@@ -610,11 +719,14 @@ def run_checkout(ols, frontiers0, device, n_merge: int = 16) -> dict:
     n_calls = len(calls) + n_merge
     check(launches == n_calls,
           f"K3 launched {launches} times for {n_calls} device checkouts")
+    breakdown = [checkout_breakdown([docs[i] for i in groups[cap]], cap,
+                                    device) for cap in sorted(groups)]
     return {"phase": "checkout", "docs": len(docs), "launches": launches,
             "checkout_calls": calls, "merges": n_merge,
             "prepare_ms": 1e3 * prepare_s,
             "host_checkout_ms": 1e3 * verify_s,
             "merge_ms": [1e3 * s for s in merge_s],
+            "breakdown_per_cap": breakdown,
             "k3_args": k3_calls.args}
 
 
@@ -734,29 +846,80 @@ def time_k2(calls) -> dict:
     return out
 
 
-def time_k3(calls) -> dict:
-    """K3 at every main-path checkout: held exactly against its plain
-    version, then timed at the widest call (b * cap), call_ms and
-    device_ms, beside its plain version."""
+def cold_device_ms(fn, reps: int) -> float:
+    """device_ms with the L2 cache cold: before each call a buffer of
+    L2_FLUSH_BYTES is overwritten on the card, then a sleep on the card
+    outlasts the host's queueing of the call; CUDA events around the call
+    alone time it. The median of `reps` calls."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                        device="cuda")
+    fn()
+    ms = []
+    for k in range(reps):
+        flush.fill_(k)
+        torch.cuda._sleep(1 << 22)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    return float(np.median(ms))
+
+
+def k3_ctas(b: int, cap: int):
+    """CTAs of one K3 gather launch at (b, cap) by the launcher's grid rule
+    (`dt_materialize_runs_ctas`): derived, not observed; None where the
+    library has no such rule."""
+    from diamond_types_tpu_torch.gpu import kernels
+    fn = getattr(kernels._lib("materialize"), "dt_materialize_runs_ctas",
+                 None)
+    return None if fn is None else int(fn(b, cap))
+
+
+def k3_bound_ms(vis: torch.Tensor, cap: int) -> float:
+    """K3's HBM bound: the run tables read once, the visible text read
+    once, the text and the totals written once."""
+    b, n = vis.shape
+    totals = vis.long().sum(dim=1).clamp(max=cap)
+    nbytes = 4 * (3 * b * n + int(totals.sum()) + b * cap + b)
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def time_k3(calls, n_batch: int) -> dict:
+    """K3 at every main-path checkout (the first n_batch calls are
+    `checkout_batch_device` batches, the rest `merge_device`): held
+    exactly against its plain version, then each call's call_ms and
+    device_ms beside its bound and its gather CTAs (derived); at the
+    widest call (b * cap) also device_ms with the L2 cold and the plain
+    version's call_ms."""
     from diamond_types_tpu_torch.gpu import kernels, linearize
     worst = max(k3_err(list(args[:4]), args[4]) for args in calls)
     check(worst == 0, f"K3 differs from its plain version at a main-path "
           f"checkout: max abs err {worst}")
-    perm, vis, off, arena, cap = max(
-        calls, key=lambda a: a[0].shape[0] * a[4])
+    per = []
+    for k, (perm, vis, off, arena, cap) in enumerate(calls):
+        b, n = perm.shape
+        row = {"call": "batch" if k < n_batch else "merge", "b": b,
+               "runs": n, "cap": cap, "bound_ms": k3_bound_ms(vis, cap),
+               "gather_ctas_derived": k3_ctas(b, cap)}
+        row.update(timings(lambda: kernels.materialize_runs(
+            perm, vis, off, arena, cap), 20, 20))
+        per.append(row)
+    k = max(range(len(calls)),
+            key=lambda i: calls[i][0].shape[0] * calls[i][4])
+    perm, vis, off, arena, cap = calls[k]
     b, n = perm.shape
-    totals = vis.long().sum(dim=1).clamp(max=cap)
-    # run tables read once, the visible text read once, the text and the
-    # totals written once
-    nbytes = 4 * (3 * b * n + int(totals.sum()) + b * cap + b)
     out = {"max_abs_err": worst, "calls_checked": len(calls),
            "shape": {"b": b, "runs": n, "cap": cap, "pool": arena.shape[1]},
            "plain_ms": time_ms(lambda: linearize.materialize(
                perm, vis, off, arena, cap), 5),
-           "library_ms": None,
-           "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
-    out.update(timings(lambda: kernels.materialize_runs(
-        perm, vis, off, arena, cap), 20, 20))
+           "library_ms": None, "bound_ms": per[k]["bound_ms"],
+           "call_ms": per[k]["call_ms"], "device_ms": per[k]["device_ms"],
+           "device_ms_cold_l2": cold_device_ms(
+               lambda: kernels.materialize_runs(perm, vis, off, arena, cap),
+               20),
+           "per_call": per}
     out["ms"] = out["call_ms"]
     return out
 
@@ -830,7 +993,11 @@ def main(argv=None) -> int:
             / (1e3 * flush_s[cfg.wide_window])}
         emit(serve)
         checkout = run_checkout(ols, frontiers0, device)
-        k3 = time_k3(checkout.pop("k3_args"))
+        k3 = time_k3(checkout.pop("k3_args"),
+                     len(checkout["checkout_calls"]))
+        checkout["k3_per_call"] = k3.pop("per_call")
+        checkout["k3_gather_ctas_rule"] = (
+            "b * ceil(cap / 512), the launcher's grid; derived, not observed")
         emit(checkout)
         timed = ("ms", "call_ms", "device_ms", "plain_ms", "bound_ms",
                  "library_ms")
@@ -859,7 +1026,11 @@ def main(argv=None) -> int:
              "launches": checkout["launches"],
              "max_abs_err": max(k3p["max_abs_err"], k3["max_abs_err"]),
              "bound_by": "bytes", **{k: k3[k] for k in timed},
-             "shape": k3["shape"]}]
+             "device_ms_cold_l2": k3["device_ms_cold_l2"],
+             "shape": k3["shape"],
+             "merge_device_ms": [r["device_ms"]
+                                 for r in checkout["k3_per_call"]
+                                 if r["call"] == "merge"]}]
         card = nvidia_smi_line()
         emit({"kernels": kerns})
         print(card, flush=True)

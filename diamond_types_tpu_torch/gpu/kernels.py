@@ -15,8 +15,10 @@ what bounds it.
      a bucket's doc-order columns `[b, n]`, one launch per bucket, one warp
      per row.
   K3 `materialize_runs` (`csrc/materialize.cu`, from `materialize_pallas`):
-     the device checkout's text assembly for a batch of documents, one
-     launch per batch, any run count.
+     the device checkout's text assembly for a batch of documents, any run
+     count. One call is two kernels on one stream: a row scan (one CTA
+     per row) into a scratch table of run starts, then a gather over rows
+     times tiles of the cap axis.
 
 Build: each `csrc/*.cu` compiles with `nvcc` for `sm_90a` into a shared
 library with a plain C interface, at first use, into `_build/` beside this
@@ -26,7 +28,9 @@ on PyTorch's current stream. Nothing is built or loaded at import.
 
 Every wrapper launches its kernel for CUDA tensors and runs the kernel's
 plain PyTorch version only for CPU tensors. It never falls back: a failed
-build or launch raises. `<wrapper>.launches` counts the kernel's launches.
+build or launch raises. `<wrapper>.launches` counts the wrapper's calls
+that launched on the card: one per call, however many kernels the call
+launches (K3's two).
 """
 
 from __future__ import annotations
@@ -55,9 +59,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = {"apply_ops": "apply_ops.cu",
            "xform_positions": "xform_positions.cu",
            "materialize": "materialize.cu"}
-# dynamic shared memory one block may use on Hopper (227 KB)
-MAX_SMEM_BYTES = 232448
-
 _libs: Dict[str, ctypes.CDLL] = {}
 _libs_lock = threading.Lock()
 
@@ -144,10 +145,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.dt_xform_positions.restype = i
     elif name == "materialize":
         lib.dt_materialize_runs.argtypes = [p, p, p, p, p, p, p,
-                                            i, i, i, i, i, p]
+                                            i, i, i, i, p]
         lib.dt_materialize_runs.restype = i
-        lib.dt_materialize_runs_smem_bytes.argtypes = [i]
-        lib.dt_materialize_runs_smem_bytes.restype = i
+        for fn in (lib.dt_materialize_runs_ctas,
+                   lib.dt_materialize_runs_scratch_row):
+            fn.argtypes = [i, i]
+            fn.restype = ctypes.c_longlong
 
 
 # The current CUDA device and a device's current raw stream, through the
@@ -351,7 +354,12 @@ def materialize_runs(perm: torch.Tensor, vis_len: torch.Tensor,
     [b, n] int32, arena [b, pool] int32 (pool >= 1), cap >= 1. Returns
     (text [b, cap] int32, total [b] int32, not clipped at cap).
 
-    CUDA tensors launch K3 once; CPU tensors run its plain version,
+    CUDA tensors launch K3: two kernels on the current stream, a row scan
+    into a scratch table of run starts and bases (allocated here), then a
+    gather over rows times tiles of cap, with no host sync between them;
+    `launches` counts the call once. The kernels equal the plain version
+    wherever arena_off[perm[i]] - start[i] < 2**30, which every
+    in-contract input meets. CPU tensors run its plain version,
     `linearize.materialize`. In contract vis_len >= 0 and each perm row
     is a permutation of range(n)."""
     if perm.dim() != 2 or not perm.shape == vis_len.shape == arena_off.shape:
@@ -374,16 +382,19 @@ def materialize_runs(perm: torch.Tensor, vis_len: torch.Tensor,
     if b == 0:
         return out, total
     lib = _lib("materialize")
-    # the static warp-total buffer shares the block's shared memory
-    in_smem = lib.dt_materialize_runs_smem_bytes(n) <= MAX_SMEM_BYTES - 1024
-    scratch = (None if in_smem else
-               torch.empty((b, n + 1), dtype=torch.int32, device=perm.device))
+    # the gather's grid is int32
+    if lib.dt_materialize_runs_ctas(b, cap) >= 1 << 31:
+        raise ValueError(f"checkout too large for one launch: b={b}, "
+                         f"cap={cap}")
+    # per row: (start, base) of every run, the run of every 128-output
+    # segment's first char
+    table = torch.empty((b, lib.dt_materialize_runs_scratch_row(n, cap)),
+                        dtype=torch.int32, device=perm.device)
     rc = _launch_on(perm.device, lib.dt_materialize_runs,
                     perm.data_ptr(), vis_len.data_ptr(),
                     arena_off.data_ptr(), arena.data_ptr(), out.data_ptr(),
-                    total.data_ptr(),
-                    0 if scratch is None else scratch.data_ptr(), b, n,
-                    arena.shape[1], cap, int(in_smem))
+                    total.data_ptr(), table.data_ptr(), b, n,
+                    arena.shape[1], cap)
     _raise_on(lib, rc, "materialize_runs launch")
     materialize_runs.launches += 1
     return out, total

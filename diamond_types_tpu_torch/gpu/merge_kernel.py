@@ -12,8 +12,10 @@ lays out the visible text, batched over documents:
            -> anchor-split runs -> tree arrays (parent/side/keys)
            -> char pool (fast-forward prefix text + insert arena)
   device checkout_batch_device(docs):
-           `fugue_linearize` over the batch's [b, n] rows, then ONE launch
-           of kernel K3 (`kernels.materialize_runs`) for the whole batch
+           `fugue_linearize` over the batch's [b, n] rows, then ONE call
+           of kernel K3 (`kernels.materialize_runs`) for the whole batch:
+           two kernels on one stream (a row scan of the run starts, then
+           a gather over rows x tiles of cap), counted as one launch
 
 Documents are padded to a common run count and char pool (powers of two);
 padding runs carry parent = root, INT32_MAX keys and zero visible length,
@@ -167,7 +169,7 @@ def checkout_batch_device(docs: List[DeviceDoc], cap: Optional[int] = None,
                           device: Optional[Union[str, torch.device]] = None
                           ) -> List[str]:
     """Batched device checkout: `fugue_linearize` over the padded batch,
-    then one K3 launch (K3's plain version on the CPU). `cap` defaults to
+    then one K3 call (K3's plain version on the CPU). `cap` defaults to
     the pow2 of the longest document. `device=None` means CUDA and raises
     without it."""
     device = resolve_device(device)

@@ -192,26 +192,78 @@ def test_k2_row_path_edges_on_card(b, n):
     assert torch.equal(nv, before[0]) and torch.equal(ov, before[1])
 
 
-@pytest.mark.parametrize("b,n,cap", [(2, 1, 8), (3, 100, 64),
-                                     (4, 16384, 8192), (2, 70000, 4096)])
-def test_k3_matches_plain_on_card(b, n, cap):
-    """Truncation (cap < total), empty runs, runs past cap; the last shape
-    keeps the run starts in device memory instead of shared memory."""
-    _need_card()
-    rng = np.random.default_rng(b + n + cap)
+K3_TILE = 512     # outputs per CTA of K3's gather
+
+
+def _k3_table(kind, b, n, cap, seed):
+    """A run table [b, n] for K3 at one hazard of its tiled gather, its
+    runs' lengths and arena offsets set in document (perm) order. "random":
+    lengths 0-5 with 30% empty runs, so cap < total truncates and runs
+    start past cap when n is large; the hazards are named for what they
+    hold."""
+    rng = np.random.default_rng(seed)
     pool = 3 * n + 16
-    perm = np.stack([rng.permutation(n) for _ in range(b)])
-    vis = rng.integers(0, 6, (b, n)) * (rng.random((b, n)) < 0.7)
+    vl = rng.integers(0, 6, (b, n)) * (rng.random((b, n)) < 0.7)
     off = rng.integers(0, pool, (b, n))
+    if kind == "total_zero":
+        vl[:] = 0
+    elif kind == "one_run_spans_every_tile":
+        pool = cap + 200
+        vl[:] = 0
+        vl[:, 0] = cap + 100
+        vl[-1, 0], vl[-1, 1] = 0, cap + 3      # behind a zero-length run
+        off = rng.integers(0, 50, (b, n))
+    elif kind == "zero_length_runs_then_live_run":
+        # a live run, then 3 tiles' worth of zero-length runs that start
+        # where it ends (the next tile's first output; in the last row
+        # inside a thread's 4 outputs), then live runs
+        vl[:, :3 * K3_TILE + 2] = 0
+        vl[:, 0] = K3_TILE
+        vl[-1, 0] = K3_TILE - 2
+        vl[:, 3 * K3_TILE + 1] = 5
+    elif kind == "arena_off_past_pool":
+        off[0] = rng.integers(pool, pool + 5000, n)
+        off[-1, ::2] = -rng.integers(1, 5000, (n + 1) // 2)
+    perm = np.stack([rng.permutation(n) for _ in range(b)])
+    vis = np.zeros((b, n), np.int64)
+    offs = np.zeros((b, n), np.int64)
+    for r in range(b):
+        vis[r, perm[r]] = vl[r]
+        offs[r, perm[r]] = off[r]
     arena = rng.integers(1, 0x10FFFF, (b, pool))
-    args = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
-            for a in (perm, vis, off, arena)]
+    return [torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+            for a in (perm, vis, offs, arena)]
+
+
+@pytest.mark.parametrize("kind,b,n,cap", [
+    ("random", 2, 1, 8), ("random", 3, 100, 64), ("random", 4, 16384, 8192),
+    ("random", 2, 70000, 4096), ("random", 3, 900, 4100),
+    ("random", 2, 100, 387), ("random", 1, 2048, 65536),
+    ("random", 1, 30000, 65536), ("random", 163, 2048, 16384),
+    ("total_zero", 2, 50, 300), ("random", 2, 0, 64),
+    ("one_run_spans_every_tile", 2, 6, 16384),
+    ("zero_length_runs_then_live_run", 2, 3 * K3_TILE + 64, 4 * K3_TILE),
+    ("arena_off_past_pool", 3, 64, 512)])
+def test_k3_matches_plain_on_card(kind, b, n, cap):
+    """K3's two kernels against its plain version: truncation (cap <
+    total), empty runs, runs past cap, 70,000 runs; a cap that is no
+    multiple of the gather's tile, an odd cap (scalar stores), b 1 at cap
+    65,536 (zero-filled and truncated), the main path's widest call; and
+    the hazards of the tiled gather by name. One call counts one launch,
+    and the inputs are never written."""
+    _need_card()
+    args = _k3_table(kind, b, n, cap, b + n + cap)
+    before = [a.clone() for a in args]
     launches = kernels.materialize_runs.launches
     got_t, got_n = kernels.materialize_runs(*args, cap)
     torch.cuda.synchronize()
     assert kernels.materialize_runs.launches == launches + 1
     want_t, want_n = linearize.materialize(*args, cap)
     assert torch.equal(got_t, want_t) and torch.equal(got_n, want_n)
+    for a, a0 in zip(args, before):
+        assert torch.equal(a, a0)
+    if kind == "total_zero":
+        assert not got_t.any()
 
 
 def test_device_transform_and_checkout_on_card_match_cpu():
