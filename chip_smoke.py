@@ -9,7 +9,9 @@ package), in phases, each printing one JSON line:
   1. build    - compile every kernel in `diamond_types_tpu_torch/csrc/`
                 with nvcc (one process per source, started together) and,
                 at the same time, the port's native library with g++
-                (`native/build.py`); each one's seconds.
+                (`native/build.py`), which the kernel phases do not wait
+                for; each one's seconds, and how long the serve phase then
+                waited for the native library.
   2. kernel   - each kernel against its plain PyTorch version on the card,
                 exactly equal on every shape:
                 K1 (`apply_ops_window`) over random windows: poisoned rows,
@@ -32,28 +34,56 @@ package), in phases, each printing one JSON line:
                 start, arena offsets past the pool.
   3. serve    - the main path: 256 documents, each typed by one agent
                 (2,048-12,288 chars), resident as `FusedDocSession`s on the
-                card; 6 flush windows in which two more agents fork from
+                card; 4 flush windows in which two more agents fork from
                 each tip and edit concurrently and the first agent merges.
                 Each window plans every tail with `xform.plan_tails_device`
                 (host extract, then ONE device resolve: `fugue_linearize`
                 and K2), groups them by cap and replays them through
                 `kernel_fused_replay` (K1) in buckets of 8 (one window: one
-                wide bucket per cap). Window 0 also times the host
+                wide bucket per cap); the K1 inputs of window 0 and of the
+                wide window are captured (each bucket packed once more,
+                outside the timed replay). Window 0 also times the host
                 `plan_tail` over the same sessions, without adopting those
                 plans; window 1 is traced with `torch.profiler` (device
                 activity only) for the device's busy share of its flush.
                 Requires 0 fence failures, 0 fallbacks, device-
                 planned documents in every window, K1 launches == buckets,
-                K2 launches == resolves, and every text equal to the host
-                checkout after every window.
-  4. checkout - `merge_kernel.prepare_doc` and `checkout_batch_device`
+                K2 launches == resolves, and every text equal to the host's
+                after every window: the first agent's branch, which merged
+                every agent (the checkout phase holds the last window's
+                branches against fresh host checkouts).
+  4. scheduler - the serve layer's entry point: the same kind of 256
+                documents and 6 rounds of concurrent edits (its own
+                generator), through `MergeScheduler(4, engine="device",
+                device_plan=True, flush_docs=8, flush_workers=True,
+                max_sessions_per_shard=128)`: per round `submit` for every
+                edited document, `pump()`, `drain()`; round 1 traced by
+                `torch.profiler` (device activity only). Requires every
+                text equal to the host's merge after every round (16 of
+                those merged branches equal to fresh host checkouts after
+                the last), 0 host fallbacks, no worker exception, device-
+                planned documents in every round, K1 launches == fused
+                calls + per-doc syncs that replayed, K2 launches ==
+                resolves, and every K1 and K2 call of the rounds exactly
+                equal to the kernel's plain version on its inputs (K1's
+                calls stacked by (n, cap) for the plain version). Prints
+                per round wall ms, docs and ops per second, and the flush
+                latency p50/p99, occupancy, builds, evictions and steering
+                counters.
+  5. serve_bench - `run_serve_bench` on the card in trace, concurrent and
+                flash modes (4 shards, 64 documents, 8 feed rounds and 8
+                steady rounds, device planning on, every session
+                resident); each must pass its parity gate and launch K1.
+  6. checkout - `merge_kernel.prepare_doc` and `checkout_batch_device`
                 (`fugue_linearize` and one K3 call per checkout: a row
                 scan and a tiled gather, two kernels counted as one
                 launch) over all 256 served documents, grouped by pow2
                 cap; then `merge_device` of 16 documents from their
                 window-0 frontier. Every text must equal the host's (the
-                tip checkout; a `Branch` checked out at that frontier that
-                merges the tip), and K3 launches == calls. Then every one
+                tip checkout, timed as the yardstick, which must also equal
+                the serve phase's merged branches; a `Branch` checked out
+                at that frontier that merges the tip), and K3 launches ==
+                calls. Then every one
                 of those K3 calls is held against its plain version and
                 timed (b, runs, cap, call_ms, device_ms, bound_ms, and the
                 gather's CTAs as derived from the launcher's grid rule, b
@@ -61,10 +91,10 @@ package), in phases, each printing one JSON line:
                 cap is taken apart: `pad_docs` + upload (host clock),
                 `fugue_linearize` and K3 (CUDA events), download + decode
                 (host clock).
-  5. kernels  - one line for K1, K2 and K3: launches on the main path (K1
-                and K2 in the serve phase, K3 in the checkout phase), max
-                error against the plain version (on the kernel phase's
-                shapes and on every captured main-path call), and at the
+  7. kernels  - one line for K1, K2 and K3: launches on the main path (K1
+                and K2 in the serve phase, K3 in the checkout phase; per
+                path in `launches_by_path`, the scheduler's too), max
+                error against the plain version (see below), and at the
                 main path's widest call two times: `call_ms` (CUDA events
                 around back-to-back wrapper calls: host and device) and
                 `device_ms` (the card's own time per call: CUDA events
@@ -75,7 +105,9 @@ package), in phases, each printing one JSON line:
                 and "library_ms" are call times, as in earlier slices. Beside
                 them the HBM bound and the library yardstick's call_ms and
                 device_ms (`torch.cumsum` for K2); then the card's name and
-                power limit. The serve line carries K1's call_ms and
+                power limit. max_abs_err covers the kernel phases, the serve
+                phase's captured calls and the scheduler's calls. The
+                serve line carries K1's call_ms and
                 device_ms at every captured bucket, and K1's CTAs per
                 launch as derived from the launcher's grid rule
                 (b * ceil(cap / 512)), not observed.
@@ -166,23 +198,23 @@ def exact_err(a: torch.Tensor, b: torch.Tensor) -> int:
 
 # ---- phase 1: build ---------------------------------------------------------
 
-def phase_build() -> dict:
-    """nvcc for each kernel and g++ for the native library, all at once."""
+def phase_build(pool: ThreadPoolExecutor):
+    """nvcc for each kernel and g++ for the native library, all at once.
+    Returns the build line once the kernels are built, and the native
+    build's future (in `pool`): the kernel phases do not need the native
+    library, so the caller joins it after them."""
     from diamond_types_tpu_torch.gpu import kernels
     from diamond_types_tpu_torch.native import build as native_build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
-        native = pool.submit(native_build.build)
-        info = kernels.build()
-        native_path, native_s = native.result()
+    native = pool.submit(native_build.build)
+    info = kernels.build()
     secs = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in v["log"].splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, v in info.items()}
     return {"phase": "build", "seconds": secs, "kernels": sorted(info),
             "kernel_seconds": {k: v["seconds"] for k, v in info.items()},
-            "native_seconds": native_s, "native_library": native_path.name,
-            "ptxas": ptxas}
+            "ptxas": ptxas}, native
 
 
 # ---- phase 2: kernel against plain -------------------------------------------
@@ -218,6 +250,28 @@ def random_window(rng: np.random.Generator, b: int, n: int, cap: int,
     host = [lens, pos, dlen, ilen, chars]
     return [docs] + [torch.from_numpy(np.ascontiguousarray(a, np.int32))
                      .to(device) for a in host]
+
+
+def k1_calls_err(calls, mi: int) -> int:
+    """Every call in `calls` (K1's arguments) launched again and held
+    against K1's plain version on the same inputs. Rows are independent,
+    so the calls that share (n, cap) are stacked along the batch axis and
+    the plain version runs once per (n, cap)."""
+    from diamond_types_tpu_torch.gpu import kernels
+    groups: Dict[tuple, List[tuple]] = {}
+    for args in calls:
+        groups.setdefault((args[2].shape[1], args[0].shape[1]),
+                          []).append(args)
+    worst = 0
+    for group in groups.values():
+        got = [kernels.apply_ops_window(*args[:6], mi) for args in group]
+        stacked = [torch.cat([args[i] for args in group]) for i in range(6)]
+        want_d, want_l = kernels.apply_ops_window_plain(*stacked, mi)
+        torch.cuda.synchronize()
+        worst = max(worst,
+                    exact_err(torch.cat([d for d, _ in got]), want_d),
+                    exact_err(torch.cat([ln for _, ln in got]), want_l))
+    return worst
 
 
 def window_bytes(b: int, n: int, cap: int, mi: int) -> int:
@@ -348,7 +402,7 @@ class ServeConfig:
     n_docs: int = 256
     base_min: int = 2048
     base_max: int = 12288
-    windows: int = 6
+    windows: int = 4              # few: the smoke has a time budget
     wide_window: int = 2          # this window replays one bucket per cap
     flush_docs: int = 8
     edits_min: int = 8
@@ -421,7 +475,8 @@ class Spy:
     to the real function, so its launch count moves as usual. Records each
     call's host seconds and, with keep=True, its arguments (fresh tensors
     that the caller never writes again) for the checks and timings after
-    the phase."""
+    the phase. Calls may come from several threads: appending to a list
+    is safe under the interpreter lock."""
 
     def __init__(self, owner, name: str, keep: bool = False) -> None:
         self.owner, self.name, self.keep = owner, name, keep
@@ -508,7 +563,8 @@ def run_serve(rng: np.random.Generator, device, cfg: ServeConfig,
     plan through `plan_tails_device` (K2), replay through
     `kernel_fused_replay` (K1). K1's and K2's launch counts are set to 0
     just before the windows and read just after them. Returns (stats, the
-    oplogs, each session's frontier after window 0)."""
+    oplogs, each session's frontier after window 0, each document's text
+    in the first agent's merged branch after the last window)."""
     from diamond_types_tpu_torch.gpu import flush_fuse as ff
     from diamond_types_tpu_torch.gpu import kernels, xform
 
@@ -570,6 +626,8 @@ def run_serve(rng: np.random.Generator, device, cfg: ServeConfig,
             bs = [sessions[i] for i in bucket]
             bp = [plans[i] for i in bucket]
             if capture and (wide or w == 0):
+                # K1's inputs: the bucket packed as the rung packs it, kept
+                # apart so the replay's own buffers are freed as usual
                 t = time.perf_counter()
                 captured.append((w, len(bucket), ff.pack_bucket(bs, bp)))
                 excluded += time.perf_counter() - t
@@ -616,11 +674,12 @@ def run_serve(rng: np.random.Generator, device, cfg: ServeConfig,
                 frontiers0 = [list(s.frontier) for s in sessions]
 
             t = time.perf_counter()
-            for d, (s, ol) in enumerate(zip(sessions, ols)):
-                tip = ol.checkout_tip()
+            for d, (s, tip) in enumerate(zip(sessions, tips)):
+                # the first agent's branch: it merged every agent and is
+                # at the tip (the checkout phase holds the last window's
+                # branches against fresh host checkouts)
                 check(s.text() == tip.snapshot(), f"window {w}: doc {d} "
-                      "text differs from the host checkout")
-                tips[d] = tip
+                      "text differs from the host's merge")
             stats["verify_s"] += time.perf_counter() - t
     launches, k2_launches = k1.launches, k2.launches
 
@@ -650,7 +709,7 @@ def run_serve(rng: np.random.Generator, device, cfg: ServeConfig,
                   "flush_rows_per_s": stats["rows"] / flush_s})
     stats["captured"] = captured
     stats["k2_args"] = k2_calls.args
-    return stats, ols, frontiers0
+    return stats, ols, frontiers0, [tip.snapshot() for tip in tips]
 
 
 def device_share(prof, wall_s: float, window: int) -> dict:
@@ -668,11 +727,246 @@ def device_share(prof, wall_s: float, window: int) -> dict:
             "top": [[k[:80], ms, c] for k, ms, c in rows[:8]]}
 
 
-def run_checkout(ols, frontiers0, device, n_merge: int = 16) -> dict:
+@dataclass
+class SchedulerConfig:
+    shards: int = 4
+    rounds: int = 6
+    flush_docs: int = 8
+    max_sessions_per_shard: int = 128   # >= the documents per shard
+    profile_round: int = 1              # this round is traced
+    fresh_checkouts: int = 16           # docs checked out anew at the end
+    bench_docs: int = 64
+    bench_txns: int = 8                 # rounds of the continuous feed
+    bench_steady_rounds: int = 8
+
+
+def run_scheduler(rng: np.random.Generator, device, cfg: ServeConfig,
+                  scfg: SchedulerConfig) -> dict:
+    """The serve layer's entry point: the serve phase's documents and
+    rounds of concurrent edits (its own generator), every round through
+    `MergeScheduler` - `submit` for every edited document, `pump()`,
+    `drain()` - with device planning (K2) and the kernel rung (K1) on
+    per-shard flush workers. Sessions are built by a first drain. K1's and
+    K2's launch counts are set to 0 just before the rounds and read just
+    after them; per-doc syncs are counted by a wrapper around
+    `FusedDocSession.sync`. Every K1 and K2 call of the rounds is kept and
+    afterwards held exactly against the kernel's plain version on the
+    same inputs. Each round's texts are checked against the host's merged
+    tip branch, and after the last round the first `fresh_checkouts`
+    documents' merged branches against fresh host checkouts."""
+    import threading
+
+    from diamond_types_tpu_torch.gpu import flush_fuse as ff
+    from diamond_types_tpu_torch.gpu import kernels, xform
+    from diamond_types_tpu_torch.gpu.steer import STEER
+    from diamond_types_tpu_torch.serve import MergeScheduler
+
+    t0 = time.perf_counter()
+    ols = build_docs(rng, cfg)
+    by_id = {ol.doc_id: ol for ol in ols}
+    tips = [ol.checkout_tip() for ol in ols]
+    STEER.reset(table=True)
+    sched = MergeScheduler(
+        scfg.shards, resolve=by_id.__getitem__, engine="device", fused=True,
+        device_plan=True, flush_docs=scfg.flush_docs, flush_workers=True,
+        max_sessions_per_shard=scfg.max_sessions_per_shard,
+        fused_opts={"max_ins": cfg.max_ins, "headroom": cfg.headroom,
+                    "device": device},
+        sync_lock=threading.Lock())
+    for ol in ols:
+        sched.submit(ol.doc_id, 1)
+    sched.drain()                  # builds every session
+    setup_s = time.perf_counter() - t0
+    m0 = sched.metrics_json()
+
+    steps: List[int] = []          # each per-doc sync's replayed ops
+    real_sync = ff.FusedDocSession.sync
+
+    def counted_sync(sess):
+        n = real_sync(sess)
+        steps.append(n)
+        return n
+
+    rounds = []
+    edit_s = verify_s = 0.0
+    profile = None
+    k1, k2 = kernels.apply_ops_window, kernels.xform_positions
+    ff.FusedDocSession.sync = counted_sync
+    k1.launches = k2.launches = 0
+    try:
+        with Spy(xform, "extract_tail") as ext, \
+                Spy(xform, "resolve_positions") as res, \
+                Spy(ff, "kernel_fused_replay") as rep, \
+                Spy(ff, "apply_ops_window", keep=True) as k1_calls, \
+                Spy(kernels, "xform_positions", keep=True) as k2_calls:
+            for r in range(scfg.rounds):
+                t = time.perf_counter()
+                lv0 = sum(len(ol) for ol in ols)
+                subs = []
+                for ol, tip in zip(ols, tips):
+                    n_ops = 1
+                    for name, br in ((f"fork{r}a", fork(tip)),
+                                     (f"fork{r}b", fork(tip))):
+                        k = int(rng.integers(cfg.edits_min,
+                                             cfg.edits_max + 1))
+                        random_edits(rng, ol, ol.get_or_create_agent_id(name),
+                                     br, k, cfg)
+                        n_ops += k
+                    tip.merge(ol, ol.version)  # the first agent merges...
+                    random_edits(rng, ol, ol.get_or_create_agent_id("typist"),
+                                 tip, 1, cfg)  # ...and edits on top
+                    subs.append((ol.doc_id, n_ops))
+                lvs = sum(len(ol) for ol in ols) - lv0
+                edit_s += time.perf_counter() - t
+                before = sched.metrics_json()
+                n_steps, n_ext, n_res, n_rep = (len(steps), len(ext.seconds),
+                                                len(res.seconds),
+                                                len(rep.seconds))
+                profiling = r == scfg.profile_round
+                with (torch.profiler.profile(activities=PROFILED)
+                      if profiling else contextlib.nullcontext()) as prof:
+                    t = time.perf_counter()
+                    for doc_id, n_ops in subs:
+                        check(sched.submit(doc_id, n_ops)["accepted"],
+                              f"round {r}: {doc_id} was not admitted")
+                    sched.pump()
+                    sched.drain()
+                    wall = time.perf_counter() - t
+                if profiling:
+                    profile = device_share(prof, wall, r)
+                after = sched.metrics_json()
+                delta = {k: after["totals"][k] - before["totals"][k]
+                         for k in ("flushes", "flushed_docs", "fused_calls",
+                                   "fused_docs", "builds", "evictions",
+                                   "resyncs", "host_fallbacks")}
+                xf = {k: after["transform"][k] - before["transform"][k]
+                      for k in ("device_docs", "host_docs", "fallbacks",
+                                "batches")}
+                check(xf["device_docs"] > 0,
+                      f"round {r}: no document was planned on the device")
+                ops = sum(n for _, n in subs)
+                rounds.append({
+                    "round": r, "wall_ms": 1e3 * wall,
+                    "docs_submitted": len(subs),
+                    "docs_flushed": delta["flushed_docs"],
+                    "docs_per_s": delta["flushed_docs"] / wall,
+                    "ops": ops, "ops_per_s": ops / wall,
+                    "lvs": lvs, "lvs_per_s": lvs / wall,
+                    "per_doc_syncs": len(steps) - n_steps,
+                    "per_doc_replays": sum(1 for n in steps[n_steps:] if n),
+                    **delta, "transform": xf,
+                    # summed over the worker threads, which overlap
+                    "extract_s": sum(ext.seconds[n_ext:]),
+                    "resolve_s": sum(res.seconds[n_res:]),
+                    "replay_s": sum(rep.seconds[n_rep:])})
+                t = time.perf_counter()
+                for ol, tip in zip(ols, tips):
+                    check(sched.text(ol.doc_id) == tip.snapshot(),
+                          f"round {r}: {ol.doc_id} differs from the host's "
+                          "merge")
+                verify_s += time.perf_counter() - t
+        sched.stop_workers()
+    finally:
+        ff.FusedDocSession.sync = real_sync
+    launches, k2_launches = k1.launches, k2.launches
+    m = sched.metrics_json()
+    t = time.perf_counter()
+    for ol, tip in zip(ols[:scfg.fresh_checkouts], tips):
+        check(tip.snapshot() == ol.checkout_tip().snapshot(),
+              f"scheduler: {ol.doc_id}'s merged branch differs from the "
+              "host checkout")
+    final_verify_s = time.perf_counter() - t
+    # the path's own K1 and K2 calls against the plain versions (these
+    # launches come after the counts were read)
+    t = time.perf_counter()
+    k1_err = k1_calls_err(k1_calls.args, cfg.max_ins)
+    check(k1_err == 0, f"K1 differs from its plain version at a scheduler "
+          f"call: max abs err {k1_err}")
+    k2_worst = max(k2_err(nv, ov) for nv, ov in k2_calls.args)
+    check(k2_worst == 0, f"K2 differs from its plain version at a "
+          f"scheduler resolve: max abs err {k2_worst}")
+    plain_check_s = time.perf_counter() - t
+    k1_shapes = sorted({(a[0].shape[0], a[2].shape[1], a[0].shape[1])
+                        for a in k1_calls.args})
+    fused_calls = m["fused"]["device_calls"] - m0["fused"]["device_calls"]
+    replays = sum(1 for n in steps if n)
+    batches = m["transform"]["batches"] - m0["transform"]["batches"]
+    check(m["totals"]["host_fallbacks"] == 0,
+          f"{m['totals']['host_fallbacks']} host fallbacks in the scheduler")
+    check(launches == fused_calls + replays,
+          f"K1 launched {launches} times for {fused_calls} fused calls and "
+          f"{replays} per-doc replays")
+    check(k2_launches == batches,
+          f"K2 launched {k2_launches} times for {batches} resolves")
+    lat = m["latencies"]
+    return {"phase": "scheduler", "docs": cfg.n_docs, "shards": scfg.shards,
+            "flush_docs": scfg.flush_docs,
+            "max_sessions_per_shard": scfg.max_sessions_per_shard,
+            "launches": launches, "k2_launches": k2_launches,
+            "fused_device_calls": fused_calls, "per_doc_replays": replays,
+            "resolves": batches, "setup_s": setup_s, "edit_s": edit_s,
+            "verify_s": verify_s, "final_verify_s": final_verify_s,
+            "k1_calls_checked": len(k1_calls.args),
+            "k1_shapes_b_n_cap": k1_shapes, "k1_max_abs_err": k1_err,
+            "k2_calls_checked": len(k2_calls.args),
+            "k2_max_abs_err": k2_worst, "plain_check_s": plain_check_s,
+            "rounds": rounds,
+            "flush_ms": {q: 1e3 * lat["flush"][q]
+                         for q in ("p50", "p90", "p99", "max")},
+            "flushes": lat["flush"]["count"],
+            "queue_wait_ms": {q: 1e3 * lat["queue_wait"][q]
+                              for q in ("p50", "p99", "max")},
+            "fused_occupancy": m["fused"]["occupancy"],
+            "fused_occupancy_hist": m["fused"]["occupancy_hist"],
+            "flush_size_hist": m["flush_size_hist"],
+            "flush_reasons": m["flush_reasons"],
+            "totals": m["totals"], "transform": m["transform"],
+            "steer": STEER.snapshot(), "profile": profile,
+            "caps": sorted({s.cap for b in sched.banks
+                            for s in b.sessions.values()})}
+
+
+def run_serve_benches(device, scfg: SchedulerConfig, seed: int) -> dict:
+    """`run_serve_bench` on the card in each mode (device planning on,
+    every session resident): its parity gate must pass. With a CUDA
+    device the bench takes its default placement (shard i on
+    `cuda:(i % device_count)`)."""
+    from diamond_types_tpu_torch.gpu import kernels
+    from diamond_types_tpu_torch.serve.driver import run_serve_bench
+    k1, k2 = kernels.apply_ops_window, kernels.xform_positions
+    out = []
+    for mode in ("trace", "concurrent", "flash"):
+        k1.launches = k2.launches = 0
+        r = run_serve_bench(
+            shards=scfg.shards, docs=scfg.bench_docs, mode=mode,
+            txns=scfg.bench_txns, steady_rounds=scfg.bench_steady_rounds,
+            max_sessions=scfg.bench_docs, device_plan=True, seed=seed,
+            device=None if device.type == "cuda" else device)
+        check(r["parity_ok"], f"serve bench {mode}: parity failed for "
+              f"{r['parity_mismatches']}")
+        check(k1.launches > 0, f"serve bench {mode}: K1 never launched")
+        lat = r["metrics"]["latencies"]["flush"]
+        out.append({"mode": mode, "parity_ok": r["parity_ok"],
+                    "total_ops": r["total_ops"],
+                    "ops_per_sec": r["ops_per_sec"],
+                    "feed_wall_s": r["feed_wall_s"], "wall_s": r["wall_s"],
+                    "fused_device_calls": r["fused_device_calls"],
+                    "fused_occupancy": r["fused_occupancy"],
+                    "flush_ms": {q: 1e3 * lat[q] for q in ("p50", "p99")},
+                    "k1_launches": k1.launches, "k2_launches": k2.launches,
+                    "transform": r["transform"], "steer": r["steer"],
+                    "config": r["config"]})
+    return {"phase": "serve_bench", "runs": out}
+
+
+def run_checkout(ols, frontiers0, merged: List[str], device,
+                 n_merge: int = 16) -> dict:
     """The device checkout path: every document checked out on the card,
-    grouped by pow2 cap, then `merge_device` of the first `n_merge`
-    documents from their window-0 frontier. K3's launch count is set to 0
-    just before the device calls and read just after them."""
+    grouped by pow2 cap, and held against the host's checkout of each
+    oplog (timed: the yardstick; it must equal `merged`, the serve phase's
+    merged branches), then `merge_device` of the first `n_merge` documents
+    from their window-0 frontier. K3's launch count is set to 0 just
+    before the device calls and read just after them."""
     from diamond_types_tpu_torch.gpu import kernels
     from diamond_types_tpu_torch.gpu import merge_kernel as mk
     from diamond_types_tpu_torch.gpu.flush_fuse import _pow2
@@ -685,8 +979,10 @@ def run_checkout(ols, frontiers0, device, n_merge: int = 16) -> dict:
         groups.setdefault(_pow2(max(d.total_len, 1)), []).append(i)
     t = time.perf_counter()
     want = [ol.checkout_tip().snapshot() for ol in ols]
-    verify_s = time.perf_counter() - t
-
+    host_s = time.perf_counter() - t
+    for i, text in enumerate(merged):
+        check(want[i] == text, f"serve: doc {i}'s merged branch differs "
+              "from the host checkout")
     k3 = kernels.materialize_runs
     k3.launches = 0
     calls = []
@@ -724,7 +1020,7 @@ def run_checkout(ols, frontiers0, device, n_merge: int = 16) -> dict:
     return {"phase": "checkout", "docs": len(docs), "launches": launches,
             "checkout_calls": calls, "merges": n_merge,
             "prepare_ms": 1e3 * prepare_s,
-            "host_checkout_ms": 1e3 * verify_s,
+            "host_checkout_ms": 1e3 * host_s,
             "merge_ms": [1e3 * s for s in merge_s],
             "breakdown_per_cap": breakdown,
             "k3_args": k3_calls.args}
@@ -792,20 +1088,15 @@ def k1_ctas(b: int, cap: int):
 
 def time_captured(captured, mi: int, wide_window: int) -> dict:
     """K1 at every captured main-path bucket: held exactly against its
-    plain version on the same inputs, then its call_ms and device_ms; the
-    widest bucket's plain version is timed too."""
+    plain version on the same inputs (`k1_calls_err`), then its call_ms
+    and device_ms; the widest bucket's plain version is timed too."""
     from diamond_types_tpu_torch.gpu import kernels
+    worst = k1_calls_err([args for _, _, args in captured], mi)
+    check(worst == 0, f"K1 differs from its plain version at a main-path "
+          f"bucket of the serve phase: max abs err {worst}")
     per = {"flush_docs": [], "wide": []}
     widest = None
-    worst = 0
     for w, b, args in captured:
-        k_d, k_l = kernels.apply_ops_window(*args, mi)
-        p_d, p_l = kernels.apply_ops_window_plain(*args, mi)
-        torch.cuda.synchronize()
-        err = max(exact_err(k_d, p_d), exact_err(k_l, p_l))
-        check(err == 0, f"K1 differs from its plain version at a main-path "
-              f"bucket (window {w}, {b} docs): max abs err {err}")
-        worst = max(worst, err)
         bp, cap = args[0].shape
         n = args[2].shape[1]
         row = {"window": w, "docs": b, "b": bp, "cap": cap, "n": n,
@@ -924,6 +1215,18 @@ def time_k3(calls, n_batch: int) -> dict:
     return out
 
 
+def run_kernel_phases(rng, device) -> tuple:
+    """The three kernel-against-plain phases, each line with its seconds."""
+    out = []
+    for phase, fn in ((1, phase_kernel_vs_plain), (2, phase_k2_vs_plain),
+                      (3, phase_k3_vs_plain)):
+        t = time.perf_counter()
+        line = fn(rng(phase), device)
+        line["seconds"] = time.perf_counter() - t
+        out.append(line)
+    return tuple(out)
+
+
 def nvidia_smi_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -953,22 +1256,28 @@ def main(argv=None) -> int:
 
     device = torch.device("cuda")
     try:
-        build = phase_build()
-        build.update({"torch": torch.__version__, "cuda": torch.version.cuda})
+        with ThreadPoolExecutor(1) as pool:
+            build, native = phase_build(pool)
+            build.update({"torch": torch.__version__,
+                          "cuda": torch.version.cuda})
+            kvp, k2p, k3p = run_kernel_phases(rng, device)
+            t = time.perf_counter()
+            native_path, native_s = native.result()
+            build.update({"native_seconds": native_s,
+                          "native_library": native_path.name,
+                          "native_wait_s": time.perf_counter() - t})
         emit(build)
-        t = time.perf_counter()
-        kvp = phase_kernel_vs_plain(rng(1), device)
-        kvp["seconds"] = time.perf_counter() - t
-        emit(kvp)
-        k2p = phase_k2_vs_plain(rng(2), device)
-        emit(k2p)
-        k3p = phase_k3_vs_plain(rng(3), device)
-        emit(k3p)
+        for line in (kvp, k2p, k3p):
+            emit(line)
         cfg = ServeConfig()
-        serve, ols, frontiers0 = run_serve(rng(4), device, cfg, capture=True)
+        t = time.perf_counter()
+        serve, ols, frontiers0, merged = run_serve(rng(4), device, cfg,
+                                                   capture=True)
+        t_k = time.perf_counter()
         timing = time_captured(serve.pop("captured"), cfg.max_ins,
                                cfg.wide_window)
         k2 = time_k2(serve.pop("k2_args"))
+        serve["kernel_timing_s"] = time.perf_counter() - t_k
         per = timing["per_bucket"]
         serve["k1_flush_docs_buckets"] = [
             {k: r[k] for k in ("window", "docs", "cap", "n", "call_ms",
@@ -991,13 +1300,24 @@ def main(argv=None) -> int:
             / (1e3 * flush_s[0]),
             "wide_window": sum(r["device_ms"] for r in per["wide"])
             / (1e3 * flush_s[cfg.wide_window])}
+        serve["seconds"] = time.perf_counter() - t
         emit(serve)
-        checkout = run_checkout(ols, frontiers0, device)
+        t = time.perf_counter()
+        sched = run_scheduler(rng(5), device, cfg, SchedulerConfig())
+        sched["seconds"] = time.perf_counter() - t
+        emit(sched)
+        t = time.perf_counter()
+        benches = run_serve_benches(device, SchedulerConfig(), args.seed)
+        benches["seconds"] = time.perf_counter() - t
+        emit(benches)
+        t = time.perf_counter()
+        checkout = run_checkout(ols, frontiers0, merged, device)
         k3 = time_k3(checkout.pop("k3_args"),
                      len(checkout["checkout_calls"]))
         checkout["k3_per_call"] = k3.pop("per_call")
         checkout["k3_gather_ctas_rule"] = (
             "b * ceil(cap / 512), the launcher's grid; derived, not observed")
+        checkout["seconds"] = time.perf_counter() - t
         emit(checkout)
         timed = ("ms", "call_ms", "device_ms", "plain_ms", "bound_ms",
                  "library_ms")
@@ -1006,7 +1326,10 @@ def main(argv=None) -> int:
              "source": "diamond_types_tpu_torch/csrc/apply_ops.cu",
              "replaces": "diamond_types_tpu/tpu/pallas_kernels.py:99",
              "launches": serve["launches"],
-             "max_abs_err": max(kvp["max_abs_err"], timing["max_abs_err"]),
+             "launches_by_path": {"serve": serve["launches"],
+                                  "scheduler": sched["launches"]},
+             "max_abs_err": max(kvp["max_abs_err"], timing["max_abs_err"],
+                                sched["k1_max_abs_err"]),
              "bound_by": "bytes", "library_ms": None,
              **{k: widest[k] for k in timed if k in widest},
              "shape": {k: widest[k] for k in ("b", "cap", "n")},
@@ -1016,7 +1339,10 @@ def main(argv=None) -> int:
              "source": "diamond_types_tpu_torch/csrc/xform_positions.cu",
              "replaces": "diamond_types_tpu/tpu/pallas_kernels.py:315",
              "launches": serve["k2_launches"],
-             "max_abs_err": max(k2p["max_abs_err"], k2["max_abs_err"]),
+             "launches_by_path": {"serve": serve["k2_launches"],
+                                  "scheduler": sched["k2_launches"]},
+             "max_abs_err": max(k2p["max_abs_err"], k2["max_abs_err"],
+                                sched["k2_max_abs_err"]),
              "bound_by": "bytes", **{k: k2[k] for k in timed},
              "shape": k2["shape"],
              "library": {"call": "torch.cumsum(nv, 1)", **k2["library"]}},
@@ -1024,6 +1350,7 @@ def main(argv=None) -> int:
              "source": "diamond_types_tpu_torch/csrc/materialize.cu",
              "replaces": "diamond_types_tpu/tpu/pallas_kernels.py:211",
              "launches": checkout["launches"],
+             "launches_by_path": {"checkout": checkout["launches"]},
              "max_abs_err": max(k3p["max_abs_err"], k3["max_abs_err"]),
              "bound_by": "bytes", **{k: k3[k] for k in timed},
              "device_ms_cold_l2": k3["device_ms_cold_l2"],

@@ -10,59 +10,52 @@ Port of the JAX package's `tpu/flush_fuse.py`:
   * `plan_tail()` packs that tail into dense `(pos, dlen, ilen, chars)`
     rows, splitting long ops to `max_ins` exactly like `encode_trace_ops`.
   * `kernel_fused_replay(sessions, plans)` — the kernel rung, the
-    counterpart of `pallas_fused_replay` — stacks the bucket into
-    `[b, n, max_ins]` arrays (`n` and `b` padded to powers of two, padding
-    rows replicating row 0's state with all-zero ops) and replays the whole
-    window in one launch of the hand-written K1 kernel
-    (`kernels.apply_ops_window`). `fused_replay` is the rung below it: the
-    same packing and fence over the plain PyTorch step `batch.
-    _apply_ops_batched`.
+    counterpart of `pallas_fused_replay` and the port's only replay rung —
+    stacks the bucket into `[b, n, max_ins]` arrays (`n` and `b` padded to
+    powers of two, padding rows replicating row 0's state with all-zero
+    ops) and replays the whole window in one launch of the hand-written K1
+    kernel (`kernels.apply_ops_window`) on CUDA sessions, or of its plain
+    version on CPU sessions. `FusedDocSession.sync` replays one document
+    the same way.
+
+Steering (`steer.STEER`) is bookkeeping here: each window asks `snap` for
+the class the JAX package would launch and notes that class warm (cache
+`"kernel"` for the rung, `"fused"` for the per-doc sync, the JAX package's
+key for its per-doc rung), so the warm table and counters match the JAX
+package's. The launch itself stays at the pow2 floor: with no compile and
+no graph capture to save, padding further would only cost copies and
+kernel work. A CUDA-graph capture keyed by these classes is later work.
 
 Contract violations (an op longer than `max_ins` reaching the device)
 poison that DOCUMENT's length to -1. `adopt_results` commits only rows whose
 returned length matches the host-side projection; the caller serves any
-other document from `oplog.checkout_tip()`. That fence is the system's
-correctness semantics, not a kernel fallback: neither rung catches an
-exception and drops to another rung.
+other document from `oplog.checkout_tip()`, and `FusedDocSession.sync`
+raises `FenceMismatch` for one. That fence is the system's correctness
+semantics, not a kernel fallback: the rung catches no exception.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..text.op import INS
 from . import resolve_device
-from .kernels import apply_ops_window, apply_ops_window_plain
+from .kernels import apply_ops_window
+from .steer import STEER, _pow2, cap_class
 
 DEFAULT_CAP = 1 << 10
 DEFAULT_MAX_INS = 16
 
 
-def _pow2(x: int) -> int:
-    return 1 << max(1, (int(x) - 1)).bit_length()
-
-
-def cap_class(cap: int) -> int:
-    """The capacity class a session lands on: pow2, floored at 256."""
-    return _pow2(max(int(cap), 256))
-
-
-def make_replay_body(mi: int):
-    """The fused-rung window body: K1's plain PyTorch version
-    (`kernels.apply_ops_window_plain`) on any device. Per-doc poison: a
-    bounded-shift violation is zeroed to a no-op and only ITS doc's
-    length comes back -1. Rows whose incoming length is -1 and whose ops
-    are all zero stay at -1."""
-
-    def run(docs, lens, pos, dlen, ilen, chars):
-        return apply_ops_window_plain(docs, lens, pos, dlen, ilen, chars, mi)
-
-    return run
+class FenceMismatch(RuntimeError):
+    """A replayed row came back poisoned (-1) or at another length than
+    the host projection: its session must not be trusted, and the caller
+    serves the document from the host."""
 
 
 @dataclass
@@ -105,6 +98,7 @@ class FusedDocSession:
         self.headroom = float(headroom)
         self.resyncs = -1          # the first build counts up to 0
         self.merges = 0
+        self.fence_s = 0.0         # blocked on the last sync's fence
         self._materialize(min_cap=cap)
 
     # ---- full (re)build --------------------------------------------------
@@ -216,9 +210,12 @@ class FusedDocSession:
     # ---- merge path ------------------------------------------------------
 
     def sync(self) -> int:
-        """Per-doc path: plan, then replay this doc alone at batch size 1.
-        Resyncs on capacity overflow. Raises on a poisoned result (the
-        caller evicts the session and serves the doc from the host)."""
+        """Per-doc path: plan, then replay this doc alone through K1 (its
+        plain version on a CPU session), its class noted under the per-doc
+        rung's steering key "fused". Resyncs on capacity overflow. Raises
+        `FenceMismatch` on a poisoned or mismatched result (the caller
+        evicts the session and serves the doc from the host); any other
+        exception is a fault and propagates."""
         plan = self.plan_tail()
         if not plan.fits(self.cap):
             self.resync_for(plan)
@@ -226,10 +223,10 @@ class FusedDocSession:
         if plan.n_ops == 0:
             self.commit_host(plan)
             return 0
-        ok, _device_s = fused_replay([self], [plan])
+        ok, self.fence_s = _replay([self], [plan], "fused")
         if not ok[0]:
-            raise RuntimeError(
-                "fused replay poisoned/mismatched length "
+            raise FenceMismatch(
+                "replay poisoned/mismatched length "
                 f"(doc_len {self.doc_len}, plan {plan.new_len})")
         return plan.n_ops
 
@@ -241,6 +238,10 @@ class FusedDocSession:
         n = self.doc_len
         return self.docs[:n].cpu().numpy().astype(np.int32).tobytes() \
             .decode("utf-32-le")
+
+    def footprint_slots(self) -> int:
+        """Device residency in int32 slots: the doc buffer dominates."""
+        return int(self.cap)
 
 
 def pack_plans(plans: Sequence[TailPlan], n: int, mi: int,
@@ -299,11 +300,11 @@ def adopt_results(sessions: Sequence[FusedDocSession],
 
 
 def _replay(sessions: List[FusedDocSession], plans: List[TailPlan],
-            window: Callable) -> Tuple[List[bool], float]:
-    """Pack a bucket, run `window(docs, lens, pos, dlen, ilen, chars,
-    max_ins)` once over it, and fence the results. All sessions share
-    (cap, max_ins, device). Returns (ok-per-session, seconds blocked on
-    the length fetch, which is the completion fence)."""
+            cache: str) -> Tuple[List[bool], float]:
+    """Pack a bucket, note its steered class warm under `cache`, launch K1
+    once over it, and fence the results. All sessions share (cap, max_ins,
+    device). Returns (ok-per-session, seconds blocked on the length fetch,
+    which is the completion fence)."""
     b = len(sessions)
     if b < 1 or b != len(plans):
         raise ValueError(f"{b} sessions for {len(plans)} plans")
@@ -311,24 +312,20 @@ def _replay(sessions: List[FusedDocSession], plans: List[TailPlan],
     for s in sessions:
         if (s.cap, s.max_ins, s.device) != (s0.cap, s0.max_ins, s0.device):
             raise ValueError("a bucket must share cap, max_ins and device")
-    out_docs, out_lens = window(*pack_bucket(sessions, plans), s0.max_ins)
+    args = pack_bucket(sessions, plans)
+    mi, cap = s0.max_ins, s0.cap
+    bp, n = STEER.snap(cache, args[0].shape[0], args[2].shape[1], mi, cap)
+    STEER.note_warm(cache, mi, cap, bp, n)
+    out_docs, out_lens = apply_ops_window(*args, mi)
     t_fence = time.perf_counter()
     got = out_lens.cpu().numpy()
     device_s = time.perf_counter() - t_fence
     return adopt_results(sessions, plans, out_docs, out_lens, got), device_s
 
 
-def fused_replay(sessions: List[FusedDocSession], plans: List[TailPlan]
-                 ) -> Tuple[List[bool], float]:
-    """Replay every session's pending tail in ONE pass of the plain
-    PyTorch window body (`make_replay_body`)."""
-    return _replay(sessions, plans, apply_ops_window_plain)
-
-
 def kernel_fused_replay(sessions: List[FusedDocSession],
-                        plans: List[TailPlan]
-                        ) -> Tuple[List[bool], float]:
+                        plans: List[TailPlan]) -> Tuple[List[bool], float]:
     """The kernel rung, the counterpart of `pallas_fused_replay`: the
     bucket's window in ONE launch of K1 on CUDA sessions (K1's plain
-    version on CPU sessions). Same packing and fence as `fused_replay`."""
-    return _replay(sessions, plans, apply_ops_window)
+    version on CPU sessions), its class noted under "kernel"."""
+    return _replay(sessions, plans, "kernel")

@@ -30,7 +30,8 @@ Every wrapper launches its kernel for CUDA tensors and runs the kernel's
 plain PyTorch version only for CPU tensors. It never falls back: a failed
 build or launch raises. `<wrapper>.launches` counts the wrapper's calls
 that launched on the card: one per call, however many kernels the call
-launches (K3's two).
+launches (K3's two). It is counted under a lock, so it stays exact when
+several threads launch (the serve layer's flush workers).
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ SOURCES = {"apply_ops": "apply_ops.cu",
            "materialize": "materialize.cu"}
 _libs: Dict[str, ctypes.CDLL] = {}
 _libs_lock = threading.Lock()
+_launches_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -179,6 +181,14 @@ def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")
 
 
+def count_launch(name: str) -> None:
+    """Add one to the launch count of this module's wrapper `name`. It is
+    looked up by name, so a stand-in that replaces the wrapper (and
+    forwards `launches`) keeps the count on the real one."""
+    with _launches_lock:
+        globals()[name].launches += 1
+
+
 def _check_int32(device: torch.device, **ts: torch.Tensor) -> None:
     for name, t in ts.items():
         if t.dtype != torch.int32:
@@ -288,7 +298,7 @@ def apply_ops_window(docs: torch.Tensor, lens: torch.Tensor,
                     out_docs.data_ptr(), out_lens.data_ptr(), b, n, cap,
                     max_ins)
     _raise_on(lib, rc, "apply_ops_window launch")
-    apply_ops_window.launches += 1
+    count_launch("apply_ops_window")
     return out_docs, out_lens
 
 
@@ -336,7 +346,7 @@ def xform_positions(nv: torch.Tensor, ov: torch.Tensor
                     ov.data_ptr(), pos.data_ptr(), new_len.data_ptr(),
                     peak.data_ptr(), b, n)
     _raise_on(lib, rc, "xform_positions launch")
-    xform_positions.launches += 1
+    count_launch("xform_positions")
     return pos, new_len, peak
 
 
@@ -396,7 +406,7 @@ def materialize_runs(perm: torch.Tensor, vis_len: torch.Tensor,
                     total.data_ptr(), table.data_ptr(), b, n,
                     arena.shape[1], cap)
     _raise_on(lib, rc, "materialize_runs launch")
-    materialize_runs.launches += 1
+    count_launch("materialize_runs")
     return out, total
 
 

@@ -1,0 +1,437 @@
+"""Per-shard session bank: LRU-bounded device residency + host fallback.
+
+Port of the JAX package's `serve/bank.py`. One bank per shard owns every
+device-resident `FusedDocSession` of that shard. Residency is bounded two
+ways:
+
+  * `max_sessions` — at most N documents resident at once;
+  * `max_slots`    — total device-slot footprint (sum of each session's
+                     `footprint_slots()`, its `[cap]` buffer) stays under a
+                     budget. A session that GROWS past the budget on
+                     resync evicts its least-recently-used neighbors.
+
+Eviction drops the device state; the document itself lives in its host
+OpLog, so an evicted doc costs one rebuild on its next merge.
+
+Fused flush: `sync_docs` replays a whole taken bucket in ONE device call
+per (cap, max_ins) group. The ladder, most-fused first:
+
+  1. fused group   — ≥2 resident sessions sharing (cap, max_ins) whose
+                     tails fit: one `flush_fuse.kernel_fused_replay` call
+                     (K1 on CUDA sessions).
+  2. per-doc       — the host engine, capacity eviction mid-batch, a tail
+                     that overflows its buffer, or a bucket with <2
+                     fusable docs: `sync_doc` per item, whose
+                     `FusedDocSession.sync` launches K1 for that doc alone.
+  3. host          — a poisoned or mismatched length (the fence:
+                     `adopt_results` for a group row, `FenceMismatch` from
+                     a per-doc sync): evict the session and serve the doc
+                     from `oplog.checkout_tip()`, counted in
+                     `host_fallbacks`.
+
+Unlike the JAX package's bank, no rung catches a fault and drops to
+another: a kernel error, a failed session build or any other exception
+propagates to the caller. Only the fence sends a document to the host.
+
+Locking contract for `sync_docs`: `oplog_lock` (the scheduler's oplog
+guard, e.g. DocStore.lock) is held only around the HOST-side phases
+(session build, tail extraction and planning, fallback bookkeeping);
+`device_lock` (per device) only around the device replay, so shards flush
+concurrently. The first CUDA touch in the process runs once under a module
+lock; kernels and the native library build at first use under their own
+locks.
+
+Left out of the port so far: the zone-session bank (`fused=False` on the
+device engine, the JAX package's `DeviceZoneSession`), the mesh window's
+`plan_window`/`adopt_window` split, the residency tier's snapshot hook, and
+the obs layer's flight recorder, journey stamps and device profiler.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from collections import OrderedDict
+from typing import Dict, List, Optional
+
+import torch
+
+from ..gpu import flush_fuse, kernels, resolve_device, xform
+from ..gpu.steer import STEER, WARMUP_SHAPE_CLASSES, cap_class, \
+    warmup_batches
+from .metrics import ServeMetrics
+
+# the first CUDA touch in the process initialises the driver and its
+# device table; it runs exactly once, under this lock
+_first_touch_lock = threading.Lock()
+_first_touch_done = False
+
+
+def _ensure_cuda_ready(device: torch.device) -> None:
+    global _first_touch_done
+    if device.type != "cuda" or _first_touch_done:
+        return
+    with _first_touch_lock:
+        if not _first_touch_done:
+            torch.cuda.init()
+            _first_touch_done = True
+
+
+class _HostDoc:
+    """Host-engine stand-in for a device session: the oplog IS the
+    state, so sync is a no-op and text is a tracker checkout."""
+
+    resyncs = 0
+    fence_s = 0.0
+
+    def __init__(self, oplog) -> None:
+        self.oplog = oplog
+        self.synced_to = len(oplog)
+
+    def sync(self) -> int:
+        new = len(self.oplog) - self.synced_to
+        self.synced_to = len(self.oplog)
+        return max(new, 0)
+
+    def text(self) -> str:
+        return self.oplog.checkout_tip().snapshot()
+
+    def footprint_slots(self) -> int:
+        return 0
+
+
+class SessionBank:
+    def __init__(self, shard_id: int, max_sessions: int = 8,
+                 max_slots: int = 1 << 24, engine: str = "device",
+                 device=None, metrics: Optional[ServeMetrics] = None,
+                 fused: bool = True,
+                 fused_opts: Optional[dict] = None,
+                 warmup: bool = False,
+                 flush_docs: int = 8,
+                 device_plan: bool = False) -> None:
+        """`engine="device"` keeps sessions on `device`, else on
+        `fused_opts["device"]`; None means CUDA, and the constructor raises
+        without it. `fused_opts` (cap / max_ins / headroom / device) go to
+        each `FusedDocSession`. `device_plan` plans tails through the
+        device transform (`xform.extract_tail` + `resolve_positions`, K2)
+        instead of the host tracker walk.
+
+        `warmup=True` (device engine) starts a thread that builds the
+        kernels and launches K1 once per (batch class of
+        `warmup_batches(flush_docs)`, op class of `WARMUP_SHAPE_CLASSES`)
+        at the default capacity class, on the bank's device, noting each
+        class warm for steering; `join_warmup()` waits for it and raises
+        what it raised."""
+        if engine not in ("device", "host"):
+            raise ValueError(f"unknown engine {engine!r}")
+        if engine == "device" and not fused:
+            raise NotImplementedError(
+                "the zone-session bank (fused=False on the device engine) "
+                "is not ported yet: ROADMAP item 10")
+        self.shard_id = shard_id
+        self.max_sessions = max(int(max_sessions), 1)
+        self.max_slots = int(max_slots)
+        self.engine = engine
+        self.metrics = metrics
+        self.fused = engine == "device"
+        self.fused_opts = dict(fused_opts or {})
+        self.device = None
+        if self.fused:
+            self.device = resolve_device(
+                device if device is not None
+                else self.fused_opts.get("device"))
+            self.fused_opts["device"] = self.device
+        self.flush_docs = int(flush_docs)
+        self.device_plan = bool(device_plan) and self.fused
+        self.sessions: "OrderedDict[str, object]" = OrderedDict()
+        self._resyncs_seen: Dict[str, int] = {}
+        self._warmup_thread: Optional[threading.Thread] = None
+        self._warmup_error: Optional[Exception] = None
+        if warmup and self.fused:
+            self._warmup_thread = threading.Thread(
+                target=self._warmup, daemon=True)
+            self._warmup_thread.start()
+
+    def _warmup(self) -> None:
+        try:
+            _ensure_cuda_ready(self.device)
+            if self.device.type == "cuda":
+                kernels.build()
+            cap = cap_class(self.fused_opts.get("cap",
+                                                flush_fuse.DEFAULT_CAP))
+            mi = self.fused_opts.get("max_ins", flush_fuse.DEFAULT_MAX_INS)
+            dev = self.device
+            for b in warmup_batches(self.flush_docs):
+                for n in WARMUP_SHAPE_CLASSES:
+                    z = torch.zeros((b, n), dtype=torch.int32, device=dev)
+                    kernels.apply_ops_window(
+                        torch.zeros((b, cap), dtype=torch.int32, device=dev),
+                        torch.zeros(b, dtype=torch.int32, device=dev), z, z,
+                        z, torch.zeros((b, n, mi), dtype=torch.int32,
+                                       device=dev), mi)
+                    # both replay keys: groups ("kernel") and per-doc
+                    # syncs ("fused") launch K1
+                    STEER.note_warm("kernel", mi, cap, b, n)
+                    STEER.note_warm("fused", mi, cap, b, n)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        except Exception as e:     # re-raised by join_warmup
+            self._warmup_error = e
+
+    def join_warmup(self, timeout: float = 60.0) -> None:
+        """Block until the warm-up finishes; raise what it raised."""
+        if self._warmup_thread is not None:
+            self._warmup_thread.join(timeout=timeout)
+            if self._warmup_thread.is_alive():
+                raise TimeoutError(f"warm-up still running after "
+                                   f"{timeout} s")
+        if self._warmup_error is not None:
+            raise self._warmup_error
+
+    # ---- accounting ------------------------------------------------------
+
+    def _bump(self, key: str, n: int = 1) -> None:
+        if self.metrics is not None:
+            self.metrics.bump(self.shard_id, key, n)
+
+    def footprint_slots(self) -> int:
+        return sum(s.footprint_slots() for s in self.sessions.values())
+
+    def _drop(self, doc_id: str) -> None:
+        """Shared eviction tail: forget the doc's resync baseline and
+        count the eviction."""
+        self._resyncs_seen.pop(doc_id, None)
+        self._bump("evictions")
+
+    def _evict_until_fits(self, keep: Optional[str] = None) -> None:
+        def over() -> bool:
+            return (len(self.sessions) > self.max_sessions or
+                    self.footprint_slots() > self.max_slots)
+        while self.sessions and over():
+            victim = next((k for k in self.sessions if k != keep), None)
+            if victim is None:
+                break      # only `keep` is resident; nothing to evict
+            self.sessions.pop(victim)
+            self._drop(victim)
+
+    def evict(self, doc_id: str) -> bool:
+        if self.sessions.pop(doc_id, None) is not None:
+            self._drop(doc_id)
+            return True
+        return False
+
+    # ---- residency -------------------------------------------------------
+
+    def _build(self, doc_id: str, oplog):
+        if self.engine == "host":
+            return _HostDoc(oplog)
+        _ensure_cuda_ready(self.device)
+        sess = flush_fuse.FusedDocSession(oplog, **self.fused_opts)
+        # the initial build counts as this doc's baseline, not a resync
+        self._resyncs_seen[doc_id] = sess.resyncs
+        return sess
+
+    def session(self, doc_id: str, oplog):
+        """Get-or-build the doc's resident session, updating LRU order
+        and enforcing both residency bounds."""
+        sess = self.sessions.get(doc_id)
+        if sess is not None and sess.oplog is not oplog:
+            # the doc's oplog was replaced: a session bound to the old
+            # one would serve a frozen view forever. Rebuild against the
+            # live oplog (counted as an eviction).
+            self.sessions.pop(doc_id)
+            self._drop(doc_id)
+            sess = None
+        if sess is not None:
+            self.sessions.move_to_end(doc_id)
+            return sess
+        # make room BEFORE the expensive build (the new session's exact
+        # footprint is unknown until built; re-check after)
+        self._evict_until_fits()
+        sess = self._build(doc_id, oplog)
+        self._bump("builds")
+        self.sessions[doc_id] = sess
+        self._evict_until_fits(keep=doc_id)
+        if self.metrics is not None:
+            self.metrics.observe_footprint(self.shard_id,
+                                           self.footprint_slots())
+        return sess
+
+    # ---- merge path ------------------------------------------------------
+
+    def sync_doc(self, doc_id: str, oplog) -> dict:
+        """Fold the doc's appended ops into its shard-resident state. A
+        fence failure (`FenceMismatch`) evicts the session and serves the
+        doc from the host engine; any other exception propagates."""
+        self._bump("syncs")
+        t0 = time.perf_counter()
+        sess = self.session(doc_id, oplog)
+        try:
+            steps = sess.sync()
+        except flush_fuse.FenceMismatch as e:
+            self.evict(doc_id)
+            self._bump("host_fallbacks")
+            return {"engine": "host", "steps": _HostDoc(oplog).sync(),
+                    "error": f"{e.__class__.__name__}: {e}"[:200]}
+        seen = self._resyncs_seen.get(doc_id)
+        if seen is not None and sess.resyncs > seen:
+            self._bump("resyncs", sess.resyncs - seen)
+            self._resyncs_seen[doc_id] = sess.resyncs
+        if self.metrics is not None:
+            self.metrics.observe_footprint(self.shard_id,
+                                           self.footprint_slots())
+            self.metrics.observe_device_time(
+                self.shard_id, time.perf_counter() - t0, sess.fence_s)
+        return {"engine": self.engine, "steps": int(steps)}
+
+    def sync_docs(self, items, resolve,
+                  oplog_lock=None, device_lock=None) -> dict:
+        """Flush one taken bucket, fusing where possible (module
+        docstring: the ladder). `items` are admission PendingMerge rows;
+        `resolve(doc_id) -> OpLog` is called OUTSIDE `oplog_lock`
+        (DocStore.get takes that same non-reentrant lock).
+
+        Returns {"docs", "fused_calls", "fused_docs", "fallback_docs"}.
+        """
+        olock = oplog_lock if oplog_lock is not None \
+            else contextlib.nullcontext()
+        dlock = device_lock if device_lock is not None \
+            else contextlib.nullcontext()
+        ols = {it.doc_id: resolve(it.doc_id) for it in items}
+        serial = list(items)
+        groups: List[tuple] = []     # (sessions, plans, doc_ids)
+        if self.fused:
+            serial, groups = self._plan_fused(items, ols, olock)
+        # ---- device phase: one replay per fused group, under the device
+        # lock ONLY — host threads keep mutating other oplogs
+        failed: List[str] = []
+        for sessions, plans, doc_ids in groups:
+            t0 = time.perf_counter()
+            with dlock:
+                ok, device_s = flush_fuse.kernel_fused_replay(sessions,
+                                                              plans)
+            n = len(sessions)
+            for _d in doc_ids:
+                self._bump("syncs")
+            if self.metrics is not None:
+                self.metrics.record_fused(self.shard_id, n)
+                self.metrics.observe_device_time(
+                    self.shard_id, time.perf_counter() - t0, device_s)
+            failed.extend(d for good, d in zip(ok, doc_ids) if not good)
+        # ---- host phase: fence failures to the host, per-doc syncs
+        with olock:
+            for d in failed:
+                # poisoned (-1) or length-drift result: the session's
+                # device state is untrusted — evict it and serve the
+                # doc from the host oracle until its next rebuild
+                self.evict(d)
+                self._bump("host_fallbacks")
+            for it in serial:
+                with dlock:
+                    # the per-doc rung interleaves oplog reads with its
+                    # device replay inside one sess.sync(), so it holds
+                    # the oplog guard throughout
+                    self.sync_doc(it.doc_id, ols[it.doc_id])
+            if self.metrics is not None:
+                self.metrics.observe_footprint(self.shard_id,
+                                               self.footprint_slots())
+        return {"docs": len(items),
+                "fused_calls": len(groups),
+                "fused_docs": sum(len(g[0]) for g in groups),
+                "fallback_docs": len(serial) + len(failed)}
+
+    def _plan_fused(self, items, ols, olock):
+        """Host-side phase of the fused flush: get/build each doc's
+        session, plan its tail, and group fusable sessions by
+        (cap, max_ins). Anything that can't fuse — an overflowing tail,
+        a session LRU-evicted mid-batch, a bucket with fewer than 2
+        fusable docs — lands in the serial list.
+
+        With `device_plan` the planning is split the way the replay is:
+        tail EXTRACTION (native transform + columns) under `olock`, the
+        batched device resolution (K2) OUTSIDE it, then adoption and
+        per-doc host re-planning for length disagreements back under
+        `olock`."""
+        serial = []
+        fusable: List[tuple] = []    # (sess, plan, doc_id)
+        planned = []                 # (it, sess, TailPlan | TailExtract)
+        with olock:
+            for it in items:
+                sess = self.session(it.doc_id, ols[it.doc_id])
+                half = xform.extract_tail(sess) if self.device_plan \
+                    else sess.plan_tail()
+                planned.append((it, sess, half))
+        if self.device_plan:
+            ext = [(j, h) for j, (_it, _s, h) in enumerate(planned)
+                   if isinstance(h, xform.TailExtract)]
+            stats = {"device_docs": 0,
+                     "host_docs": len(planned) - len(ext),
+                     "fallbacks": 0, "batches": 1 if ext else 0}
+            if ext:
+                resolved = xform.resolve_positions([h for _, h in ext],
+                                                   device=self.device)
+                for (j, _), plan in zip(ext, resolved):
+                    it, sess, _ = planned[j]
+                    if plan is None:
+                        stats["fallbacks"] += 1
+                    else:
+                        stats["device_docs"] += 1
+                    planned[j] = (it, sess, plan)
+            if self.metrics is not None and (ext or stats["host_docs"]):
+                self.metrics.record_transform(self.shard_id, **stats)
+        with olock:
+            for it, sess, plan in planned:
+                if plan is None:
+                    # device/host length disagreement: host re-plan
+                    plan = sess.plan_tail()
+                if not plan.fits(sess.cap):
+                    serial.append(it)   # overflow -> per-doc resync
+                    continue
+                # building session N can LRU-evict already-planned M:
+                # only still-resident sessions may commit device state
+                if self.sessions.get(it.doc_id) is not sess:
+                    serial.append(it)
+                elif plan.n_ops == 0:
+                    # frontier advance with no visible ops (e.g. a
+                    # delete of an already-deleted span): no device work
+                    sess.commit_host(plan)
+                    self._bump("syncs")
+                else:
+                    fusable.append((sess, plan, it.doc_id))
+        if len(fusable) < 2:
+            # a lone doc amortizes nothing: the per-doc rung takes it
+            serial.extend(
+                next(it for it in items if it.doc_id == d)
+                for _s, _p, d in fusable)
+            return serial, []
+        by_shape: Dict[tuple, list] = {}
+        for sess, plan, d in fusable:
+            by_shape.setdefault((sess.cap, sess.max_ins), []).append(
+                (sess, plan, d))
+        groups = [(
+            [s for s, _p, _d in grp],
+            [p for _s, p, _d in grp],
+            [d for _s, _p, d in grp],
+        ) for grp in by_shape.values()]
+        return serial, groups
+
+    def text(self, doc_id: str, oplog, oplog_lock=None,
+             device_lock=None) -> str:
+        """Merged text for the doc — from the resident session when it
+        is caught up with the durable oplog (device parity surface),
+        host checkout otherwise. Host-side reads under `oplog_lock`; the
+        device fetch under `device_lock` only."""
+        olock = oplog_lock if oplog_lock is not None \
+            else contextlib.nullcontext()
+        dlock = device_lock if device_lock is not None \
+            else contextlib.nullcontext()
+        with olock:
+            sess = self.sessions.get(doc_id)
+            if sess is None or sess.synced_to < len(oplog):
+                return oplog.checkout_tip().snapshot()
+            if self.engine == "host":
+                # host sessions read the oplog itself; stay guarded
+                return sess.text()
+        with dlock:
+            return sess.text()

@@ -1,0 +1,431 @@
+"""The multi-document merge scheduler: router x admission x banks.
+
+Port of the JAX package's `serve/scheduler.py`. A document edit lands as
+`submit(doc_id, n_ops)`; the scheduler routes it to its shard, coalesces it
+into a shape bucket, and `pump()` flushes due buckets into the shard's
+session bank, where one flush replays the bucket's documents together
+(one K1 launch per (cap, max_ins) group on a CUDA device).
+
+Threading: the global `lock` guards router + queue mutation only; each
+shard's bank has its own lock, so flushes run with the global lock
+RELEASED and different shards flush concurrently. With
+`flush_workers=True` (default) `pump()` only TAKES due buckets under the
+global lock and hands them to per-shard worker threads; `drain()` waits
+for the workers to go idle and `stop_workers()`/`stop_pump()` join them.
+The lease-epoch recheck runs inside the worker (`_fence`), at merge time.
+
+`sync_lock` is the OPLOG guard (e.g. DocStore.lock), held around host-side
+oplog reads in the bank; device execution is guarded by a PER-DEVICE lock
+(shards placed on the same card share one). Lock order is always
+global → shard → sync(oplog) → device, never reversed.
+
+Faults are not swallowed: an exception in a flush (a kernel error, a
+failed session build) propagates out of `pump()` inline; from a worker
+thread or the background pump it is stored, and the next `drain()`,
+`stop_workers()` or `stop_pump()` raises the first one stored. Only the
+length fence sends a document to the host (`SessionBank`).
+
+Ownership gate: `admit(doc_id) -> bool` (cross-host replication) refuses
+merge work for docs whose lease this host does not hold; with `epoch_of`
+also set, each submit is stamped with its lease epoch and work whose lease
+moved before the flush is dropped (`fenced`), its ops still durable in the
+oplog.
+
+Left out of the port so far (ROADMAP item 6): the obs layer's spans,
+exemplars and attribution (`attach_obs`), the residency tier
+(`attach_hydrator`), the QoS controller (`attach_qos`), follower-read
+invalidation, and the mesh flush window (`mesh_window=True`, ROADMAP item
+7), which raises.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import queue as _queue
+import threading
+import time
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from ..qos.classes import QOS_PRIORITY
+from .admission import AdmissionQueue, Backpressure
+from .bank import SessionBank
+from .metrics import ServeMetrics
+from .router import ShardRouter
+
+
+def shard_devices(n_shards: int) -> List[torch.device]:
+    """Shard i on `cuda:(i % device_count)`: every card gets shards, and
+    shards beyond the card count share cards round-robin."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("place_on_devices needs CUDA: no card is "
+                           "available")
+    k = torch.cuda.device_count()
+    return [torch.device("cuda", i % k) for i in range(n_shards)]
+
+
+class MergeScheduler:
+    def __init__(self, n_shards: int,
+                 resolve: Callable[[str], object],
+                 engine: str = "device",
+                 max_sessions_per_shard: int = 8,
+                 max_slots_per_shard: int = 1 << 24,
+                 max_pending: int = 256,
+                 flush_docs: int = 8,
+                 flush_deadline_s: float = 0.05,
+                 place_on_devices: bool = False,
+                 sync_lock=None,
+                 admit: Optional[Callable[[str], bool]] = None,
+                 fused: bool = True,
+                 fused_opts: Optional[dict] = None,
+                 flush_workers: bool = True,
+                 warmup: bool = False,
+                 mesh_window: bool = False,
+                 device_plan: bool = False) -> None:
+        """`resolve(doc_id) -> OpLog` is the document authority —
+        DocStore.get fits directly; it is always called OUTSIDE
+        `sync_lock`. `engine="device"` keeps each shard's sessions on
+        `fused_opts["device"]` (None: CUDA, which must exist), or with
+        `place_on_devices=True` shard i on `cuda:(i % device_count)`.
+        `fused=False` on the device engine (the zone-session bank) and
+        `mesh_window=True` are not ported and raise NotImplementedError.
+        `device_plan=True` plans tails through the device transform (K2)
+        instead of the host tracker walk; `warmup=True` starts bank 0's
+        warm-up (see SessionBank)."""
+        if mesh_window:
+            raise NotImplementedError(
+                "the mesh flush window is not ported yet: ROADMAP item 7")
+        self.resolve = resolve
+        self._sync_lock = sync_lock if sync_lock is not None \
+            else contextlib.nullcontext()
+        self.router = ShardRouter(n_shards)
+        self.queue = AdmissionQueue(n_shards, max_pending=max_pending,
+                                    flush_docs=flush_docs,
+                                    flush_deadline_s=flush_deadline_s)
+        self.metrics = ServeMetrics(n_shards, flush_docs, max_pending)
+        devices: List[Optional[torch.device]] = [None] * n_shards
+        if place_on_devices and engine == "device":
+            devices = shard_devices(n_shards)
+        self.banks = [
+            SessionBank(i, max_sessions=max_sessions_per_shard,
+                        max_slots=max_slots_per_shard, engine=engine,
+                        device=devices[i], metrics=self.metrics,
+                        fused=fused, fused_opts=fused_opts,
+                        warmup=(warmup and i == 0),
+                        flush_docs=flush_docs, device_plan=device_plan)
+            for i in range(n_shards)]
+        self.fused = self.banks[0].fused
+        self.device_plan = self.banks[0].device_plan
+        # per-DEVICE locks: shards placed on the same card share one;
+        # unplaced shards get their own (contention there is a perf
+        # matter, not a correctness one)
+        by_dev: Dict[object, threading.Lock] = {}
+        self._device_locks: List[threading.Lock] = []
+        for i, dev in enumerate(devices):
+            key = str(dev) if dev is not None else ("shard", i)
+            self._device_locks.append(by_dev.setdefault(key,
+                                                        threading.Lock()))
+        # `admit(doc_id) -> bool` — the cross-host ownership gate; None =
+        # single-host, admit all
+        self.admit = admit
+        # `epoch_of(doc_id) -> int` — the ACTIVE lease epoch this host
+        # holds; None = unfenced
+        self.epoch_of: Optional[Callable[[str], int]] = None
+        self.lock = threading.Lock()
+        self._shard_locks = [threading.Lock() for _ in range(n_shards)]
+        self._pump_stop = threading.Event()
+        self._pump_thread: Optional[threading.Thread] = None
+        # per-shard flush workers (lazy-spawned daemons): pump() hands
+        # taken batches to these so distinct shards' flushes overlap;
+        # _inflight + the condvar make drain() deterministic, and the
+        # first exception a worker (or the background pump) meets waits
+        # in _error for drain()/stop_workers() to raise
+        self._flush_workers = bool(flush_workers)
+        self._work_qs: List[_queue.Queue] = [
+            _queue.Queue() for _ in range(n_shards)]
+        self._workers: List[Optional[threading.Thread]] = \
+            [None] * n_shards
+        self._inflight = 0
+        self._idle_cv = threading.Condition()
+        self._error: Optional[Exception] = None
+
+    # ---- intake ----------------------------------------------------------
+
+    def submit(self, doc_id: str, n_ops: int = 1,
+               now: Optional[float] = None,
+               qos: Optional[str] = None) -> dict:
+        """Queue pending merge work. Returns {"accepted": True, "shard",
+        "bucket"}, {"accepted": False, "retry_after"} on backpressure, or
+        {"accepted": False, "reason": "not_owner"} when the ownership gate
+        denies (never raises — rejects and denials are normal operation).
+        `qos` is the ingress-classified class (default interactive);
+        unknown classes normalize to interactive."""
+        now = time.monotonic() if now is None else now
+        qos_cls = qos if qos in QOS_PRIORITY else "interactive"
+        if self.admit is not None and not self.admit(doc_id):
+            # shard_of (not assign): a denied doc must not register a
+            # live assignment this host will never flush
+            shard = self.router.shard_of(doc_id)
+            self.metrics.bump(shard, "denied")
+            return {"accepted": False, "shard": shard,
+                    "reason": "not_owner"}
+        # stamp the admit-time lease epoch; the flush rechecks it
+        epoch = self.epoch_of(doc_id) if self.epoch_of is not None \
+            else -1
+        with self.lock:
+            shard = self.router.assign(doc_id)
+            self.metrics.bump(shard, "submits")
+            already = self.queue.pending_bucket(shard, doc_id) is not None
+            try:
+                bucket = self.queue.submit(shard, doc_id, n_ops, now,
+                                           epoch=epoch, qos=qos_cls)
+            except Backpressure as bp:
+                self.metrics.bump(shard, "rejects")
+                return {"accepted": False, "shard": shard,
+                        "retry_after": bp.retry_after, "qos": qos_cls}
+            if already:
+                self.metrics.bump(shard, "coalesced")
+            self.metrics.observe_queue(shard, self.queue.depth(shard))
+        return {"accepted": True, "shard": shard, "bucket": bucket}
+
+    # ---- flush -----------------------------------------------------------
+
+    def pump(self, now: Optional[float] = None,
+             force: bool = False) -> int:
+        """Flush every due bucket. Returns the number of docs dispatched
+        (synced inline, or handed to a shard worker). Queue mutation
+        (due/take) happens under the global lock only; the flush work
+        runs on per-shard worker threads (or inline without workers)
+        under each shard's OWN lock."""
+        now = time.monotonic() if now is None else now
+        taken = []      # (shard, reason, items)
+        with self.lock:
+            for shard, bucket, reason in self.queue.due(now, force=force):
+                items = self.queue.take(shard, bucket)
+                if items:
+                    taken.append((shard, reason, items))
+        synced = 0
+        for shard, reason, items in taken:
+            if self._flush_workers:
+                self._dispatch(shard, reason, items)
+            else:
+                self._flush_items(shard, reason, items)
+            synced += len(items)
+        if taken:
+            # one handoff (>= one device call) per taken bucket
+            self.metrics.record_window(len(taken), synced,
+                                       len({s for s, _r, _i in taken}))
+            with self.lock:
+                for shard in {s for s, _r, _i in taken}:
+                    self.metrics.observe_queue(
+                        shard, self.queue.depth(shard))
+        return synced
+
+    # ---- worker pool -----------------------------------------------------
+
+    def _dispatch(self, shard: int, reason: str, items) -> None:
+        """Hand one taken batch to its shard's worker (spawned lazily)."""
+        with self._idle_cv:
+            self._inflight += 1
+        if self._workers[shard] is None:
+            t = threading.Thread(target=self._worker_loop, args=(shard,),
+                                 name=f"flush-worker-{shard}",
+                                 daemon=True)
+            self._workers[shard] = t
+            t.start()
+        self._work_qs[shard].put((reason, items))
+
+    def _store_error(self, e: Exception) -> None:
+        with self._idle_cv:
+            if self._error is None:
+                self._error = e
+
+    def _raise_stored_error(self) -> None:
+        """Raise (once) the first exception a worker or the background
+        pump stored."""
+        with self._idle_cv:
+            e, self._error = self._error, None
+        if e is not None:
+            raise e
+
+    def _worker_loop(self, shard: int) -> None:
+        q = self._work_qs[shard]
+        while True:
+            job = q.get()
+            if job is None:
+                return
+            reason, items = job
+            try:
+                self._flush_items(shard, reason, items)
+            except Exception as e:    # raised by drain()/stop_workers()
+                self._store_error(e)
+            finally:
+                with self._idle_cv:
+                    self._inflight -= 1
+                    self._idle_cv.notify_all()
+
+    def _wait_idle(self, timeout: float = 600.0) -> None:
+        """Block until every dispatched batch has been flushed; raises
+        TimeoutError if one is still in flight after `timeout`."""
+        deadline = time.monotonic() + timeout
+        with self._idle_cv:
+            while self._inflight > 0:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise TimeoutError(
+                        f"{self._inflight} flushes still in flight after "
+                        f"{timeout} s")
+                self._idle_cv.wait(timeout=left)
+
+    def stop_workers(self) -> None:
+        """Join the flush workers deterministically (after a drain()),
+        then raise the first exception one of them stored. Safe to call
+        repeatedly; workers respawn on the next pump."""
+        self._wait_idle()
+        for i, w in enumerate(self._workers):
+            if w is not None:
+                self._work_qs[i].put(None)
+        for i, w in enumerate(self._workers):
+            if w is not None:
+                w.join(timeout=5)
+                self._workers[i] = None
+        self._raise_stored_error()
+
+    def _fence(self, shard: int, items) -> list:
+        """Lease-epoch recheck: drop work admitted under an epoch this
+        host no longer holds (`fenced`) — its ops stay durable in the
+        oplog for the new owner."""
+        if self.epoch_of is None:
+            return items
+        kept = []
+        for item in items:
+            if item.epoch != -1 \
+                    and self.epoch_of(item.doc_id) != item.epoch:
+                self.metrics.bump(shard, "fenced")
+            else:
+                kept.append(item)
+        return kept
+
+    def _flush_items(self, shard: int, reason: str, items) -> None:
+        """Sync one taken batch into its shard's bank, under that shard's
+        lock only (items are already off the queue, so a concurrent
+        submit for the same doc simply queues fresh work). The lease
+        recheck runs first."""
+        items = self._fence(shard, items)
+        if not items:
+            return
+        t0 = time.perf_counter()
+        with self._shard_locks[shard]:
+            self.banks[shard].sync_docs(
+                items, self.resolve, oplog_lock=self._sync_lock,
+                device_lock=self._device_locks[shard])
+        self.metrics.record_flush(
+            shard, len(items), sum(i.n_ops for i in items), reason,
+            dur_s=time.perf_counter() - t0)
+        now_m = time.monotonic()
+        for it in items:
+            self.metrics.observe_queue_wait(
+                max(0.0, now_m - it.enqueued_at))
+
+    def drain(self) -> int:
+        """Flush everything regardless of triggers (shutdown, rebalance,
+        parity checks), then wait for the shard workers to go idle — the
+        return means every dispatched doc has actually merged — and raise
+        the first exception a worker stored."""
+        total = 0
+        while self.queue.total_depth():
+            n = self.pump(force=True)
+            if n == 0:
+                break     # defensive: a take() returning nothing
+            total += n
+        self._wait_idle()
+        self._raise_stored_error()
+        return total
+
+    # ---- reads / control -------------------------------------------------
+
+    def text(self, doc_id: str) -> str:
+        """Merged text from the doc's shard (device-resident state when
+        present). Pending queued work for the doc is flushed first so the
+        answer reflects every accepted submit. Reads never dispatch device
+        work under the oplog guard: a session behind the durable oplog
+        serves the oplog's tip snapshot instead."""
+        with self.lock:
+            shard = self.router.assign(doc_id)
+            bucket = self.queue.pending_bucket(shard, doc_id)
+            items = []
+            if bucket is not None:
+                # flush the doc's whole bucket (its neighbors share the
+                # shape anyway), counted as a read-triggered flush
+                items = self.queue.take(shard, bucket,
+                                        limit=self.queue.max_pending)
+        if items:
+            self._flush_items(shard, "read", items)
+            with self.lock:
+                self.metrics.observe_queue(shard,
+                                           self.queue.depth(shard))
+        ol = self.resolve(doc_id)
+        # a deposed or never-owner host must not serve its device session
+        # for the doc — the durable oplog is the only truth it still holds
+        if self.admit is not None and not self.admit(doc_id):
+            with self._sync_lock:
+                return ol.checkout_tip().snapshot()
+        with self._shard_locks[shard]:
+            return self.banks[shard].text(
+                doc_id, ol, oplog_lock=self._sync_lock,
+                device_lock=self._device_locks[shard])
+
+    def rebalance(self, n_shards: int) -> Dict[str, tuple]:
+        """Shrink (or restore) the live shard count: drain pending work,
+        re-route, and evict moved docs' sessions from their OLD shards
+        (they rebuild on the new shard at next merge). Growing past the
+        constructed bank count needs a new scheduler."""
+        if n_shards > len(self.banks):
+            raise ValueError(
+                f"cannot grow past the constructed {len(self.banks)} "
+                "shards; build a new MergeScheduler")
+        self.drain()
+        with self.lock:
+            moved = self.router.rebalance(n_shards)
+        for doc_id, (old, _new) in moved.items():
+            with self._shard_locks[old]:
+                self.banks[old].evict(doc_id)
+        return moved
+
+    def metrics_json(self) -> dict:
+        snap = self.metrics.snapshot()
+        snap["router_counts"] = self.router.counts()
+        return snap
+
+    # ---- background pump -------------------------------------------------
+
+    def start_pump(self, interval_s: Optional[float] = None) -> None:
+        """Pump every `interval_s` (default half the flush deadline) on a
+        background thread. An exception ends the loop and is raised by
+        the next drain()/stop_pump()."""
+        if self._pump_thread is not None:
+            return
+        interval = interval_s if interval_s is not None else \
+            max(self.queue.flush_deadline_s / 2, 0.01)
+
+        def loop():
+            while not self._pump_stop.wait(interval):
+                try:
+                    self.pump()
+                except Exception as e:
+                    self._store_error(e)
+                    return
+
+        self._pump_thread = threading.Thread(target=loop, daemon=True)
+        self._pump_thread.start()
+
+    def stop_pump(self, drain: bool = True) -> None:
+        self._pump_stop.set()
+        if self._pump_thread is not None:
+            self._pump_thread.join(timeout=2)
+            self._pump_thread = None
+        self._pump_stop = threading.Event()
+        if drain:
+            self.drain()
+        self.stop_workers()

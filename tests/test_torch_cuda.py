@@ -300,3 +300,55 @@ def test_device_transform_and_checkout_on_card_match_cpu():
     assert kernels.materialize_runs.launches == launches + 1
     assert got == merge_kernel.checkout_batch_device(docs, device="cpu") \
         == [ol.checkout_tip().snapshot() for ol in ols]
+
+
+@pytest.mark.parametrize("workers", [False, True])
+def test_scheduler_on_card_launches_k1_and_k2(workers):
+    """16 documents through MergeScheduler on CUDA sessions with device
+    planning: every text equals the host's, no host fallback, K1 launched
+    once per fused group and per replayed per-doc sync, K2 once per
+    resolve."""
+    _need_card()
+    import threading
+    from diamond_types_tpu_torch.serve import MergeScheduler
+    from torch_parity import serve_docs, serve_round
+    docs = serve_docs([OpLog], 16, 30, base_min=200, base_max=3000)
+    ols = {d: tw.oplogs[0] for d, tw in docs.items()}
+    sched = MergeScheduler(4, resolve=ols.__getitem__, engine="device",
+                           fused_opts={"max_ins": 16}, device_plan=True,
+                           flush_docs=8, flush_deadline_s=10.0,
+                           flush_workers=workers,
+                           max_sessions_per_shard=16,
+                           sync_lock=threading.Lock())
+    assert sched.banks[0].device.type == "cuda"
+    for d in docs:
+        sched.submit(d, 1)
+    sched.drain()                       # build every session
+    syncs = []
+    real = ff.FusedDocSession.sync
+
+    def counted(self):
+        n = real(self)
+        syncs.append(n)
+        return n
+    ff.FusedDocSession.sync = counted
+    k1, k2 = kernels.apply_ops_window, kernels.xform_positions
+    k1.launches = k2.launches = 0
+    try:
+        for rnd in range(3):
+            for d, n in serve_round(docs, 30, rnd, share=0.9):
+                assert sched.submit(d, n)["accepted"]
+            sched.pump()
+            sched.drain()
+    finally:
+        ff.FusedDocSession.sync = real
+    torch.cuda.synchronize()
+    m = sched.metrics_json()
+    replayed = sum(1 for n in syncs if n > 0)
+    assert k1.launches == m["fused"]["device_calls"] + replayed > 0
+    assert k2.launches == m["transform"]["batches"] > 0
+    assert m["totals"]["host_fallbacks"] == 0
+    assert m["transform"]["device_docs"] > 0
+    for d, ol in ols.items():
+        assert sched.text(d) == ol.checkout_tip().snapshot()
+    sched.stop_workers()

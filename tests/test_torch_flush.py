@@ -4,10 +4,11 @@ Both packages get the same oplog edits (three agents forking and merging,
 inserts and deletes longer than `max_ins`). Each document has a
 `FusedDocSession` on each side (JAX on its CPU backend, the port with
 `device="cpu"`). Over several windows and buckets of mixed capacity the
-tail plans, the fence results of the kernel rung (`pallas_fused_replay` /
-`kernel_fused_replay`) and of the fused rung (`fused_replay`), and the
-texts, lengths and capacities must be exactly equal, and equal to the host
-checkout.
+tail plans, the fence results of the port's one replay rung
+(`kernel_fused_replay`, K1's plain version on CPU sessions) against both
+JAX rungs (`pallas_fused_replay` and the fused XLA rung `fused_replay`),
+and the texts, lengths and capacities must be exactly equal, and equal to
+the host checkout.
 """
 
 import numpy as np
@@ -104,12 +105,10 @@ def _flush(js, ts, twins, rung, flush_docs, poison=None):
         jsb, tsb = [js[i] for i in bucket], [ts[i] for i in bucket]
         jpb, tpb = [jplans[i] for i in bucket], [tplans[i] for i in bucket]
         before = [s.text() for s in tsb]
-        if rung == "kernel":
-            jok, _ = jff.pallas_fused_replay(jsb, jpb)
-            tok, _ = tff.kernel_fused_replay(tsb, tpb)
-        else:
-            jok, _ = jff.fused_replay(jsb, jpb)
-            tok, _ = tff.fused_replay(tsb, tpb)
+        jrung = jff.pallas_fused_replay if rung == "kernel" \
+            else jff.fused_replay
+        jok, _ = jrung(jsb, jpb)
+        tok, _ = tff.kernel_fused_replay(tsb, tpb)
         assert tok == jok
         for s, ok, text in zip(tsb, tok, before):
             if not ok:           # a failed row keeps its pre-window text

@@ -29,7 +29,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "diamond_types_tpu_torch.gpu.kernels" in mods
     assert "diamond_types_tpu_torch.gpu.flush_fuse" in mods
     for m in ("native.core", "native.build", "listmerge.columnar",
-              "gpu.linearize", "gpu.xform", "gpu.merge_kernel"):
+              "gpu.linearize", "gpu.xform", "gpu.merge_kernel", "gpu.steer",
+              "serve.scheduler", "serve.bank", "serve.driver",
+              "serve.admission", "serve.router", "serve.metrics",
+              "serve.__main__", "qos.classes", "obs.hist", "text.trace"):
         assert f"diamond_types_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

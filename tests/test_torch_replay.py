@@ -4,7 +4,8 @@ K1 is the Pallas kernel `apply_op_block` (run here in interpret mode) and
 its window body `make_pallas_replay_body`; the port's counterparts are the
 per-op step `batch._apply_ops_batched` and `kernels.apply_ops_window`
 (which runs `apply_ops_window_plain` on CPU tensors). X1 is the XLA replay in
-`tpu/batch.py` and the fused-rung body `make_replay_body`. Every
+`tpu/batch.py` and the fused-rung body `make_replay_body`, whose
+counterpart is `kernels.apply_ops_window_plain` itself. Every
 comparison is exact over the full `[b, cap]` buffers, wrap-around slack
 included, and the lengths.
 """
@@ -21,7 +22,6 @@ from diamond_types_tpu.tpu import batch as jbatch
 from diamond_types_tpu.tpu import flush_fuse as jff
 from diamond_types_tpu.tpu.pallas_kernels import apply_op_block
 from diamond_types_tpu_torch.gpu import batch as tbatch
-from diamond_types_tpu_torch.gpu import flush_fuse as tff
 from diamond_types_tpu_torch.gpu import kernels
 
 
@@ -104,7 +104,7 @@ def test_window_matches_pallas_and_fused_bodies(b, n, cap, mi):
     assert kernels.apply_ops_window.launches == before   # CPU: plain only
     _eq(got_d, want_d)
     _eq(got_l, want_l)
-    f_d, f_l = tff.make_replay_body(mi)(*targs)
+    f_d, f_l = kernels.apply_ops_window_plain(*targs, mi)
     _eq(f_d, want_d)
     _eq(f_l, want_l)
     if poison:

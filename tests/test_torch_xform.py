@@ -5,8 +5,9 @@ interpret mode, across its 512-lane chunk boundary; then
 `plan_tails_device` on twin `FusedDocSession` buckets (the JAX side with
 `DT_TPU_PALLAS=1`, so its resolve runs the interpreted K2): every
 document's `TailPlan` and the stats dict must be exactly equal, and the
-port's device plans, replayed through `fused_replay` on the CPU, must give
-the host checkout's text. Tolerance 0 throughout.
+port's device plans, replayed through `kernel_fused_replay` on the CPU
+(K1's plain version), must give the host checkout's text. Tolerance 0
+throughout.
 """
 
 import jax.numpy as jnp
@@ -110,8 +111,8 @@ def _replay_window(sessions, plans):
         else:
             by_cap.setdefault(s.cap, []).append(i)
     for idx in by_cap.values():
-        ok, _ = tff.fused_replay([sessions[i] for i in idx],
-                                 [plans[i] for i in idx])
+        ok, _ = tff.kernel_fused_replay([sessions[i] for i in idx],
+                                        [plans[i] for i in idx])
         oks += ok
     return oks
 

@@ -152,3 +152,67 @@ def xf_rows(ol, frm, to) -> list:
     """The transformed-op stream as comparable tuples."""
     return [(lv, op.kind, len(op), op.fwd, pos, ol.ops.get_run_content(op))
             for lv, op, pos in ol.get_xf_operations_full(frm, to)]
+
+
+# ---- shape steering ---------------------------------------------------------
+
+def steer_tape(seed: int, n: int, note_share: float = 0.4) -> list:
+    """A random sequence of `ShapeSteer` calls over small shape domains, so
+    exact hits, padding, forced pads and new classes all occur: ("note",
+    cache, mi, cap, b, n) and ("snap", cache, bp0, n0, mi, cap).
+    Cache names are the JAX package's ("fused", "pallas"); a test maps
+    "pallas" to the port's "kernel". After a snap, ("launch",) asks the
+    caller to note the returned class warm, as the replay rungs do."""
+    rng = np.random.default_rng(seed)
+    caches, mis, caps = ("fused", "pallas"), (4, 16), (256, 1024)
+    bs, ns = (1, 2, 4, 8), (2, 4, 8, 16, 32)
+    tape = []
+    for _ in range(n):
+        cache = caches[int(rng.integers(2))]
+        mi, cap = mis[int(rng.integers(2))], caps[int(rng.integers(2))]
+        b, k = bs[int(rng.integers(4))], ns[int(rng.integers(5))]
+        if rng.random() < note_share:
+            tape.append(("note", cache, mi, cap, b, k))
+        else:
+            tape.append(("snap", cache, b, k, mi, cap))
+            if rng.random() < 0.5:
+                tape.append(("launch",))
+    return tape
+
+
+# ---- the serve layer --------------------------------------------------------
+
+def serve_docs(oplog_types: Sequence, n_docs: int, seed: int,
+               base_min: int = 10, base_max: int = 300,
+               agents: Sequence[str] = ("alice", "bob", "carol")
+               ) -> Dict[str, TwinDocs]:
+    """`n_docs` documents, each a TwinDocs over one fresh oplog of every
+    type in `oplog_types`, typed to a random base length by the first of
+    `agents`, then forked for all of them (so the first round's edits
+    are concurrent). Bases up to 300 chars give sessions of mixed cap."""
+    rng = np.random.default_rng(seed)
+    docs = {}
+    for i in range(n_docs):
+        tw = TwinDocs([t() for t in oplog_types], seed * 1000 + i)
+        tw.type_base(agents[0], int(rng.integers(base_min, base_max + 1)))
+        tw.fork(agents)
+        docs[f"d{i:02d}"] = tw
+    return docs
+
+
+def serve_round(docs: Dict[str, TwinDocs], seed: int, rnd: int,
+                agents: Sequence[str] = ("alice", "bob", "carol"),
+                share: float = 0.7) -> list:
+    """One round of the shared concurrent tape: about `share` of the
+    documents take a concurrent round of 1-4 edits per agent (inserts up
+    to 11 chars, past a max_ins of 4). Returns the (doc_id, n_ops) submits
+    to make, in document order."""
+    rng = np.random.default_rng([seed, rnd])
+    out = []
+    for d, tw in docs.items():
+        if rng.random() >= share:
+            continue
+        k = int(rng.integers(1, 5))
+        tw.concurrent_round(agents, k, max_ins=11, max_del=9)
+        out.append((d, k * len(agents) + 1))
+    return out
