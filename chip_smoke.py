@@ -70,10 +70,26 @@ package), in phases, each printing one JSON line:
                 per round wall ms, docs and ops per second, and the flush
                 latency p50/p99, occupancy, builds, evictions and steering
                 counters.
+                Then the same documents and edits (the same generator
+                seed) once more with `mesh_window=True` (line
+                "scheduler_window"): each `pump()` folds every due bucket
+                into one window, one K1 launch per (cap, max_ins) class
+                and one K2 resolve per window. Requires the same texts and
+                checks, 0 per-shard fused calls, K1 launches == window
+                class dispatches + per-doc replays, K2 launches ==
+                resolves <= windows, and arena hits + misses (counted by a
+                wrapper around `arena.acquire`) == dispatches. Each of the
+                two lines has a "summary": docs/s, ops/s and wall per
+                round, flush and queue-wait p50/p99, K1 and K2 launches
+                per round, device calls per window, mesh occupancy, staged
+                bytes per window, arena hits and misses, host fallbacks
+                and the device busy share of round 1; each round splits
+                its resolve seconds into linearize, K2 and assembly.
   5. serve_bench - `run_serve_bench` on the card in trace, concurrent and
-                flash modes (4 shards, 64 documents, 8 feed rounds and 8
-                steady rounds, device planning on, every session
-                resident); each must pass its parity gate and launch K1.
+                flash modes, and in concurrent mode with the flush window
+                (4 shards, 64 documents, 8 feed rounds and 8 steady
+                rounds, device planning on, every session resident); each
+                must pass its parity gate and launch K1.
   6. checkout - `merge_kernel.prepare_doc` and `checkout_batch_device`
                 (`fugue_linearize` and one K3 call per checkout: a row
                 scan and a tiled gather, two kernels counted as one
@@ -93,7 +109,8 @@ package), in phases, each printing one JSON line:
                 (host clock).
   7. kernels  - one line for K1, K2 and K3: launches on the main path (K1
                 and K2 in the serve phase, K3 in the checkout phase; per
-                path in `launches_by_path`, the scheduler's too), max
+                path in `launches_by_path`, the scheduler's and the flush
+                window's too), max
                 error against the plain version (see below), and at the
                 main path's widest call two times: `call_ms` (CUDA events
                 around back-to-back wrapper calls: host and device) and
@@ -106,7 +123,7 @@ package), in phases, each printing one JSON line:
                 them the HBM bound and the library yardstick's call_ms and
                 device_ms (`torch.cumsum` for K2); then the card's name and
                 power limit. max_abs_err covers the kernel phases, the serve
-                phase's captured calls and the scheduler's calls. The
+                phase's captured calls and both scheduler runs' calls. The
                 serve line carries K1's call_ms and
                 device_ms at every captured bucket, and K1's CTAs per
                 launch as derived from the launcher's grid rule
@@ -510,6 +527,23 @@ class Spy:
         return out
 
 
+class Hits(Spy):
+    """A Spy on `arena.acquire` that counts its hits (the parked rows
+    handed back) and misses (the caller gathers instead)."""
+
+    def __init__(self, owner, name: str) -> None:
+        super().__init__(owner, name)
+        self.hits = self.misses = 0
+
+    def __call__(self, *args, **kwargs):
+        out = super().__call__(*args, **kwargs)
+        if out is None:
+            self.misses += 1
+        else:
+            self.hits += 1
+        return out
+
+
 class Stamp(Spy):
     """A Spy that also keeps, for each call, the host clock at entry and
     at return and CUDA events recorded just before and just after it. With
@@ -741,15 +775,18 @@ class SchedulerConfig:
 
 
 def run_scheduler(rng: np.random.Generator, device, cfg: ServeConfig,
-                  scfg: SchedulerConfig) -> dict:
+                  scfg: SchedulerConfig, mesh_window: bool = False) -> dict:
     """The serve layer's entry point: the serve phase's documents and
     rounds of concurrent edits (its own generator), every round through
     `MergeScheduler` - `submit` for every edited document, `pump()`,
-    `drain()` - with device planning (K2) and the kernel rung (K1) on
-    per-shard flush workers. Sessions are built by a first drain. K1's and
+    `drain()` - with device planning (K2) and the kernel rung (K1): on
+    per-shard flush workers (the control), or with `mesh_window` through
+    the flush window (one K1 launch per (cap, max_ins) class and one K2
+    resolve per window). Sessions are built by a first drain. K1's and
     K2's launch counts are set to 0 just before the rounds and read just
     after them; per-doc syncs are counted by a wrapper around
-    `FusedDocSession.sync`. Every K1 and K2 call of the rounds is kept and
+    `FusedDocSession.sync`, the window arena's hits and misses by one
+    around `arena.acquire`. Every K1 and K2 call of the rounds is kept and
     afterwards held exactly against the kernel's plain version on the
     same inputs. Each round's texts are checked against the host's merged
     tip branch, and after the last round the first `fresh_checkouts`
@@ -759,16 +796,20 @@ def run_scheduler(rng: np.random.Generator, device, cfg: ServeConfig,
     from diamond_types_tpu_torch.gpu import flush_fuse as ff
     from diamond_types_tpu_torch.gpu import kernels, xform
     from diamond_types_tpu_torch.gpu.steer import STEER
+    from diamond_types_tpu_torch.parallel import arena
     from diamond_types_tpu_torch.serve import MergeScheduler
+    from diamond_types_tpu_torch.serve import scheduler as sched_mod
 
     t0 = time.perf_counter()
     ols = build_docs(rng, cfg)
     by_id = {ol.doc_id: ol for ol in ols}
     tips = [ol.checkout_tip() for ol in ols]
     STEER.reset(table=True)
+    arena.reset_arenas()
     sched = MergeScheduler(
         scfg.shards, resolve=by_id.__getitem__, engine="device", fused=True,
         device_plan=True, flush_docs=scfg.flush_docs, flush_workers=True,
+        mesh_window=mesh_window,
         max_sessions_per_shard=scfg.max_sessions_per_shard,
         fused_opts={"max_ins": cfg.max_ins, "headroom": cfg.headroom,
                     "device": device},
@@ -796,7 +837,11 @@ def run_scheduler(rng: np.random.Generator, device, cfg: ServeConfig,
     try:
         with Spy(xform, "extract_tail") as ext, \
                 Spy(xform, "resolve_positions") as res, \
+                Spy(xform, "fugue_linearize") as lin, \
+                Spy(xform, "_assemble_plan") as asm, \
                 Spy(ff, "kernel_fused_replay") as rep, \
+                Spy(sched_mod, "mesh_fused_replay") as wrep, \
+                Hits(arena, "acquire") as acq, \
                 Spy(ff, "apply_ops_window", keep=True) as k1_calls, \
                 Spy(kernels, "xform_positions", keep=True) as k2_calls:
             for r in range(scfg.rounds):
@@ -822,6 +867,10 @@ def run_scheduler(rng: np.random.Generator, device, cfg: ServeConfig,
                 n_steps, n_ext, n_res, n_rep = (len(steps), len(ext.seconds),
                                                 len(res.seconds),
                                                 len(rep.seconds))
+                n_lin, n_asm, n_wrep = (len(lin.seconds), len(asm.seconds),
+                                        len(wrep.seconds))
+                n_k1, n_k2 = len(k1_calls.seconds), len(k2_calls.seconds)
+                hits0, misses0 = acq.hits, acq.misses
                 profiling = r == scfg.profile_round
                 with (torch.profiler.profile(activities=PROFILED)
                       if profiling else contextlib.nullcontext()) as prof:
@@ -842,6 +891,10 @@ def run_scheduler(rng: np.random.Generator, device, cfg: ServeConfig,
                 xf = {k: after["transform"][k] - before["transform"][k]
                       for k in ("device_docs", "host_docs", "fallbacks",
                                 "batches")}
+                win = {k: after["window"][k] - before["window"][k]
+                       for k in ("windows", "device_windows", "dispatches",
+                                 "mesh_docs", "mesh_padded_rows",
+                                 "staged_bytes")}
                 check(xf["device_docs"] > 0,
                       f"round {r}: no document was planned on the device")
                 ops = sum(n for _, n in subs)
@@ -854,11 +907,22 @@ def run_scheduler(rng: np.random.Generator, device, cfg: ServeConfig,
                     "lvs": lvs, "lvs_per_s": lvs / wall,
                     "per_doc_syncs": len(steps) - n_steps,
                     "per_doc_replays": sum(1 for n in steps[n_steps:] if n),
-                    **delta, "transform": xf,
-                    # summed over the worker threads, which overlap
+                    **delta, "transform": xf, "window": win,
+                    "k1_launches": len(k1_calls.seconds) - n_k1,
+                    "k2_launches": len(k2_calls.seconds) - n_k2,
+                    "arena_hits": acq.hits - hits0,
+                    "arena_misses": acq.misses - misses0,
+                    # summed over the worker threads, which overlap (the
+                    # window runs on one thread); host clock: linearize
+                    # and K2 are their enqueue, the resolve's rest its
+                    # uploads, the wait for the card and the downloads
                     "extract_s": sum(ext.seconds[n_ext:]),
                     "resolve_s": sum(res.seconds[n_res:]),
-                    "replay_s": sum(rep.seconds[n_rep:])})
+                    "linearize_s": sum(lin.seconds[n_lin:]),
+                    "k2_s": sum(k2_calls.seconds[n_k2:]),
+                    "assemble_s": sum(asm.seconds[n_asm:]),
+                    "replay_s": sum(rep.seconds[n_rep:])
+                    + sum(wrep.seconds[n_wrep:])})
                 t = time.perf_counter()
                 for ol, tip in zip(ols, tips):
                     check(sched.text(ol.doc_id) == tip.snapshot(),
@@ -891,15 +955,55 @@ def run_scheduler(rng: np.random.Generator, device, cfg: ServeConfig,
     fused_calls = m["fused"]["device_calls"] - m0["fused"]["device_calls"]
     replays = sum(1 for n in steps if n)
     batches = m["transform"]["batches"] - m0["transform"]["batches"]
+    w = {k: m["window"][k] - m0["window"][k]
+         for k in ("windows", "device_windows", "dispatches", "mesh_docs",
+                   "mesh_padded_rows", "staged_bytes")}
     check(m["totals"]["host_fallbacks"] == 0,
           f"{m['totals']['host_fallbacks']} host fallbacks in the scheduler")
-    check(launches == fused_calls + replays,
-          f"K1 launched {launches} times for {fused_calls} fused calls and "
-          f"{replays} per-doc replays")
-    check(k2_launches == batches,
-          f"K2 launched {k2_launches} times for {batches} resolves")
+    if mesh_window:
+        # one card: one K1 launch per (cap, max_ins) class per window (a
+        # window dispatch), one K2 resolve per window
+        check(fused_calls == 0, f"{fused_calls} per-shard fused calls "
+              "under the flush window")
+        check(launches == w["dispatches"] + replays,
+              f"K1 launched {launches} times for {w['dispatches']} window "
+              f"classes and {replays} per-doc replays")
+        check(k2_launches == batches <= w["windows"],
+              f"K2 launched {k2_launches} times for {batches} resolves in "
+              f"{w['windows']} windows")
+        check(acq.hits + acq.misses == w["dispatches"],
+              f"{acq.hits} arena hits + {acq.misses} misses for "
+              f"{w['dispatches']} window dispatches")
+    else:
+        check(launches == fused_calls + replays,
+              f"K1 launched {launches} times for {fused_calls} fused calls "
+              f"and {replays} per-doc replays")
+        check(k2_launches == batches,
+              f"K2 launched {k2_launches} times for {batches} resolves")
     lat = m["latencies"]
-    return {"phase": "scheduler", "docs": cfg.n_docs, "shards": scfg.shards,
+    n_r = len(rounds)
+    walls = [x["wall_ms"] for x in rounds]
+    summary = {
+        "docs_per_s": [x["docs_per_s"] for x in rounds],
+        "ops_per_s": [x["ops_per_s"] for x in rounds],
+        "round_wall_ms": walls,
+        "flush_ms_p50_p99": [1e3 * lat["flush"]["p50"],
+                             1e3 * lat["flush"]["p99"]],
+        "queue_wait_ms_p50_p99": [1e3 * lat["queue_wait"]["p50"],
+                                  1e3 * lat["queue_wait"]["p99"]],
+        "k1_launches_per_round": launches / n_r,
+        "k2_launches_per_round": k2_launches / n_r,
+        "device_calls_per_window": m["window"]["device_calls_per_window"],
+        "mesh_occupancy": m["window"]["mesh_occupancy"],
+        "staged_bytes_per_window": m["window"]["staged_bytes_per_window"],
+        "arena_hits": acq.hits, "arena_misses": acq.misses,
+        "host_fallbacks": m["totals"]["host_fallbacks"],
+        "device_busy_share": profile["device_busy_share"]
+        if profile else None}
+    return {"phase": "scheduler_window" if mesh_window else "scheduler",
+            "mesh_window": mesh_window, "summary": summary,
+            "window_totals": w, "arena_stats": arena.arena_stats(),
+            "docs": cfg.n_docs, "shards": scfg.shards,
             "flush_docs": scfg.flush_docs,
             "max_sessions_per_shard": scfg.max_sessions_per_shard,
             "launches": launches, "k2_launches": k2_launches,
@@ -928,20 +1032,22 @@ def run_scheduler(rng: np.random.Generator, device, cfg: ServeConfig,
 
 def run_serve_benches(device, scfg: SchedulerConfig, seed: int) -> dict:
     """`run_serve_bench` on the card in each mode (device planning on,
-    every session resident): its parity gate must pass. With a CUDA
-    device the bench takes its default placement (shard i on
-    `cuda:(i % device_count)`)."""
+    every session resident), and in concurrent mode once more with the
+    flush window: its parity gate must pass. With a CUDA device the bench
+    takes its default placement (shard i on `cuda:(i % device_count)`)."""
     from diamond_types_tpu_torch.gpu import kernels
     from diamond_types_tpu_torch.serve.driver import run_serve_bench
     k1, k2 = kernels.apply_ops_window, kernels.xform_positions
     out = []
-    for mode in ("trace", "concurrent", "flash"):
+    for mode, window in (("trace", False), ("concurrent", False),
+                         ("flash", False), ("concurrent", True)):
         k1.launches = k2.launches = 0
         r = run_serve_bench(
             shards=scfg.shards, docs=scfg.bench_docs, mode=mode,
             txns=scfg.bench_txns, steady_rounds=scfg.bench_steady_rounds,
             max_sessions=scfg.bench_docs, device_plan=True, seed=seed,
-            device=None if device.type == "cuda" else device)
+            device=None if device.type == "cuda" else device,
+            mesh_window=window)
         check(r["parity_ok"], f"serve bench {mode}: parity failed for "
               f"{r['parity_mismatches']}")
         check(k1.launches > 0, f"serve bench {mode}: K1 never launched")
@@ -950,8 +1056,13 @@ def run_serve_benches(device, scfg: SchedulerConfig, seed: int) -> dict:
                     "total_ops": r["total_ops"],
                     "ops_per_sec": r["ops_per_sec"],
                     "feed_wall_s": r["feed_wall_s"], "wall_s": r["wall_s"],
+                    "mesh_window": window,
                     "fused_device_calls": r["fused_device_calls"],
                     "fused_occupancy": r["fused_occupancy"],
+                    "device_calls_per_window":
+                        r["device_calls_per_window"],
+                    "staged_bytes_per_window":
+                        r["staged_bytes_per_window"],
                     "flush_ms": {q: 1e3 * lat[q] for q in ("p50", "p99")},
                     "k1_launches": k1.launches, "k2_launches": k2.launches,
                     "transform": r["transform"], "steer": r["steer"],
@@ -1302,10 +1413,17 @@ def main(argv=None) -> int:
             / (1e3 * flush_s[cfg.wide_window])}
         serve["seconds"] = time.perf_counter() - t
         emit(serve)
+        # the same documents and edits (one generator seed) twice: the
+        # per-shard control, then the flush window
         t = time.perf_counter()
         sched = run_scheduler(rng(5), device, cfg, SchedulerConfig())
         sched["seconds"] = time.perf_counter() - t
         emit(sched)
+        t = time.perf_counter()
+        sched_w = run_scheduler(rng(5), device, cfg, SchedulerConfig(),
+                                mesh_window=True)
+        sched_w["seconds"] = time.perf_counter() - t
+        emit(sched_w)
         t = time.perf_counter()
         benches = run_serve_benches(device, SchedulerConfig(), args.seed)
         benches["seconds"] = time.perf_counter() - t
@@ -1327,9 +1445,11 @@ def main(argv=None) -> int:
              "replaces": "diamond_types_tpu/tpu/pallas_kernels.py:99",
              "launches": serve["launches"],
              "launches_by_path": {"serve": serve["launches"],
-                                  "scheduler": sched["launches"]},
+                                  "scheduler": sched["launches"],
+                                  "window": sched_w["launches"]},
              "max_abs_err": max(kvp["max_abs_err"], timing["max_abs_err"],
-                                sched["k1_max_abs_err"]),
+                                sched["k1_max_abs_err"],
+                                sched_w["k1_max_abs_err"]),
              "bound_by": "bytes", "library_ms": None,
              **{k: widest[k] for k in timed if k in widest},
              "shape": {k: widest[k] for k in ("b", "cap", "n")},
@@ -1340,9 +1460,11 @@ def main(argv=None) -> int:
              "replaces": "diamond_types_tpu/tpu/pallas_kernels.py:315",
              "launches": serve["k2_launches"],
              "launches_by_path": {"serve": serve["k2_launches"],
-                                  "scheduler": sched["k2_launches"]},
+                                  "scheduler": sched["k2_launches"],
+                                  "window": sched_w["k2_launches"]},
              "max_abs_err": max(k2p["max_abs_err"], k2["max_abs_err"],
-                                sched["k2_max_abs_err"]),
+                                sched["k2_max_abs_err"],
+                                sched_w["k2_max_abs_err"]),
              "bound_by": "bytes", **{k: k2[k] for k in timed},
              "shape": k2["shape"],
              "library": {"call": "torch.cumsum(nv, 1)", **k2["library"]}},

@@ -10,13 +10,18 @@ Port of the JAX package's `tpu/flush_fuse.py`:
   * `plan_tail()` packs that tail into dense `(pos, dlen, ilen, chars)`
     rows, splitting long ops to `max_ins` exactly like `encode_trace_ops`.
   * `kernel_fused_replay(sessions, plans)` — the kernel rung, the
-    counterpart of `pallas_fused_replay` and the port's only replay rung —
+    counterpart of `pallas_fused_replay` and the per-shard path's rung —
     stacks the bucket into `[b, n, max_ins]` arrays (`n` and `b` padded to
     powers of two, padding rows replicating row 0's state with all-zero
     ops) and replays the whole window in one launch of the hand-written K1
     kernel (`kernels.apply_ops_window`) on CUDA sessions, or of its plain
     version on CPU sessions. `FusedDocSession.sync` replays one document
     the same way.
+
+The flush window (`parallel/mesh.py::mesh_fused_replay`) replays a whole
+window's rows across shards through the same K1 name and the same fence,
+committing views of its output instead of clones (`adopt_results(...,
+clone=False)`) and tagging them for its arena (`_arena_tag`).
 
 Steering (`steer.STEER`) is bookkeeping here: each window asks `snap` for
 the class the JAX package would launch and notes that class warm (cache
@@ -121,6 +126,8 @@ class FusedDocSession:
         self.frontier = tuple(int(x) for x in self.oplog.version)
         self.synced_to = len(self.oplog)
         self.resyncs += 1
+        # a rebuilt row is no window arena's row (parallel/arena.py)
+        self._arena_tag = None
 
     # ---- host-side planning ----------------------------------------------
 
@@ -184,10 +191,14 @@ class FusedDocSession:
     def commit(self, docs: torch.Tensor, lens: torch.Tensor,
                plan: TailPlan) -> None:
         """Adopt one replay result row + the plan's bookkeeping. The row
-        must be the session's own tensor (adopt_results clones it out of
-        the batch), so no batch outlives its window."""
+        is the session's own clone on the per-shard rungs, and a view of
+        the window's output on the flush window's (which then tags it,
+        `parallel/arena.py`); nothing writes it in place either way. Any
+        commit clears the arena tag: the window re-tags its own rows
+        after this."""
         self.docs = docs
         self.lens = lens
+        self._arena_tag = None
         self.doc_len = plan.new_len
         self.frontier = plan.frontier
         self.synced_to = plan.synced_to
@@ -284,17 +295,22 @@ def pack_bucket(sessions: Sequence[FusedDocSession],
 def adopt_results(sessions: Sequence[FusedDocSession],
                   plans: Sequence[TailPlan],
                   out_docs: torch.Tensor, out_lens: torch.Tensor,
-                  got: np.ndarray) -> List[bool]:
+                  got: np.ndarray, clone: bool = True) -> List[bool]:
     """The returned-length fence: commit each session whose device length
     matches the host-side projection; a poisoned (-1) or drifting row is
     NOT committed (the caller evicts it and serves the doc from the host
-    engine). A committed row is cloned out of the batch, so the session
-    owns its buffer and the batch is freed with the window."""
+    engine). With `clone` (the per-shard rungs) a committed row is cloned
+    out of the batch, so the session owns its buffer and the batch is
+    freed with the window; the flush window passes False and commits the
+    view `out_docs[i]`, since it parks the batch as its arena anyway."""
     ok: List[bool] = []
     for i, (sess, plan) in enumerate(zip(sessions, plans)):
         good = int(got[i]) == plan.new_len and int(got[i]) >= 0
         if good:
-            sess.commit(out_docs[i].clone(), out_lens[i].clone(), plan)
+            row, ln = out_docs[i], out_lens[i]
+            if clone:
+                row, ln = row.clone(), ln.clone()
+            sess.commit(row, ln, plan)
         ok.append(good)
     return ok
 

@@ -8,7 +8,8 @@ keeps the class count O(log^2), and steering snaps a window's pow2-floored
 
   * `ShapeSteer` tracks the warm set per cache name (`"kernel"` for K1's
     rung, the counterpart of the JAX package's `"pallas"`; `"fused"` for
-    the per-doc sync), fed by `note_warm` after each snap.
+    the per-doc sync; `"mesh"` for the flush window), fed by `note_warm`
+    after each snap.
   * `snap()` maps `(bp0, n0)` to a class: an exact warm class as-is; a
     cold shape pads UP to the cheapest warm class whose cell waste
     `(bw*nw)/(bp0*n0)` stays under `max_waste`; a cold shape with no
@@ -92,11 +93,13 @@ class ShapeSteer:
             self._warm.setdefault(cache, set()).add(
                 (int(mi), int(cap), int(b), int(n)))
 
-    def snap(self, cache: str, bp0: int, n0: int, mi: int,
-             cap: int) -> Tuple[int, int]:
+    def snap(self, cache: str, bp0: int, n0: int, mi: int, cap: int,
+             multiple: int = 1) -> Tuple[int, int]:
         """Steer a window's pow2-floored shape `(bp0, n0)` onto a class.
-        Returns `(bp, n)` with `bp >= bp0, n >= n0`. A new exact class is
-        counted under `compiles`, the JAX package's name for it."""
+        `multiple` constrains the batch axis of a padded-to class (the
+        flush window passes its device count). Returns `(bp, n)` with
+        `bp >= bp0, n >= n0`. A new exact class is counted under
+        `compiles`, the JAX package's name for it."""
         if not self.enabled:
             return bp0, n0
         with self._lock:
@@ -110,6 +113,8 @@ class ShapeSteer:
             best_cells = 0
             for (wmi, wcap, bw, nw) in warm:
                 if wmi != mi or wcap != cap or bw < bp0 or nw < n0:
+                    continue
+                if multiple > 1 and bw % multiple:
                     continue
                 cells = bw * nw
                 if best is None or cells < best_cells:

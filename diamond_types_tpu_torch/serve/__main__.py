@@ -3,7 +3,8 @@ report as JSON (`run_serve_bench`). Exits 1 when any document's text
 differs from the host merge.
 
     python -m diamond_types_tpu_torch.serve [--mode trace|concurrent|flash]
-        [--shards 4] [--docs 8] [--device-plan] [--device cpu] ...
+        [--shards 4] [--docs 8] [--device-plan] [--mesh-window]
+        [--no-device-stage] [--device cpu] ...
 
 Sessions live on CUDA unless `--device cpu` asks for the CPU.
 """
@@ -45,6 +46,16 @@ def main(argv=None) -> int:
     ap.add_argument("--device-plan", action=argparse.BooleanOptionalAction,
                     default=False,
                     help="plan tails through the device transform (K2)")
+    ap.add_argument("--mesh-window",
+                    action=argparse.BooleanOptionalAction, default=False,
+                    help="flush windows: every due shard's bucket in one "
+                    "K1 launch per shape class and device, and one K2 "
+                    "resolve per device (default: one call per shard)")
+    ap.add_argument("--device-stage",
+                    action=argparse.BooleanOptionalAction, default=True,
+                    help="the window's device-side row gather and arenas "
+                    "(--no-device-stage: host-numpy staging every window, "
+                    "the A/B control arm)")
     ap.add_argument("--warmup", action="store_true",
                     help="launch K1 once per warm-up shape class first")
     ap.add_argument("--steady-rounds", type=int, default=0,
@@ -58,7 +69,8 @@ def main(argv=None) -> int:
         max_pending=args.max_pending, max_sessions=args.max_sessions,
         seed=args.seed, device=args.device, flush_workers=args.workers,
         warmup=args.warmup, steady_rounds=args.steady_rounds,
-        device_plan=args.device_plan)
+        device_plan=args.device_plan, mesh_window=args.mesh_window,
+        device_stage=args.device_stage)
     print(json.dumps(report))
     return 0 if report["parity_ok"] else 1
 

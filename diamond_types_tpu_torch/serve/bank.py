@@ -41,10 +41,19 @@ concurrently. The first CUDA touch in the process runs once under a module
 lock; kernels and the native library build at first use under their own
 locks.
 
+Planning runs in three steps, so that the scheduler's flush window
+(`mesh_window=True`) can resolve every shard's tails at once: `extract_window`
+(session build and tail extraction, under `oplog_lock`), `resolve_windows`
+(the device resolve, K2, one call per device over any number of windows,
+outside it) and `_plan_fused` (grouping by (cap, max_ins), under it again).
+`plan_window` chains the three for one bank; `adopt_window` is the shared
+tail (sync counts, fence failures to the host, the per-doc rung).
+`sync_docs` is `plan_window`, one replay per group, `adopt_window`.
+
 Left out of the port so far: the zone-session bank (`fused=False` on the
-device engine, the JAX package's `DeviceZoneSession`), the mesh window's
-`plan_window`/`adopt_window` split, the residency tier's snapshot hook, and
-the obs layer's flight recorder, journey stamps and device profiler.
+device engine, the JAX package's `DeviceZoneSession`), the residency tier's
+snapshot hook, and the obs layer's flight recorder, journey stamps and
+device profiler.
 """
 
 from __future__ import annotations
@@ -58,8 +67,9 @@ from typing import Dict, List, Optional
 import torch
 
 from ..gpu import flush_fuse, kernels, resolve_device, xform
-from ..gpu.steer import STEER, WARMUP_SHAPE_CLASSES, cap_class, \
+from ..gpu.steer import STEER, WARMUP_SHAPE_CLASSES, _pow2, cap_class, \
     warmup_batches
+from ..parallel.mesh import pad_batch_count
 from .metrics import ServeMetrics
 
 # the first CUDA touch in the process initialises the driver and its
@@ -109,7 +119,9 @@ class SessionBank:
                  fused_opts: Optional[dict] = None,
                  warmup: bool = False,
                  flush_docs: int = 8,
-                 device_plan: bool = False) -> None:
+                 device_plan: bool = False,
+                 mesh_shards: int = 0,
+                 mesh_devices: int = 1) -> None:
         """`engine="device"` keeps sessions on `device`, else on
         `fused_opts["device"]`; None means CUDA, and the constructor raises
         without it. `fused_opts` (cap / max_ins / headroom / device) go to
@@ -121,7 +133,10 @@ class SessionBank:
         kernels and launches K1 once per (batch class of
         `warmup_batches(flush_docs)`, op class of `WARMUP_SHAPE_CLASSES`)
         at the default capacity class, on the bank's device, noting each
-        class warm for steering; `join_warmup()` waits for it and raises
+        class warm for steering; with `mesh_shards > 0` (the scheduler's
+        flush window over that many shards and `mesh_devices` devices) it
+        also launches every super-batch class such a window can assemble
+        and notes it under "mesh". `join_warmup()` waits for it and raises
         what it raised."""
         if engine not in ("device", "host"):
             raise ValueError(f"unknown engine {engine!r}")
@@ -144,6 +159,8 @@ class SessionBank:
             self.fused_opts["device"] = self.device
         self.flush_docs = int(flush_docs)
         self.device_plan = bool(device_plan) and self.fused
+        self.mesh_shards = int(mesh_shards)
+        self.mesh_devices = max(int(mesh_devices), 1)
         self.sessions: "OrderedDict[str, object]" = OrderedDict()
         self._resyncs_seen: Dict[str, int] = {}
         self._warmup_thread: Optional[threading.Thread] = None
@@ -162,18 +179,34 @@ class SessionBank:
                                                 flush_fuse.DEFAULT_CAP))
             mi = self.fused_opts.get("max_ins", flush_fuse.DEFAULT_MAX_INS)
             dev = self.device
+
+            def launch(b: int, n: int, length: int) -> None:
+                z = torch.zeros((b, n), dtype=torch.int32, device=dev)
+                kernels.apply_ops_window(
+                    torch.zeros((b, cap), dtype=torch.int32, device=dev),
+                    torch.full((b,), length, dtype=torch.int32, device=dev),
+                    z, z, z, torch.zeros((b, n, mi), dtype=torch.int32,
+                                         device=dev), mi)
             for b in warmup_batches(self.flush_docs):
                 for n in WARMUP_SHAPE_CLASSES:
-                    z = torch.zeros((b, n), dtype=torch.int32, device=dev)
-                    kernels.apply_ops_window(
-                        torch.zeros((b, cap), dtype=torch.int32, device=dev),
-                        torch.zeros(b, dtype=torch.int32, device=dev), z, z,
-                        z, torch.zeros((b, n, mi), dtype=torch.int32,
-                                       device=dev), mi)
+                    launch(b, n, 0)
                     # both replay keys: groups ("kernel") and per-doc
                     # syncs ("fused") launch K1
                     STEER.note_warm("kernel", mi, cap, b, n)
                     STEER.note_warm("fused", mi, cap, b, n)
+            if self.mesh_shards > 0:
+                # every padded class a window over mesh_shards shards can
+                # assemble (up to flush_docs each), as inert padding rows;
+                # this bank's device launches its slice of each
+                nd = self.mesh_devices
+                bps = sorted({pad_batch_count(b, nd) for b in
+                              range(1, self.mesh_shards * self.flush_docs
+                                    + 1)})
+                for bp in bps:
+                    for n in sorted({_pow2(k) for k in
+                                     WARMUP_SHAPE_CLASSES}):
+                        launch(bp // nd, n, -1)
+                        STEER.note_warm("mesh", mi, cap, bp, n)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
         except Exception as e:     # re-raised by join_warmup
@@ -285,103 +318,60 @@ class SessionBank:
                 self.shard_id, time.perf_counter() - t0, sess.fence_s)
         return {"engine": self.engine, "steps": int(steps)}
 
-    def sync_docs(self, items, resolve,
-                  oplog_lock=None, device_lock=None) -> dict:
-        """Flush one taken bucket, fusing where possible (module
-        docstring: the ladder). `items` are admission PendingMerge rows;
-        `resolve(doc_id) -> OpLog` is called OUTSIDE `oplog_lock`
-        (DocStore.get takes that same non-reentrant lock).
+    def plan_window(self, items, resolve, oplog_lock=None,
+                    min_fuse: int = 2) -> dict:
+        """The host-side half of `sync_docs`, with no replay issued:
+        session build and tail extraction under `oplog_lock`
+        (`extract_window`), the device resolve outside it
+        (`resolve_windows`), then grouping back under it (`_plan_fused`).
+        The flush window runs the three steps itself, so that it resolves
+        every shard's extracts at once.
 
-        Returns {"docs", "fused_calls", "fused_docs", "fallback_docs"}.
-        """
+        Returns the window dict: {"items", "ols", "serial", "groups", ...}
+        with `groups` [(sessions, plans, doc_ids)] by (cap, max_ins)."""
+        win = self.extract_window(items, resolve, oplog_lock)
+        resolve_windows([win])
+        self._plan_fused(win, oplog_lock, min_fuse=min_fuse)
+        return win
+
+    def extract_window(self, items, resolve, oplog_lock=None) -> dict:
+        """First step of planning: `resolve(doc_id) -> OpLog` for every
+        item OUTSIDE `oplog_lock` (DocStore.get takes that same
+        non-reentrant lock), then, under it, get/build each document's
+        session and take its tail: a `TailExtract` for the device resolve
+        with `device_plan`, else the host `plan_tail()`. The host engine
+        plans nothing: every item is serial."""
         olock = oplog_lock if oplog_lock is not None \
             else contextlib.nullcontext()
-        dlock = device_lock if device_lock is not None \
-            else contextlib.nullcontext()
         ols = {it.doc_id: resolve(it.doc_id) for it in items}
-        serial = list(items)
-        groups: List[tuple] = []     # (sessions, plans, doc_ids)
-        if self.fused:
-            serial, groups = self._plan_fused(items, ols, olock)
-        # ---- device phase: one replay per fused group, under the device
-        # lock ONLY — host threads keep mutating other oplogs
-        failed: List[str] = []
-        for sessions, plans, doc_ids in groups:
-            t0 = time.perf_counter()
-            with dlock:
-                ok, device_s = flush_fuse.kernel_fused_replay(sessions,
-                                                              plans)
-            n = len(sessions)
-            for _d in doc_ids:
-                self._bump("syncs")
-            if self.metrics is not None:
-                self.metrics.record_fused(self.shard_id, n)
-                self.metrics.observe_device_time(
-                    self.shard_id, time.perf_counter() - t0, device_s)
-            failed.extend(d for good, d in zip(ok, doc_ids) if not good)
-        # ---- host phase: fence failures to the host, per-doc syncs
-        with olock:
-            for d in failed:
-                # poisoned (-1) or length-drift result: the session's
-                # device state is untrusted — evict it and serve the
-                # doc from the host oracle until its next rebuild
-                self.evict(d)
-                self._bump("host_fallbacks")
-            for it in serial:
-                with dlock:
-                    # the per-doc rung interleaves oplog reads with its
-                    # device replay inside one sess.sync(), so it holds
-                    # the oplog guard throughout
-                    self.sync_doc(it.doc_id, ols[it.doc_id])
-            if self.metrics is not None:
-                self.metrics.observe_footprint(self.shard_id,
-                                               self.footprint_slots())
-        return {"docs": len(items),
-                "fused_calls": len(groups),
-                "fused_docs": sum(len(g[0]) for g in groups),
-                "fallback_docs": len(serial) + len(failed)}
-
-    def _plan_fused(self, items, ols, olock):
-        """Host-side phase of the fused flush: get/build each doc's
-        session, plan its tail, and group fusable sessions by
-        (cap, max_ins). Anything that can't fuse — an overflowing tail,
-        a session LRU-evicted mid-batch, a bucket with fewer than 2
-        fusable docs — lands in the serial list.
-
-        With `device_plan` the planning is split the way the replay is:
-        tail EXTRACTION (native transform + columns) under `olock`, the
-        batched device resolution (K2) OUTSIDE it, then adoption and
-        per-doc host re-planning for length disagreements back under
-        `olock`."""
-        serial = []
-        fusable: List[tuple] = []    # (sess, plan, doc_id)
-        planned = []                 # (it, sess, TailPlan | TailExtract)
+        win = {"bank": self, "items": items, "ols": ols, "serial": [],
+               "planned": [], "groups": []}
+        if not self.fused:
+            win["serial"] = list(items)
+            return win
         with olock:
             for it in items:
                 sess = self.session(it.doc_id, ols[it.doc_id])
                 half = xform.extract_tail(sess) if self.device_plan \
                     else sess.plan_tail()
-                planned.append((it, sess, half))
-        if self.device_plan:
-            ext = [(j, h) for j, (_it, _s, h) in enumerate(planned)
-                   if isinstance(h, xform.TailExtract)]
-            stats = {"device_docs": 0,
-                     "host_docs": len(planned) - len(ext),
-                     "fallbacks": 0, "batches": 1 if ext else 0}
-            if ext:
-                resolved = xform.resolve_positions([h for _, h in ext],
-                                                   device=self.device)
-                for (j, _), plan in zip(ext, resolved):
-                    it, sess, _ = planned[j]
-                    if plan is None:
-                        stats["fallbacks"] += 1
-                    else:
-                        stats["device_docs"] += 1
-                    planned[j] = (it, sess, plan)
-            if self.metrics is not None and (ext or stats["host_docs"]):
-                self.metrics.record_transform(self.shard_id, **stats)
+                win["planned"].append([it, sess, half])
+        return win
+
+    def _plan_fused(self, win: dict, oplog_lock=None,
+                    min_fuse: int = 2) -> None:
+        """Last step of planning, under `oplog_lock`: host re-plan for a
+        device/host length disagreement, then group fusable sessions by
+        (cap, max_ins) into `win["groups"]`. Anything that can't fuse (an
+        overflowing tail, a session LRU-evicted mid-batch, fewer than
+        `min_fuse` fusable documents) lands in `win["serial"]`. The
+        per-shard path keeps `min_fuse=2` (a lone document amortizes
+        nothing); the flush window passes 1, since its launch is shared."""
+        olock = oplog_lock if oplog_lock is not None \
+            else contextlib.nullcontext()
+        serial = win["serial"]
+        fusable: List[tuple] = []    # (sess, plan, item)
         with olock:
-            for it, sess, plan in planned:
+            for it, sess, plan in win["planned"]:
                 if plan is None:
                     # device/host length disagreement: host re-plan
                     plan = sess.plan_tail()
@@ -398,23 +388,83 @@ class SessionBank:
                     sess.commit_host(plan)
                     self._bump("syncs")
                 else:
-                    fusable.append((sess, plan, it.doc_id))
-        if len(fusable) < 2:
-            # a lone doc amortizes nothing: the per-doc rung takes it
-            serial.extend(
-                next(it for it in items if it.doc_id == d)
-                for _s, _p, d in fusable)
-            return serial, []
+                    fusable.append((sess, plan, it))
+        if len(fusable) < min_fuse:
+            serial.extend(it for _s, _p, it in fusable)
+            return
         by_shape: Dict[tuple, list] = {}
-        for sess, plan, d in fusable:
-            by_shape.setdefault((sess.cap, sess.max_ins), []).append(
-                (sess, plan, d))
-        groups = [(
-            [s for s, _p, _d in grp],
-            [p for _s, p, _d in grp],
-            [d for _s, _p, d in grp],
+        for row in fusable:
+            by_shape.setdefault((row[0].cap, row[0].max_ins), []).append(row)
+        win["groups"] = [(
+            [s for s, _p, _it in grp],
+            [p for _s, p, _it in grp],
+            [it.doc_id for _s, _p, it in grp],
         ) for grp in by_shape.values()]
-        return serial, groups
+
+    def adopt_window(self, win: dict, failed: List[str], oplog_lock=None,
+                     device_lock=None) -> dict:
+        """Result adoption for this bank's share of a flush (its own
+        bucket, or its slice of a flush window): count a sync for every
+        fused row (their commits happened at the fence), evict `failed`
+        documents (poisoned or length-drift rows, whose device state is
+        untrusted) to the host, and run the per-doc rung for the serial
+        items. One code path for both flush forms."""
+        dlock = device_lock if device_lock is not None \
+            else contextlib.nullcontext()
+        olock = oplog_lock if oplog_lock is not None \
+            else contextlib.nullcontext()
+        for _sessions, _plans, doc_ids in win["groups"]:
+            self._bump("syncs", len(doc_ids))
+        with olock:
+            for d in failed:
+                # serve the doc from the host oracle until its rebuild
+                self.evict(d)
+                self._bump("host_fallbacks")
+            for it in win["serial"]:
+                with dlock:
+                    # the per-doc rung interleaves oplog reads with its
+                    # device replay inside one sess.sync(), so it holds
+                    # the oplog guard throughout
+                    self.sync_doc(it.doc_id, win["ols"][it.doc_id])
+            if self.metrics is not None:
+                self.metrics.observe_footprint(self.shard_id,
+                                               self.footprint_slots())
+        return {"docs": len(win["items"]),
+                "fused_calls": 0,
+                "fused_docs": 0,
+                "fallback_docs": len(win["serial"]) + len(failed)}
+
+    def sync_docs(self, items, resolve,
+                  oplog_lock=None, device_lock=None) -> dict:
+        """Flush one taken bucket, fusing where possible (module
+        docstring: the ladder): `plan_window`, one replay per fused group
+        under `device_lock` only, then `adopt_window`. `items` are
+        admission PendingMerge rows; `resolve(doc_id) -> OpLog` is called
+        OUTSIDE `oplog_lock`.
+
+        Returns {"docs", "fused_calls", "fused_docs", "fallback_docs"}.
+        """
+        dlock = device_lock if device_lock is not None \
+            else contextlib.nullcontext()
+        win = self.plan_window(items, resolve, oplog_lock=oplog_lock)
+        # ---- device phase: one replay per fused group, under the device
+        # lock ONLY — host threads keep mutating other oplogs
+        failed: List[str] = []
+        for sessions, plans, doc_ids in win["groups"]:
+            t0 = time.perf_counter()
+            with dlock:
+                ok, device_s = flush_fuse.kernel_fused_replay(sessions,
+                                                              plans)
+            if self.metrics is not None:
+                self.metrics.record_fused(self.shard_id, len(sessions))
+                self.metrics.observe_device_time(
+                    self.shard_id, time.perf_counter() - t0, device_s)
+            failed.extend(d for good, d in zip(ok, doc_ids) if not good)
+        out = self.adopt_window(win, failed, oplog_lock=oplog_lock,
+                                device_lock=device_lock)
+        out["fused_calls"] = len(win["groups"])
+        out["fused_docs"] = sum(len(g[0]) for g in win["groups"])
+        return out
 
     def text(self, doc_id: str, oplog, oplog_lock=None,
              device_lock=None) -> str:
@@ -435,3 +485,46 @@ class SessionBank:
                 return sess.text()
         with dlock:
             return sess.text()
+
+
+def resolve_windows(wins: List[dict]) -> int:
+    """The device half of planning for one or more windows from
+    `SessionBank.extract_window`: every `TailExtract` among them, grouped
+    by device, in ONE `xform.resolve_positions` call per device, outside
+    every oplog lock (extracts are self-contained). Each extract's slot
+    in its window's `planned` becomes its TailPlan, or None for a
+    device/host length disagreement (re-planned on the host by
+    `_plan_fused`).
+
+    Per-document transform counters are recorded per bank, as the JAX
+    package's per-bank resolve records them; `batches` counts the real
+    resolve calls, so a flush window over one card records one where the
+    JAX window records one per shard. Returns the number of calls."""
+    stats = [{"device_docs": 0, "host_docs": 0, "fallbacks": 0}
+             for _ in wins]
+    by_dev: Dict[str, tuple] = {}     # str(device) -> (device, rows)
+    for st, win in zip(stats, wins):
+        bank = win["bank"]
+        if not bank.device_plan:
+            continue                  # host plans only: nothing to count
+        for row in win["planned"]:
+            if isinstance(row[2], xform.TailExtract):
+                by_dev.setdefault(str(bank.device),
+                                  (bank.device, []))[1].append((st, row))
+            else:
+                st["host_docs"] += 1
+    for device, rows in by_dev.values():
+        resolved = xform.resolve_positions([row[2] for _st, row in rows],
+                                           device=device)
+        for (st, row), plan in zip(rows, resolved):
+            row[2] = plan
+            st["fallbacks" if plan is None else "device_docs"] += 1
+    metrics = wins[0]["bank"].metrics if wins else None
+    if metrics is not None:
+        for st, win in zip(stats, wins):
+            if any(st.values()):
+                metrics.record_transform(win["bank"].shard_id, **st)
+        if by_dev:
+            metrics.record_transform(wins[0]["bank"].shard_id,
+                                     batches=len(by_dev))
+    return len(by_dev)

@@ -19,9 +19,8 @@ Parity: for engine="device" the scheduler's answer comes from the device
 rows (`FusedDocSession.text()`), the reference from the host tracker
 checkout — two independent engines, compared byte for byte per document.
 
-Left out of the report until the obs layer is ported (ROADMAP item 6):
-`slo`, `jit_hit_rate`, `scorecard`, `obs`, `devprof`, and with the mesh
-window, `staged_bytes_per_window`.
+Left out of the report until the obs layer is ported (ROADMAP item 12):
+`slo`, `jit_hit_rate`, `scorecard`, `obs` and `devprof`.
 """
 
 from __future__ import annotations
@@ -32,6 +31,7 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 from ..gpu.steer import STEER
+from ..parallel.arena import DEVICE_STAGE, reset_arenas
 from ..text.oplog import OpLog
 from ..text.trace import TestData, load_trace
 from .scheduler import MergeScheduler
@@ -155,7 +155,9 @@ def run_serve_bench(shards: int = 4, docs: int = 8,
                     device=None, flush_workers: bool = True,
                     warmup: bool = False,
                     steady_rounds: int = 0,
-                    device_plan: bool = False) -> dict:
+                    device_plan: bool = False,
+                    mesh_window: bool = False,
+                    device_stage: bool = True) -> dict:
     """Replay the workload through a fresh scheduler; returns a JSON-able
     report with throughput, the metrics snapshot, the steering counters
     and the parity gate. `device` is where the sessions live: None means
@@ -163,9 +165,15 @@ def run_serve_bench(shards: int = 4, docs: int = 8,
     `place_on_devices`; `device="cpu"` runs the kernels' plain versions on
     the CPU. `device_plan=True` plans flush tails through the device
     transform (K2) — the report's `transform` block counts the tails that
-    resolved on the device. With `steady_rounds`, every
-    doc takes that many more lockstep rounds against resident sessions
-    after the continuous feed (the fused occupancy measurement)."""
+    resolved on the device. `mesh_window=True` flushes through the
+    scheduler's flush window (one K1 launch per class and device per
+    window, instead of one call per shard's bucket): the report's
+    `device_calls_per_window` is the A/B signal. `device_stage=False` is
+    the window's staging control arm (host-numpy rows every window, see
+    `parallel/arena.py`), restored when the bench returns. With
+    `steady_rounds`, every doc takes that many more lockstep rounds
+    against resident sessions after the continuous feed (the fused
+    occupancy measurement)."""
     doc_ids = [f"doc{i:03d}" for i in range(docs)]
     ols: Dict[str, OpLog] = {}
     for d in doc_ids:
@@ -195,8 +203,10 @@ def run_serve_bench(shards: int = 4, docs: int = 8,
     else:
         raise ValueError(f"unknown mode {mode!r}")
 
-    # the steering table is process-global: fresh state per bench run
+    # the steering table, the staging switch and the window arenas are
+    # process-global: fresh state per bench run
     STEER.reset(table=True)
+    reset_arenas()
     # with flush workers on, worker threads READ oplogs (tail planning)
     # while this loop APPENDS to them — the oplog lock makes that safe,
     # exactly the way the sync server passes DocStore.lock
@@ -210,7 +220,9 @@ def run_serve_bench(shards: int = 4, docs: int = 8,
         sync_lock=oplog_lock,
         fused_opts=None if device is None else {"device": device},
         flush_workers=flush_workers, warmup=warmup,
-        device_plan=device_plan)
+        device_plan=device_plan, mesh_window=mesh_window)
+    stage_was = DEVICE_STAGE.enabled
+    DEVICE_STAGE.enabled = device_stage
     try:
         if warmup:
             # measure warm flushes, not the warm-up's first launches
@@ -219,6 +231,7 @@ def run_serve_bench(shards: int = 4, docs: int = 8,
                        seed, steady_rounds)
     finally:
         sched.stop_workers()
+        DEVICE_STAGE.enabled = stage_was
     return {"config": {
         "shards": shards, "docs": docs, "engine": engine, "mode": mode,
         "corpus": corpus, "rounds": n_rounds, "flush_docs": flush_docs,
@@ -228,7 +241,9 @@ def run_serve_bench(shards: int = 4, docs: int = 8,
         "place_on_devices": place_on_devices and device is None,
         "fused": sched.fused, "flush_workers": flush_workers,
         "warmup": warmup, "steady_rounds": steady_rounds,
-        "device_plan": sched.device_plan}, **report}
+        "device_plan": sched.device_plan,
+        "mesh_window": sched.mesh_window,
+        "device_stage": device_stage}, **report}
 
 
 def _feed(sched, ols, doc_ids, feeders, oplog_lock, mode: str, seed: int,
@@ -312,6 +327,8 @@ def _feed(sched, ols, doc_ids, feeders, oplog_lock, mode: str, seed: int,
         "fused_device_calls": m["fused"]["device_calls"],
         "fused_occupancy": m["fused"]["occupancy"],
         "device_calls_per_window": m["window"]["device_calls_per_window"],
+        # host->device staging per flush window (0 without the window)
+        "staged_bytes_per_window": m["window"]["staged_bytes_per_window"],
         "steer": STEER.snapshot(),
         # the transform rung's engagement: tails whose merge positions
         # resolved on the device vs. the host tracker walk

@@ -4,8 +4,7 @@ The JAX package's `serve/metrics.py` `ServeMetrics`, copied for the
 layers the port has: plain host-side counters, so recording a sample never
 touches the device. Left out until their layers are ported: the
 residency tier's `hydration` block and cold-start histogram, the
-follower-read `read` block, the mesh window's super-batch fields, the
-Pallas-rung fallback counter, and the obs layer's flight recorder and
+follower-read `read` block, the Pallas-rung fallback counter, and the obs layer's flight recorder and
 time-series double-writes.
 
 Schema (snapshot()):
@@ -25,6 +24,10 @@ Schema (snapshot()):
              "occupancy_hist": {"2": n, ...}},
    "window": {"windows", "device_windows", "dispatches",
               "device_calls_per_window", "docs",
+              "mesh_docs", "mesh_padded_rows",  # flush-window rows
+              "mesh_occupancy",               # docs / padded rows
+              "staged_bytes",                 # host->device, windows
+              "staged_bytes_per_window",
               "shards_hist": {"2": n, ...}},  # shards per window
    "transform": {"device_docs", "host_docs", "fallbacks", "batches",
                  "device_ratio"},             # device tail planning
@@ -52,7 +55,8 @@ _SHARD_KEYS = ("submits", "coalesced", "rejects", "denied", "fenced",
 
 class ServeMetrics:
     # the port's own counter-set version; bump whenever it changes
-    SCHEMA_VERSION = 1
+    # (2: the flush window's super-batch and staging fields)
+    SCHEMA_VERSION = 2
 
     def __init__(self, n_shards: int, flush_docs: int,
                  max_pending: int) -> None:
@@ -71,8 +75,11 @@ class ServeMetrics:
         # flush-window dispatch accounting (scheduler-level)
         self.windows = 0             # pump rounds that took >= 1 bucket
         self.device_windows = 0      # windows issuing >= 1 dispatch
-        self.window_dispatches = 0   # worker handoffs / inline flushes
+        self.window_dispatches = 0   # window replays / worker handoffs
         self.window_docs = 0
+        self.mesh_docs = 0           # docs replayed by the flush window
+        self.mesh_padded_rows = 0    # its launched rows, padding included
+        self.window_staged_bytes = 0  # host->device bytes it staged
         self.window_shards_hist: Dict[int, int] = {}
         # device-transform planning accounting (scheduler-level: the
         # batched dispatch is shared across a bucket)
@@ -121,15 +128,24 @@ class ServeMetrics:
                 self.fused_occupancy_hist.get(n_docs, 0) + 1
 
     def record_window(self, dispatches: int, n_docs: int,
-                      n_shards: int) -> None:
-        """One pump round: `dispatches` per-shard worker handoffs (or
-        inline flushes) covering `n_docs` docs across `n_shards` shards."""
+                      n_shards: int, mesh_docs: int = 0,
+                      padded_rows: int = 0, staged_bytes: int = 0) -> None:
+        """One pump round: `dispatches` flush-window replays (one per
+        (cap, max_ins) class) or per-shard worker handoffs (inline
+        flushes) covering `n_docs` docs across `n_shards` shards. The
+        flush window also gives the docs it replayed, the rows it
+        launched (padding included) and the host->device bytes it staged.
+        `device_calls_per_window` in the snapshot is dispatches / windows
+        with device work."""
         with self._lock:
             self.windows += 1
             if dispatches > 0:
                 self.device_windows += 1
             self.window_dispatches += dispatches
             self.window_docs += n_docs
+            self.mesh_docs += mesh_docs
+            self.mesh_padded_rows += padded_rows
+            self.window_staged_bytes += staged_bytes
             self.window_shards_hist[n_shards] = \
                 self.window_shards_hist.get(n_shards, 0) + 1
 
@@ -216,6 +232,15 @@ class ServeMetrics:
                         self.window_dispatches
                         / max(self.device_windows, 1), 4),
                     "docs": self.window_docs,
+                    "mesh_docs": self.mesh_docs,
+                    "mesh_padded_rows": self.mesh_padded_rows,
+                    "mesh_occupancy": round(
+                        self.mesh_docs
+                        / max(self.mesh_padded_rows, 1), 4),
+                    "staged_bytes": self.window_staged_bytes,
+                    "staged_bytes_per_window": round(
+                        self.window_staged_bytes
+                        / max(self.device_windows, 1), 2),
                     "shards_hist": {
                         str(k): v for k, v in
                         sorted(self.window_shards_hist.items())},

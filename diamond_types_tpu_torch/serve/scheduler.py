@@ -31,11 +31,17 @@ also set, each submit is stamped with its lease epoch and work whose lease
 moved before the flush is dropped (`fenced`), its ops still durable in the
 oplog.
 
-Left out of the port so far (ROADMAP item 6): the obs layer's spans,
+Flush window (`mesh_window=True`): instead of one handoff per due
+bucket, `pump()` folds EVERY due bucket of every shard into one window
+(`_flush_window`) on the calling thread: one K1 launch per (cap, max_ins)
+class and device, and one device resolve (K2) per device for the whole
+window's tails. Its faults propagate the same way; there is no fallback
+rung.
+
+Left out of the port so far (ROADMAP item 12): the obs layer's spans,
 exemplars and attribution (`attach_obs`), the residency tier
-(`attach_hydrator`), the QoS controller (`attach_qos`), follower-read
-invalidation, and the mesh flush window (`mesh_window=True`, ROADMAP item
-7), which raises.
+(`attach_hydrator`), the QoS controller (`attach_qos`) and follower-read
+invalidation.
 """
 
 from __future__ import annotations
@@ -48,21 +54,13 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from ..parallel.mesh import (mesh_fused_replay, serve_mesh,
+                             serve_shard_devices)
 from ..qos.classes import QOS_PRIORITY
 from .admission import AdmissionQueue, Backpressure
-from .bank import SessionBank
+from .bank import SessionBank, resolve_windows
 from .metrics import ServeMetrics
 from .router import ShardRouter
-
-
-def shard_devices(n_shards: int) -> List[torch.device]:
-    """Shard i on `cuda:(i % device_count)`: every card gets shards, and
-    shards beyond the card count share cards round-robin."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("place_on_devices needs CUDA: no card is "
-                           "available")
-    k = torch.cuda.device_count()
-    return [torch.device("cuda", i % k) for i in range(n_shards)]
 
 
 class MergeScheduler:
@@ -88,14 +86,13 @@ class MergeScheduler:
         `sync_lock`. `engine="device"` keeps each shard's sessions on
         `fused_opts["device"]` (None: CUDA, which must exist), or with
         `place_on_devices=True` shard i on `cuda:(i % device_count)`.
-        `fused=False` on the device engine (the zone-session bank) and
-        `mesh_window=True` are not ported and raise NotImplementedError.
-        `device_plan=True` plans tails through the device transform (K2)
-        instead of the host tracker walk; `warmup=True` starts bank 0's
-        warm-up (see SessionBank)."""
-        if mesh_window:
-            raise NotImplementedError(
-                "the mesh flush window is not ported yet: ROADMAP item 7")
+        `fused=False` on the device engine (the zone-session bank) is not
+        ported and raises NotImplementedError. `mesh_window=True` (device
+        engine only) flushes through the window coordinator
+        (`_flush_window`) instead of per-shard buckets. `device_plan=True`
+        plans tails through the device transform (K2) instead of the host
+        tracker walk; `warmup=True` starts bank 0's warm-up (see
+        SessionBank), which with the window also covers its classes."""
         self.resolve = resolve
         self._sync_lock = sync_lock if sync_lock is not None \
             else contextlib.nullcontext()
@@ -106,14 +103,20 @@ class MergeScheduler:
         self.metrics = ServeMetrics(n_shards, flush_docs, max_pending)
         devices: List[Optional[torch.device]] = [None] * n_shards
         if place_on_devices and engine == "device":
-            devices = shard_devices(n_shards)
+            devices = serve_shard_devices(n_shards)
+        # the window rides on fused sessions: the host engine ignores it
+        self.mesh_window = bool(mesh_window) and engine == "device"
+        self._mesh: Optional[List[torch.device]] = None   # lazy
         self.banks = [
             SessionBank(i, max_sessions=max_sessions_per_shard,
                         max_slots=max_slots_per_shard, engine=engine,
                         device=devices[i], metrics=self.metrics,
                         fused=fused, fused_opts=fused_opts,
                         warmup=(warmup and i == 0),
-                        flush_docs=flush_docs, device_plan=device_plan)
+                        flush_docs=flush_docs, device_plan=device_plan,
+                        mesh_shards=n_shards if self.mesh_window else 0,
+                        mesh_devices=len(serve_mesh(devices))
+                        if devices[0] is not None else 1)
             for i in range(n_shards)]
         self.fused = self.banks[0].fused
         self.device_plan = self.banks[0].device_plan
@@ -206,16 +209,21 @@ class MergeScheduler:
                 if items:
                     taken.append((shard, reason, items))
         synced = 0
-        for shard, reason, items in taken:
-            if self._flush_workers:
-                self._dispatch(shard, reason, items)
-            else:
-                self._flush_items(shard, reason, items)
-            synced += len(items)
+        if taken and self.mesh_window:
+            # every due bucket of every shard in ONE window
+            synced = self._flush_window(taken)
+        else:
+            for shard, reason, items in taken:
+                if self._flush_workers:
+                    self._dispatch(shard, reason, items)
+                else:
+                    self._flush_items(shard, reason, items)
+                synced += len(items)
+            if taken:
+                # one handoff (>= one device call) per taken bucket
+                self.metrics.record_window(len(taken), synced,
+                                           len({s for s, _r, _i in taken}))
         if taken:
-            # one handoff (>= one device call) per taken bucket
-            self.metrics.record_window(len(taken), synced,
-                                       len({s for s, _r, _i in taken}))
             with self.lock:
                 for shard in {s for s, _r, _i in taken}:
                     self.metrics.observe_queue(
@@ -327,6 +335,109 @@ class MergeScheduler:
         for it in items:
             self.metrics.observe_queue_wait(
                 max(0.0, now_m - it.enqueued_at))
+
+    # ---- flush window ----------------------------------------------------
+
+    def _get_mesh(self) -> List[torch.device]:
+        """The window's devices (`serve_mesh` over the banks' devices),
+        built at first use under the global lock, so it is called before
+        any shard lock is taken (lock order: global -> shard)."""
+        if self._mesh is None:
+            with self.lock:
+                if self._mesh is None:
+                    self._mesh = serve_mesh([b.device for b in self.banks])
+        return self._mesh
+
+    def _flush_window(self, taken) -> int:
+        """The flush-window coordinator: every due bucket in `taken`,
+        across all shards, in one window on the calling thread.
+
+          1. the lease-epoch recheck (window assembly is merge time);
+          2. planning in three steps: each shard's `extract_window` under
+             the oplog lock, ONE `resolve_windows` for the whole window (a
+             K2 resolve per device, where the JAX window resolves once per
+             shard; each plan is per document, so the plans are the same),
+             then each shard's `_plan_fused(min_fuse=1)`: a lone document
+             joins the shared launch;
+          3. the fusable rows of every shard concatenated by
+             (cap, max_ins) class, in sorted class order, and replayed by
+             `mesh_fused_replay`: one K1 launch per class and device;
+          4. each shard's `adopt_window`: fence failures go to the host,
+             serial items take the per-doc rung.
+
+        No rung catches a fault: a K1 or resolve error propagates out of
+        `pump()` (from the background pump, out of the next `drain()`).
+        Lock order: the shard locks (sorted), the oplog lock inside the
+        planning and adoption steps, then the device locks of the
+        window's shards (sorted by shard, deduped) around each replay.
+        Returns the number of docs flushed after fencing."""
+        entries = []        # (shard, reason, items), post-fencing
+        for shard, reason, items in taken:
+            items = self._fence(shard, items)
+            if items:
+                entries.append((shard, reason, items))
+        if not entries:
+            # an all-fenced window still counts (dispatches 0 keeps it
+            # out of the device_calls_per_window denominator)
+            self.metrics.record_window(0, 0,
+                                       len({s for s, _r, _i in taken}))
+            return 0
+        mesh = self._get_mesh()     # takes self.lock: before shard locks
+        shards = sorted({s for s, _r, _i in entries})
+        n_docs = sum(len(i) for _s, _r, i in entries)
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as sstack:
+            for s in shards:
+                sstack.enter_context(self._shard_locks[s])
+            wins = [self.banks[s].extract_window(
+                        items, self.resolve, oplog_lock=self._sync_lock)
+                    for s, _r, items in entries]
+            resolve_windows(wins)
+            for (s, _r, _items), win in zip(entries, wins):
+                self.banks[s]._plan_fused(win, self._sync_lock, min_fuse=1)
+            classes: Dict[tuple, list] = {}
+            for ei, win in enumerate(wins):
+                for sessions, plans, doc_ids in win["groups"]:
+                    for sess, plan, d in zip(sessions, plans, doc_ids):
+                        classes.setdefault(
+                            (sess.cap, sess.max_ins), []).append(
+                                (ei, sess, plan, d))
+            seen: set = set()
+            dlocks = [lk for s in shards
+                      if id(lk := self._device_locks[s]) not in seen
+                      and not seen.add(id(lk))]
+            dispatches = mesh_docs = padded_rows = staged_bytes = 0
+            failed: List[List[str]] = [[] for _ in entries]
+            for _cls, rows in sorted(classes.items()):
+                with contextlib.ExitStack() as dstack:
+                    for lk in dlocks:
+                        dstack.enter_context(lk)
+                    ok, _device_s, bp, staged = mesh_fused_replay(
+                        mesh, [r[1] for r in rows], [r[2] for r in rows])
+                dispatches += 1
+                mesh_docs += len(rows)
+                padded_rows += bp
+                staged_bytes += staged
+                for good, (ei, _sess, _plan, d) in zip(ok, rows):
+                    if not good:
+                        failed[ei].append(d)
+            for ei, (s, reason, items) in enumerate(entries):
+                self.banks[s].adopt_window(
+                    wins[ei], failed[ei], oplog_lock=self._sync_lock,
+                    device_lock=self._device_locks[s])
+                self.metrics.record_flush(
+                    s, len(items), sum(i.n_ops for i in items), reason,
+                    dur_s=time.perf_counter() - t0)
+        self.metrics.record_window(dispatches, n_docs, len(shards),
+                                   mesh_docs=mesh_docs,
+                                   padded_rows=padded_rows,
+                                   staged_bytes=staged_bytes)
+        now_m = time.monotonic()
+        for _s, _r, its in entries:
+            for it in its:
+                self.metrics.observe_queue_wait(
+                    max(0.0, now_m - it.enqueued_at))
+        return n_docs
 
     def drain(self) -> int:
         """Flush everything regardless of triggers (shutdown, rebalance,

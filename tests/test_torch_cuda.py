@@ -352,3 +352,67 @@ def test_scheduler_on_card_launches_k1_and_k2(workers):
     for d, ol in ols.items():
         assert sched.text(d) == ol.checkout_tip().snapshot()
     sched.stop_workers()
+
+
+def test_window_scheduler_on_card_launches_k1_once_per_class():
+    """16 documents through MergeScheduler(mesh_window=True) on CUDA
+    sessions with device planning: every text equals the host's, no host
+    fallback, K1 launched once per (cap, max_ins) class per window (one
+    card: one device slice) plus the per-doc replays, and K2 once per
+    window that had device-planned tails."""
+    _need_card()
+    import threading
+    from diamond_types_tpu_torch.gpu import flush_fuse as ffm
+    from diamond_types_tpu_torch.serve import MergeScheduler
+    from torch_parity import serve_docs, serve_round
+    docs = serve_docs([OpLog], 16, 31, base_min=200, base_max=3000)
+    ols = {d: tw.oplogs[0] for d, tw in docs.items()}
+    sched = MergeScheduler(4, resolve=ols.__getitem__, engine="device",
+                           fused_opts={"max_ins": 16}, device_plan=True,
+                           flush_docs=8, flush_deadline_s=10.0,
+                           mesh_window=True, max_sessions_per_shard=16,
+                           sync_lock=threading.Lock())
+    assert sched.banks[0].device.type == "cuda"
+    for d in docs:
+        sched.submit(d, 1)
+    sched.drain()                       # build every session
+    syncs, per_window = [], []
+    real_sync, real_window = ff.FusedDocSession.sync, sched._flush_window
+
+    def counted(self):
+        n = real_sync(self)
+        syncs.append(n)
+        return n
+
+    def window(taken):
+        k1 = kernels.apply_ops_window.launches
+        d0 = sched.metrics_json()["window"]["dispatches"]
+        s0 = len(syncs)
+        out = real_window(taken)
+        classes = sched.metrics_json()["window"]["dispatches"] - d0
+        replays = sum(1 for n in syncs[s0:] if n > 0)
+        per_window.append((kernels.apply_ops_window.launches - k1,
+                           classes + replays))
+        return out
+    ff.FusedDocSession.sync = counted
+    sched._flush_window = window
+    k1, k2 = kernels.apply_ops_window, kernels.xform_positions
+    k1.launches = k2.launches = 0
+    try:
+        for rnd in range(3):
+            for d, n in serve_round(docs, 31, rnd, share=0.9):
+                assert sched.submit(d, n)["accepted"]
+            sched.pump()
+            sched.drain()
+    finally:
+        ff.FusedDocSession.sync = real_sync
+    torch.cuda.synchronize()
+    m = sched.metrics_json()
+    assert per_window and all(got == want for got, want in per_window)
+    assert m["window"]["dispatches"] > 0 and m["fused"]["device_calls"] == 0
+    assert k2.launches == m["transform"]["batches"] > 0
+    assert k2.launches <= len(per_window)
+    assert m["totals"]["host_fallbacks"] == 0
+    assert ffm.apply_ops_window is kernels.apply_ops_window
+    for d, ol in ols.items():
+        assert sched.text(d) == ol.checkout_tip().snapshot()

@@ -32,7 +32,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "gpu.linearize", "gpu.xform", "gpu.merge_kernel", "gpu.steer",
               "serve.scheduler", "serve.bank", "serve.driver",
               "serve.admission", "serve.router", "serve.metrics",
-              "serve.__main__", "qos.classes", "obs.hist", "text.trace"):
+              "serve.__main__", "qos.classes", "obs.hist", "text.trace",
+              "parallel.mesh", "parallel.arena"):
         assert f"diamond_types_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -351,9 +351,6 @@ def test_per_doc_sync_replays_through_the_kernel_rung(monkeypatch):
 def test_unported_options_raise():
     ol = OpLog()
     cpu = dict(FUSED, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        MergeScheduler(2, resolve=lambda d: ol, fused_opts=cpu,
-                       mesh_window=True)
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
         MergeScheduler(2, resolve=lambda d: ol, fused=False, fused_opts=cpu)
     # the host engine ignores fused, as in the JAX package
