@@ -31,7 +31,9 @@ package), in phases, each printing one JSON line:
                 512-output tile and b 1 at cap 65,536; and on the tiled
                 gather's hazards: total 0, one run spanning every tile,
                 a tile's worth of zero-length runs sharing a live run's
-                start, arena offsets past the pool.
+                start, arena offsets past the pool; and the history
+                path's shared rows (one perm, arena_off and arena row for
+                256 rows of visibility) with cap < total and empty runs.
   3. serve    - the main path: 256 documents, each typed by one agent
                 (2,048-12,288 chars), resident as `FusedDocSession`s on the
                 card; 4 flush windows in which two more agents fork from
@@ -107,10 +109,48 @@ package), in phases, each printing one JSON line:
                 cap is taken apart: `pad_docs` + upload (host clock),
                 `fugue_linearize` and K3 (CUDA events), download + decode
                 (host clock).
-  7. kernels  - one line for K1, K2 and K3: launches on the main path (K1
+  7. history  - batched time travel, `plan_kernels.texts_at_versions`: a
+                history of ~40,000 ops that three agents write
+                concurrently, merging the tip now and then (final text
+                32k-64k chars), at 256 snapshot entries spread over its
+                plan, through source="native" (one tape replay on the
+                card, then ONE K3 call over [256, n_slots] at cap 65,536
+                with the order, offsets and arena as shared rows); and a
+                ~2,000-op history at 32 entries through source="python"
+                (`DenseExecutor`). Requires K3 launches == calls (2),
+                every K3 call equal to its plain version, every one of
+                the 256 versions equal to the C++ tracker's text at its
+                `entry_frontier`, 4 spread ones to the Python checkout,
+                and every small version to the Python checkout. Prints the
+                call's parts (compile_plan2, source, pack_plan_tape,
+                execute_tape host ms, device busy ms and events from
+                `torch.profiler`, the tables, K3 with its copies and
+                decode), K3's call_ms, device_ms and HBM bound at that
+                shape, and the host's yardsticks: the C++ tracker's ms
+                for all 256 versions, timed, and the Python checkout's
+                median ms of 4 versions (times 256: extrapolated).
+  8. graph    - the causal-graph kernels (X6) on the card: BASELINE config
+                5's graph (10,000 roots of 8 LVs, one run naming all
+                10,000 tips, then a chain of 2,048 runs) and the history's
+                graph; per graph 4,096 (frontier, target) pairs through
+                `make_contains_fn` (one [4,096, runs] reach matrix) and two
+                `make_diff_fn` pairs, every answer equal to the host
+                `Graph`'s; rounds to the fixed point, flag reads (syncs),
+                ms per batch (host clock), device busy ms and events of a
+                batch, and the host's ms for the same queries.
+  9. merge_step - `parallel.mesh.multichip_merge_step` on one card at full
+                width: the multichip example batch (b 256, 512 ops,
+                max_ins 16, cap 16,384) replayed from empty documents by
+                K1 (one launch per device slice; K1 launches == slices)
+                and config 5's reach from the chain tip; K1's output equal
+                to its plain version, the reach covering every fan-in root
+                and equal to X6's. Prints K1's call_ms, device_ms and
+                bound at that shape, and the reach's rounds, syncs and ms.
+ 10. kernels  - one line for K1, K2 and K3: launches on the main path (K1
                 and K2 in the serve phase, K3 in the checkout phase; per
-                path in `launches_by_path`, the scheduler's and the flush
-                window's too), max
+                path in `launches_by_path`, the scheduler's, the flush
+                window's, the history's (K3) and the merge step's (K1)
+                too), max
                 error against the plain version (see below), and at the
                 main path's widest call two times: `call_ms` (CUDA events
                 around back-to-back wrapper calls: host and device) and
@@ -123,7 +163,10 @@ package), in phases, each printing one JSON line:
                 them the HBM bound and the library yardstick's call_ms and
                 device_ms (`torch.cumsum` for K2); then the card's name and
                 power limit. max_abs_err covers the kernel phases, the serve
-                phase's captured calls and both scheduler runs' calls. The
+                phase's captured calls, both scheduler runs' calls, the
+                history's K3 calls and the merge step's K1 call; K3's line
+                has its numbers at the history's shape under "history",
+                K1's at the merge step's under "merge_step". The
                 serve line carries K1's call_ms and
                 device_ms at every captured bucket, and K1's CTAs per
                 launch as derived from the launcher's grid rule
@@ -186,7 +229,9 @@ K3_CASES = [("random", 1, 1, 8, 8), ("random", 8, 511, 256, 2048),
             ("total_zero", 2, 64, 1024, 64),
             ("one_run_spans_every_tile", 2, 6, 16384, 16584),
             ("zero_length_runs_then_live_run", 2, 1600, 2048, 4096),
-            ("arena_off_past_pool", 3, 256, 2048, 512)]
+            ("arena_off_past_pool", 3, 256, 2048, 512),
+            ("shared_rows", 256, 4096, 4096, 16384),
+            ("shared_rows", 256, 9341, 65536, 40000)]
 K3_TILE = 512                      # outputs per CTA of K3's gather
 L2_FLUSH_BYTES = 256 << 20         # overwritten before each cold-L2 call
 # device activity only: tracing every host op would multiply the window's
@@ -365,7 +410,17 @@ def k3_table(rng: np.random.Generator, kind: str, b: int, n: int, cap: int,
     "zero_length_runs_then_live_run" (a live run, then three tiles' worth
     of empty runs that start where it ends - the next tile's first output,
     in the last row inside a thread's 4 outputs - then live runs); "arena_off_past_pool" (offsets past the pool in the first
-    row, negative in half the last row's runs: the clamp's work)."""
+    row, negative in half the last row's runs: the clamp's work);
+    "shared_rows" (the history path's form: ONE perm, arena_off and arena
+    row, [1, n] and [1, pool], for b rows of visibility with 30% empty
+    runs, cap < total on the first cases' rows)."""
+    if kind == "shared_rows":
+        vl = rng.integers(0, 6, (b, n)) * (rng.random((b, n)) < 0.7)
+        host = [rng.permutation(n)[None], vl,
+                rng.integers(0, pool - 5, (1, n)),
+                rng.integers(1, 0x10FFFF, (1, pool))]
+        return [torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                .to(device) for a in host]
     perm = np.stack([rng.permutation(n) for _ in range(b)])
     vl = rng.integers(0, 6, (b, n))
     vl[::2] = rng.integers(0, 100, (len(vl[::2]), n))
@@ -1326,6 +1381,432 @@ def time_k3(calls, n_batch: int) -> dict:
     return out
 
 
+# ---- phases 8-10: the history, the causal graph, the merge step -------------
+
+@dataclass
+class HistoryConfig:
+    lvs: int = 40_000              # ops of the full-width history
+    small_lvs: int = 2_000         # the history read through source="python"
+    agents: tuple = ("ann", "ben", "cat")
+    turns: tuple = (4, 24)         # edits in one agent's turn
+    small_turns: tuple = (2, 8)    # shorter turns: more plan entries
+    merge_share: float = 0.35      # turns after which the agent merges the tip
+    ins_share: float = 0.85
+    ins_max: int = 16
+    del_max: int = 4
+    versions: int = 256            # snapshot entries of the full history
+    small_versions: int = 32
+    python_checks: int = 4         # versions held against the Python
+                                   # checkout (all against the C++ tracker)
+
+
+def build_history(rng: np.random.Generator, lvs: int, hcfg: HistoryConfig,
+                  turns: tuple):
+    """One document that `hcfg.agents` edit concurrently, each on its own
+    branch, until the oplog holds `lvs` ops: in turns of `turns[0]` to
+    `turns[1]` edits (inserts of 1-16 chars, deletes of 1-4); after a turn the agent merges
+    the tip into its branch with probability `merge_share` (through the
+    port's C++ tracker, `native.core.merge_to_string`: the Python engine
+    would take tens of seconds at this width). Returns the oplog."""
+    from diamond_types_tpu_torch import Branch, OpLog
+    from diamond_types_tpu_torch.native.core import get_native_ctx
+    from diamond_types_tpu_torch.utils.rope import Rope
+    ol = OpLog()
+    ids = [ol.get_or_create_agent_id(a) for a in hcfg.agents]
+    branches = [Branch() for _ in hcfg.agents]
+    while len(ol) < lvs:
+        i = int(rng.integers(len(ids)))
+        b = branches[i]
+        for _ in range(int(rng.integers(turns[0], turns[1] + 1))):
+            cur = len(b)
+            if cur and rng.random() >= hcfg.ins_share:
+                p = int(rng.integers(0, cur))
+                b.delete(ol, ids[i], p,
+                         min(cur, p + int(rng.integers(1, hcfg.del_max + 1))))
+            else:
+                b.insert(ol, ids[i], int(rng.integers(0, cur + 1)), rand_text(
+                    rng, int(rng.integers(1, hcfg.ins_max + 1))))
+        if rng.random() < hcfg.merge_share:
+            doc, frontier = get_native_ctx(ol).merge_to_string(
+                b.snapshot(), b.version, ol.version)
+            b.content = Rope(doc)
+            b.version = list(frontier)
+    return ol
+
+
+def spread(n_entries: int, k: int) -> List[int]:
+    """k snapshot entries spread over a plan of n_entries (early, middle
+    and late), as the JAX package's sharded plan-tape dry run spreads
+    them."""
+    if k <= 1 or n_entries <= 1:
+        return [n_entries - 1]
+    return sorted({round(i * (n_entries - 1) / (k - 1)) for i in range(k)})
+
+
+def profiled(fn) -> tuple:
+    """fn() once under `torch.profiler` (device activity only): (result,
+    device busy ms, device events: kernels, copies and sets)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=PROFILED) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return out, sum(r[0] for r in rows), sum(r[1] for r in rows)
+
+
+def wall_ms(fn) -> tuple:
+    """(fn(), host milliseconds from an idle card to an idle card)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t)
+
+
+def k3_shared_bound_ms(vis: torch.Tensor, pool: int, cap: int) -> float:
+    """K3's HBM bound with shared rows: perm and arena_off read once (one
+    row each), the visibility table once, the one shared arena row of
+    `pool` chars once (every version reads it, but it is one input), the
+    text and the totals written once."""
+    b, n = vis.shape
+    nbytes = 4 * (2 * n + b * n + pool + b * cap + b)
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def run_history(rng: np.random.Generator, device,
+                hcfg: HistoryConfig) -> tuple:
+    """Batched time travel (`plan_kernels.texts_at_versions`) on the card:
+    the full-width history at `versions` spread entries through
+    source="native", and the small one at `small_versions` through
+    source="python" (`DenseExecutor`). K3's count is set to 0 just before
+    the two calls and read just after: one launch per call. Then every
+    version's K3 call is held against its plain version; every version
+    against the C++ tracker's text at its `entry_frontier` (each timed),
+    `python_checks` spread ones against the Python checkout, and every
+    small version against the Python checkout. Returns (line, the full
+    history's oplog)."""
+    from diamond_types_tpu_torch.gpu import kernels, linearize
+    from diamond_types_tpu_torch.gpu import plan_kernels as pk
+    from diamond_types_tpu_torch.native.core import get_native_ctx
+
+    t = time.perf_counter()
+    ol = build_history(rng, hcfg.lvs, hcfg, hcfg.turns)
+    small = build_history(rng, hcfg.small_lvs, hcfg, hcfg.small_turns)
+    build_s = time.perf_counter() - t
+    plan = pk.compile_plan2(ol.cg.graph, [], list(ol.version))
+    splan = pk.compile_plan2(small.cg.graph, [], list(small.version))
+    idx = spread(len(plan.entries), hcfg.versions)
+    sidx = spread(len(splan.entries), hcfg.small_versions)
+    k3 = kernels.materialize_runs
+    k3.launches = 0
+    stats, sstats = {}, {}
+    with Spy(kernels, "materialize_runs", keep=True) as k3_calls:
+        texts, call_ms = wall_ms(lambda: pk.texts_at_versions(
+            ol, idx, source="native", device=device, stats=stats))
+        stexts, scall_ms = wall_ms(lambda: pk.texts_at_versions(
+            small, sidx, source="python", device=device, stats=sstats))
+    launches = k3.launches
+    check(launches == 2 == len(k3_calls.args),
+          f"history: K3 launched {launches} times for 2 texts_at_versions "
+          f"calls ({len(k3_calls.args)} wrapper calls)")
+    check(len(texts) == len(idx) and len(stexts) == len(sidx),
+          "history: a version is missing")
+
+    # every version's K3 output against the plain version
+    worst = max(k3_err(list(args[:4]), args[4]) for args in k3_calls.args)
+    check(worst == 0, f"history: K3 differs from its plain version: max "
+          f"abs err {worst}")
+    for args in k3_calls.args:
+        check(all(a.shape[0] == 1 for a in (args[0], args[2], args[3])),
+              "history: K3 was not given shared rows")
+
+    # the host's texts: the C++ tracker on every version, the Python
+    # checkout on `python_checks` spread ones
+    ctx = get_native_ctx(ol)
+    py_picks = set(spread(len(idx), hcfg.python_checks))
+    native_ms, python_ms = [], []
+    for j, (k, got) in enumerate(zip(idx, texts)):
+        f = pk.entry_frontier(ol.cg.graph, plan, k)
+        t = time.perf_counter()
+        want, _ = ctx.merge_to_string("", [], f)
+        native_ms.append(1e3 * (time.perf_counter() - t))
+        check(got == want,
+              f"history: version {k} differs from the C++ tracker's text")
+        if j in py_picks:
+            t = time.perf_counter()
+            want_py = ol.checkout(f).snapshot()
+            python_ms.append(1e3 * (time.perf_counter() - t))
+            check(got == want_py,
+                  f"history: version {k} differs from the Python checkout")
+    t = time.perf_counter()
+    for k, got in zip(sidx, stexts):
+        want = small.checkout(pk.entry_frontier(small.cg.graph, splan,
+                                                k)).snapshot()
+        check(got == want, f"history: small version {k} differs from the "
+              "Python checkout")
+    small_python_ms = 1e3 * (time.perf_counter() - t) / len(sidx)
+
+    # the tape on the card: device busy time and events of one replay
+    _plan, _src, tape, rows = pk.snapshot_rows(ol, [], entries=idx,
+                                               source="native",
+                                               device=device)
+    tape_args = (tape.op, tape.a, tape.b, tape.c, tape.d, tape.is_base,
+                 tape.n_slots, tape.n_idx, tape.n_snaps)
+    tstats = {}
+    rows2, tape_busy_ms, tape_events = profiled(lambda: pk.execute_tape(
+        *tape_args, device=device, stats=tstats))
+    check(torch.equal(rows, rows2), "history: two tape replays differ")
+    _, tape_wall_ms = wall_ms(lambda: pk.execute_tape(*tape_args,
+                                                      device=device))
+    _, call_busy_ms, call_events = profiled(lambda: pk.texts_at_versions(
+        ol, idx, source="native", device=device))
+
+    # K3 at the history's shape
+    perm, vis, off, arena, cap = k3_calls.args[0]
+    b, n = vis.shape
+    k3t = timings(lambda: kernels.materialize_runs(perm, vis, off, arena,
+                                                   cap), 10, 10)
+    k3_line = {"b": b, "runs": n, "cap": cap, "pool": arena.shape[1],
+               "shared_rows": True, **k3t, "ms": k3t["call_ms"],
+               "bound_ms": k3_shared_bound_ms(vis, arena.shape[1], cap),
+               "plain_ms": time_ms(lambda: linearize.materialize(
+                   perm, vis, off, arena, cap), 2),
+               "library_ms": None,
+               "gather_ctas_derived": k3_ctas(b, cap),
+               "output_mib": b * cap * 4 / 2**20}
+    python_per = float(np.median(python_ms))
+    line = {"phase": "history", "build_s": build_s, "lvs": len(ol),
+            "final_chars": len(texts[-1]), "graph_runs": len(ol.cg.graph.starts),
+            "plan_entries": len(plan.entries), "versions": len(idx),
+            "launches": launches, "k3_calls": len(k3_calls.args),
+            "max_abs_err": worst,
+            "checked_native": len(native_ms),
+            "checked_python": len(python_ms),
+            "call_ms": call_ms,
+            "parts_ms": {"compile_plan2": stats["compile_ms"],
+                         "source_native": stats["source_ms"],
+                         "pack_plan_tape": stats["pack_ms"],
+                         "execute_tape_host": stats["tape"]["host_ms"],
+                         "tables": stats["tables_ms"],
+                         "k3_copy_decode": stats["k3_ms"]},
+            "tape": {"steps": stats["steps"], "n_slots": stats["n_slots"],
+                     "n_idx": stats["n_idx"], **tstats,
+                     "wall_ms": tape_wall_ms, "device_busy_ms": tape_busy_ms,
+                     "device_events": tape_events},
+            "call_device_busy_ms": call_busy_ms,
+            "call_device_events": call_events,
+            "k3": k3_line,
+            "host_native_ms_per_version": float(np.median(native_ms)),
+            "host_native_ms_for_all_versions": float(np.sum(native_ms)),
+            "host_python_ms_per_version": python_per,
+            "host_python_ms_for_all_versions_extrapolated":
+                python_per * len(idx),
+            "small": {"lvs": len(small), "plan_entries": len(splan.entries),
+                      "versions": len(sidx), "call_ms": scall_ms,
+                      "parts_ms": {k: sstats[k] for k in
+                                   ("compile_ms", "source_ms", "pack_ms",
+                                    "tables_ms", "k3_ms")},
+                      "host_python_ms_per_version": small_python_ms}}
+    return line, ol
+
+
+# BASELINE.json configuration 5: a 10k-replica fan-in causal graph
+CONFIG5 = {"n_roots": 10_000, "run_len": 8, "chain": 2048}
+
+
+def config5_graph():
+    """BASELINE config 5's causal graph (`CONFIG5`): `n_roots` concurrent
+    root runs of `run_len` LVs, one merge run naming every root's tip (the
+    fan-in of the JAX package's multichip dry run, at full width), then
+    `chain` runs after it, each forking from the LV before its predecessor's last (so
+    each is a run of its own, and the graph is that many hops deep).
+    Returns (Graph, the chain tip's LV)."""
+    from diamond_types_tpu_torch import Graph
+    n_roots, run_len, chain = (CONFIG5[k] for k in ("n_roots", "run_len",
+                                                     "chain"))
+    g = Graph()
+    for i in range(n_roots):
+        g.push([], i * run_len, (i + 1) * run_len)
+    lv = n_roots * run_len
+    g.push([(i + 1) * run_len - 1 for i in range(n_roots)], lv, lv + run_len)
+    for _ in range(chain):
+        g.push([lv + run_len - 2], lv + run_len, lv + 2 * run_len)
+        lv += run_len
+    return g, lv + run_len - 1
+
+
+def graph_queries(rng: np.random.Generator, graph, n_frontiers: int = 64,
+                  per: int = 64) -> tuple:
+    """`n_frontiers` frontiers of 1-3 LVs, one of them the tip, each asked
+    about `per` targets (random LVs, and -1): ([q, 3] int32 padded with
+    -1, [q] int32)."""
+    from diamond_types_tpu_torch.gpu import graph_kernels as gk
+    n_lv = graph.ends[-1]
+    frs = [[n_lv - 1]]
+    while len(frs) < n_frontiers:
+        w = int(rng.integers(1, 4))
+        frs.append(sorted({int(x) for x in rng.integers(0, n_lv, w)}))
+    fr = gk.frontier_matrix([f for f in frs for _ in range(per)])
+    targets = rng.integers(-1, n_lv, len(fr)).astype(np.int32)
+    return fr, targets
+
+
+def graph_line(name: str, rng, graph, device) -> dict:
+    """Contains over 4,096 (frontier, target) pairs and diff on two
+    frontier pairs, on the card, each held against the host `Graph` on
+    every query; rounds to the fixed point, flag reads (syncs), times on
+    the host clock (idle card to idle card) and the device's busy time of
+    one batch (profiled)."""
+    from diamond_types_tpu_torch.gpu import graph_kernels as gk
+    fr, targets = graph_queries(rng, graph)
+    (fn, pack_ms) = wall_ms(lambda: gk.make_contains_fn(graph, device))
+    got, ms = wall_ms(lambda: fn(fr, targets))
+    rounds = dict(fn.stats)
+    _, busy_ms, events = profiled(lambda: fn(fr, targets))
+    got = got.cpu().numpy()
+    t = time.perf_counter()
+    want = [graph.frontier_contains_version([int(x) for x in f if x >= 0],
+                                            int(x))
+            for f, x in zip(fr, targets)]
+    host_ms = 1e3 * (time.perf_counter() - t)
+    bad = int((got != np.asarray(want)).sum())
+    check(bad == 0, f"graph {name}: {bad} contains answers differ from the "
+          "host Graph")
+    dfn = gk.make_diff_fn(graph, device)
+    n_lv = graph.ends[-1]
+    pairs = [([n_lv - 1], sorted({int(x) for x in rng.integers(0, n_lv, 3)})),
+             (sorted({int(x) for x in rng.integers(0, n_lv, 2)}),
+              [int(rng.integers(0, n_lv))])]
+    diffs = []
+    for a, b in pairs:
+        k = max(len(a), len(b))
+        pad = [np.array(f + [-1] * (k - len(f)), np.int32) for f in (a, b)]
+        (ra, rb), dms = wall_ms(lambda: dfn(*pad))
+        t = time.perf_counter()
+        want_d = graph.diff(a, b)
+        dhost = 1e3 * (time.perf_counter() - t)
+        check(gk.diff_to_spans(graph, ra, rb) == tuple(want_d),
+              f"graph {name}: diff({a}, {b}) differs from the host Graph")
+        diffs.append({"a": a, "b": b, "ms": dms, "host_ms": dhost,
+                      "only_a_spans": len(want_d[0]),
+                      "only_b_spans": len(want_d[1]), **dfn.stats})
+    return {"graph": name, "runs": len(graph.starts), "lvs": n_lv,
+            "edges": fn.packed["m"], "queries": len(fr),
+            "true": int(got.sum()), "pack_ms": pack_ms,
+            "contains_ms": ms, **rounds,
+            "device_busy_ms": busy_ms, "device_events": events,
+            "host_contains_ms": host_ms, "diff": diffs}
+
+
+def run_graph(rng: np.random.Generator, device, history_ol) -> dict:
+    """X6 on the card: config 5's graph and the history's own graph."""
+    g5, _tip = config5_graph()
+    return {"phase": "graph",
+            "graphs": [graph_line("config5", rng, g5, device),
+                       graph_line("history", rng, history_ol.cg.graph,
+                                  device)]}
+
+
+def example_batch(rng: np.random.Generator, b: int, n_ops: int,
+                  max_ins: int):
+    """The JAX package's multichip example batch generator
+    (`__graft_entry__._example_batch`), from `rng`: b documents of n_ops
+    random inserts (1..max_ins chars at a random position) and deletes
+    (1-3 chars, once a document holds more than 4)."""
+    pos = np.zeros((b, n_ops), dtype=np.int32)
+    dlen = np.zeros((b, n_ops), dtype=np.int32)
+    ilen = np.zeros((b, n_ops), dtype=np.int32)
+    chars = np.zeros((b, n_ops, max_ins), dtype=np.int32)
+    doc_len = np.zeros((b,), dtype=np.int32)
+    for i in range(b):
+        for j in range(n_ops):
+            if doc_len[i] > 4 and rng.random() < 0.3:
+                p = int(rng.integers(0, doc_len[i] - 1))
+                d = int(min(rng.integers(1, 4), doc_len[i] - p))
+                pos[i, j], dlen[i, j] = p, d
+                doc_len[i] -= d
+            else:
+                p = int(rng.integers(0, doc_len[i] + 1))
+                k = int(rng.integers(1, max_ins + 1))
+                pos[i, j], ilen[i, j] = p, k
+                chars[i, j, :k] = rng.integers(97, 123, size=k)
+                doc_len[i] += k
+    return pos, dlen, ilen, chars
+
+
+def run_merge_step(rng: np.random.Generator, device, b: int = 256,
+                   n_ops: int = 512, max_ins: int = MAX_INS,
+                   cap: int = 16_384) -> dict:
+    """`parallel.mesh.multichip_merge_step` on one card at full width: the
+    example batch replayed from empty documents (K1, one launch per device
+    slice) and config 5's reachability from the chain tip (X6 as the
+    one-card X10). K1's count is set to 0 just before and read just after.
+    K1's output is held against its plain version and the reach must cover
+    every fan-in root."""
+    from diamond_types_tpu_torch.gpu import flush_fuse as ff
+    from diamond_types_tpu_torch.gpu import graph_kernels as gk
+    from diamond_types_tpu_torch.gpu import kernels
+    from diamond_types_tpu_torch.parallel import mesh as pm
+
+    t = time.perf_counter()
+    pos, dlen, ilen, chars = example_batch(rng, b, n_ops, max_ins)
+    g5, tip = config5_graph()
+    packed = gk.pack_graph(g5, device)
+    src, plv, prun = pm.pad_edges(packed, 1)
+    reach0 = np.full(packed["n"], -1, np.int32)
+    reach0[-1] = tip
+    setup_s = time.perf_counter() - t
+    mesh = pm.make_mesh(1)
+    k1 = kernels.apply_ops_window
+    k1.launches = 0
+    stats = {}
+    with Spy(ff, "apply_ops_window", keep=True) as calls:
+        (docs, lens, reach), step_ms = wall_ms(lambda: pm.multichip_merge_step(
+            mesh, pos, dlen, ilen, chars, cap, packed["starts"], src, plv,
+            prun, reach0, stats=stats))
+    launches = k1.launches
+    check(launches == len(mesh) == len(calls.args),
+          f"merge_step: K1 launched {launches} times for {len(mesh)} "
+          "device slices")
+    args = calls.args[0]
+    want_d, want_l = kernels.apply_ops_window_plain(*args[:6], max_ins)
+    err = max(exact_err(docs, want_d[:b]), exact_err(lens, want_l[:b]))
+    check(err == 0, f"merge_step: K1 differs from its plain version: max "
+          f"abs err {err}")
+    check(bool((lens >= 0).all()), "merge_step: a document was poisoned")
+    n_roots, run_len = CONFIG5["n_roots"], CONFIG5["run_len"]
+    covered = reach[:n_roots].cpu().numpy()
+    check(bool((covered == np.arange(1, n_roots + 1) * run_len - 1).all()),
+          "merge_step: sharded propagation failed to cover the fan-in roots")
+    check(torch.equal(reach, gk.reach_fixed_point(
+        packed, torch.from_numpy(reach0).to(device))),
+          "merge_step: the sharded reach differs from X6's")
+    reach_stats = {}
+    _, reach_ms = wall_ms(lambda: pm.sharded_reach_fixed_point(
+        mesh, packed["starts"], src, plv, prun, reach0, stats=reach_stats))
+    _, reach_busy_ms, reach_events = profiled(
+        lambda: pm.sharded_reach_fixed_point(mesh, packed["starts"], src,
+                                             plv, prun, reach0))
+    bp, n = args[2].shape
+    k1t = timings(lambda: kernels.apply_ops_window(*args[:6], max_ins), 5,
+                  10)
+    return {"phase": "merge_step", "b": b, "n": n_ops, "max_ins": max_ins,
+            "cap": cap, "setup_s": setup_s, "devices": len(mesh),
+            "launches": launches, "max_abs_err": err, "step_ms": step_ms,
+            "doc_chars": int(lens.sum()),
+            "reach": {"runs": packed["n"], "edges": packed["m"],
+                      **reach_stats, "ms": reach_ms,
+                      "device_busy_ms": reach_busy_ms,
+                      "device_events": reach_events},
+            "k1": {"b": bp, "n": n, "cap": cap, **k1t, "ms": k1t["call_ms"],
+                   "bound_ms": 1e3 * window_bytes(bp, n, cap, max_ins)
+                   / HBM_BYTES_PER_S,
+                   "plain_ms": time_ms(lambda: kernels.apply_ops_window_plain(
+                       *args[:6], max_ins), 1),
+                   "library_ms": None, "ctas_derived": k1_ctas(bp, cap)}}
+
 def run_kernel_phases(rng, device) -> tuple:
     """The three kernel-against-plain phases, each line with its seconds."""
     out = []
@@ -1437,6 +1918,18 @@ def main(argv=None) -> int:
             "b * ceil(cap / 512), the launcher's grid; derived, not observed")
         checkout["seconds"] = time.perf_counter() - t
         emit(checkout)
+        t = time.perf_counter()
+        history, history_ol = run_history(rng(8), device, HistoryConfig())
+        history["seconds"] = time.perf_counter() - t
+        emit(history)
+        t = time.perf_counter()
+        graph = run_graph(rng(9), device, history_ol)
+        graph["seconds"] = time.perf_counter() - t
+        emit(graph)
+        t = time.perf_counter()
+        step = run_merge_step(rng(10), device)
+        step["seconds"] = time.perf_counter() - t
+        emit(step)
         timed = ("ms", "call_ms", "device_ms", "plain_ms", "bound_ms",
                  "library_ms")
         kerns = [
@@ -1446,15 +1939,18 @@ def main(argv=None) -> int:
              "launches": serve["launches"],
              "launches_by_path": {"serve": serve["launches"],
                                   "scheduler": sched["launches"],
-                                  "window": sched_w["launches"]},
+                                  "window": sched_w["launches"],
+                                  "merge_step": step["launches"]},
              "max_abs_err": max(kvp["max_abs_err"], timing["max_abs_err"],
                                 sched["k1_max_abs_err"],
-                                sched_w["k1_max_abs_err"]),
+                                sched_w["k1_max_abs_err"],
+                                step["max_abs_err"]),
              "bound_by": "bytes", "library_ms": None,
              **{k: widest[k] for k in timed if k in widest},
              "shape": {k: widest[k] for k in ("b", "cap", "n")},
              "flush_docs_device_ms": [r["device_ms"]
-                                      for r in per["flush_docs"]]},
+                                      for r in per["flush_docs"]],
+             "merge_step": step["k1"]},
             {"name": "xform_positions", "route": "cuda",
              "source": "diamond_types_tpu_torch/csrc/xform_positions.cu",
              "replaces": "diamond_types_tpu/tpu/pallas_kernels.py:315",
@@ -1472,14 +1968,17 @@ def main(argv=None) -> int:
              "source": "diamond_types_tpu_torch/csrc/materialize.cu",
              "replaces": "diamond_types_tpu/tpu/pallas_kernels.py:211",
              "launches": checkout["launches"],
-             "launches_by_path": {"checkout": checkout["launches"]},
-             "max_abs_err": max(k3p["max_abs_err"], k3["max_abs_err"]),
+             "launches_by_path": {"checkout": checkout["launches"],
+                                  "history": history["launches"]},
+             "max_abs_err": max(k3p["max_abs_err"], k3["max_abs_err"],
+                                history["max_abs_err"]),
              "bound_by": "bytes", **{k: k3[k] for k in timed},
              "device_ms_cold_l2": k3["device_ms_cold_l2"],
              "shape": k3["shape"],
              "merge_device_ms": [r["device_ms"]
                                  for r in checkout["k3_per_call"]
-                                 if r["call"] == "merge"]}]
+                                 if r["call"] == "merge"],
+             "history": history["k3"]}]
         card = nvidia_smi_line()
         emit({"kernels": kerns})
         print(card, flush=True)

@@ -6,7 +6,10 @@
 //                     for 0 <= k < vl[i] and start[i] + k < cap
 //   out[j] = 0 for min(total, cap) <= j < cap,    total = sum(vl) (unclipped)
 // on perm, vis_len, arena_off [b, n] int32 and arena [b, pool] int32, in
-// int32 arithmetic that wraps, perm clamped to [0, n) before it indexes. It
+// int32 arithmetic that wraps, perm clamped to [0, n) before it indexes.
+// perm, arena_off and arena each have a row stride: their own row length,
+// or 0 for ONE row that every document shares (the history path's
+// versions share the order, the offsets and the arena). It
 // is the function of the JAX package's materialize_jax and of the port's
 // linearize.materialize wherever vis_len >= 0 and arena_off[perm[i]] -
 // start[i] < 2^30 (the plain versions park that difference with a bias of
@@ -125,7 +128,8 @@ scan_runs_kernel(const int32_t* __restrict__ perm,
                  const int32_t* __restrict__ vis_len,
                  const int32_t* __restrict__ arena_off,
                  int32_t* __restrict__ table, int32_t* __restrict__ total_out,
-                 int n, int cap, int stride, int row) {
+                 int n, int cap, int stride, int row, int64_t perm_rs,
+                 int64_t off_rs) {
   // the gather may be scheduled now; it waits for this grid to finish
   asm volatile("griddepcontrol.launch_dependents;");
   __shared__ uint32_t warp_sum[kScanWarps];
@@ -133,9 +137,9 @@ scan_runs_kernel(const int32_t* __restrict__ perm,
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
   const int64_t r = blockIdx.x;
-  const int32_t* pr = perm + r * n;
+  const int32_t* pr = perm + r * perm_rs;
   const int32_t* vr = vis_len + r * n;
-  const int32_t* ar = arena_off + r * n;
+  const int32_t* ar = arena_off + r * off_rs;
   if (threadIdx.x == 0) last_live = -1;
   int32_t* pairs = table + r * row;
   int32_t* seg_first = pairs + 2 * stride;
@@ -225,7 +229,7 @@ gather_tiles_kernel(const int32_t* __restrict__ table,
                     const int32_t* __restrict__ total,
                     const int32_t* __restrict__ arena,
                     int32_t* __restrict__ out, int n, int pool, int cap,
-                    int stride, int row, int tiles) {
+                    int stride, int row, int tiles, int64_t arena_rs) {
   __shared__ __align__(16) int32_t marks[kGatherThreads / 32][kSeg];
   const int64_t r = blockIdx.x / tiles;
   const int j0 = (int)(blockIdx.x - r * tiles) * kTile + threadIdx.x * kVec;
@@ -234,7 +238,7 @@ gather_tiles_kernel(const int32_t* __restrict__ table,
   const int segs = (cap + kSeg - 1) / kSeg;
   const int2* pairs = reinterpret_cast<const int2*>(table + r * row);
   const int32_t* seg_first = reinterpret_cast<const int32_t*>(pairs + stride);
-  const int32_t* chars = arena + r * (int64_t)pool;
+  const int32_t* chars = arena + r * arena_rs;
   asm volatile("griddepcontrol.wait;" ::: "memory");  // the scan is done
   // independent loads, issued together
   const int32_t tot = total[r];
@@ -335,18 +339,22 @@ long long dt_materialize_runs_scratch_row(int n, int cap) {
 
 // Launch both passes on `stream` (b >= 1, n >= 0, pool >= 1, cap >= 1).
 // `table` is the wrapper's scratch: b rows of
-// dt_materialize_runs_scratch_row(n, cap) int32, 16-byte aligned. Returns
-// cudaErrorInvalidValue for arguments out of that contract or a grid past
-// int32, else the launch's error.
+// dt_materialize_runs_scratch_row(n, cap) int32, 16-byte aligned. The row
+// strides of perm and arena_off are n or 0, arena's pool or 0 (0: one
+// shared row). Returns cudaErrorInvalidValue for arguments out of that
+// contract or a grid past int32, else the launch's error.
 int dt_materialize_runs(const void* perm, const void* vis_len,
                         const void* arena_off, const void* arena, void* out,
                         void* total, void* table, int b, int n, int pool,
-                        int cap, void* stream) {
+                        int cap, long long perm_rs, long long off_rs,
+                        long long arena_rs, void* stream) {
   const long long ctas = dt_materialize_runs_ctas(b, cap);
   const long long row = dt_materialize_runs_scratch_row(n, cap);
   if (b < 1 || n < 0 || pool < 1 || cap < 1 || ctas >= (1LL << 31) ||
       row >= (1LL << 31) || cap > 0x7fffffff - kTile ||
-      (reinterpret_cast<uintptr_t>(table) & 15) != 0)
+      (reinterpret_cast<uintptr_t>(table) & 15) != 0 ||
+      (perm_rs != 0 && perm_rs != n) || (off_rs != 0 && off_rs != n) ||
+      (arena_rs != 0 && arena_rs != pool))
     return static_cast<int>(cudaErrorInvalidValue);
   const int stride = (n + 4) / 4 * 4;
   auto* s = static_cast<cudaStream_t>(stream);
@@ -356,11 +364,11 @@ int dt_materialize_runs(const void* perm, const void* vis_len,
   auto* vl = static_cast<const int32_t*>(vis_len);
   auto* ao = static_cast<const int32_t*>(arena_off);
   if (n % 4 == 0 && (reinterpret_cast<uintptr_t>(perm) & 15) == 0)
-    scan_runs_kernel<true><<<b, kScanThreads, 0, s>>>(pm, vl, ao, tb, tot, n,
-                                                      cap, stride, (int)row);
+    scan_runs_kernel<true><<<b, kScanThreads, 0, s>>>(
+        pm, vl, ao, tb, tot, n, cap, stride, (int)row, perm_rs, off_rs);
   else
-    scan_runs_kernel<false><<<b, kScanThreads, 0, s>>>(pm, vl, ao, tb, tot, n,
-                                                       cap, stride, (int)row);
+    scan_runs_kernel<false><<<b, kScanThreads, 0, s>>>(
+        pm, vl, ao, tb, tot, n, cap, stride, (int)row, perm_rs, off_rs);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -379,11 +387,13 @@ int dt_materialize_runs(const void* perm, const void* vis_len,
   if (cap % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0)
     err = cudaLaunchKernelEx(&cfg, gather_tiles_kernel<true>,
                              (const int32_t*)tb, (const int32_t*)tot, ar, o,
-                             n, pool, cap, stride, (int)row, tiles);
+                             n, pool, cap, stride, (int)row, tiles,
+                             (int64_t)arena_rs);
   else
     err = cudaLaunchKernelEx(&cfg, gather_tiles_kernel<false>,
                              (const int32_t*)tb, (const int32_t*)tot, ar, o,
-                             n, pool, cap, stride, (int)row, tiles);
+                             n, pool, cap, stride, (int)row, tiles,
+                             (int64_t)arena_rs);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,10 +15,11 @@ what bounds it.
      a bucket's doc-order columns `[b, n]`, one launch per bucket, one warp
      per row.
   K3 `materialize_runs` (`csrc/materialize.cu`, from `materialize_pallas`):
-     the device checkout's text assembly for a batch of documents, any run
-     count. One call is two kernels on one stream: a row scan (one CTA
-     per row) into a scratch table of run starts, then a gather over rows
-     times tiles of the cap axis.
+     the text assembly of the device checkout (a batch of documents) and
+     of the history path (a batch of versions sharing one order and
+     arena), any run count. One call is two kernels on one stream: a row
+     scan (one CTA per row) into a scratch table of run starts, then a
+     gather over rows times tiles of the cap axis.
 
 Build: each `csrc/*.cu` compiles with `nvcc` for `sm_90a` into a shared
 library with a plain C interface, at first use, into `_build/` beside this
@@ -146,8 +147,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.dt_xform_positions.argtypes = [p, p, p, p, p, i, i, p]
         lib.dt_xform_positions.restype = i
     elif name == "materialize":
+        ll = ctypes.c_longlong
         lib.dt_materialize_runs.argtypes = [p, p, p, p, p, p, p,
-                                            i, i, i, i, p]
+                                            i, i, i, i, ll, ll, ll, p]
         lib.dt_materialize_runs.restype = i
         for fn in (lib.dt_materialize_runs_ctas,
                    lib.dt_materialize_runs_scratch_row):
@@ -360,25 +362,33 @@ xform_positions.launches = 0
 def materialize_runs(perm: torch.Tensor, vis_len: torch.Tensor,
                      arena_off: torch.Tensor, arena: torch.Tensor,
                      cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Lay each row's runs out in perm order: perm, vis_len, arena_off
-    [b, n] int32, arena [b, pool] int32 (pool >= 1), cap >= 1. Returns
-    (text [b, cap] int32, total [b] int32, not clipped at cap).
+    """Lay each row's runs out in perm order: vis_len [b, n] int32; perm
+    and arena_off [b, n] or [1, n] int32, arena [b, pool] or [1, pool]
+    int32 (pool >= 1), where one row is shared by all b documents (the
+    history path's versions share all three); cap >= 1. Returns (text
+    [b, cap] int32, total [b] int32, not clipped at cap).
 
     CUDA tensors launch K3: two kernels on the current stream, a row scan
     into a scratch table of run starts and bases (allocated here), then a
-    gather over rows times tiles of cap, with no host sync between them;
-    `launches` counts the call once. The kernels equal the plain version
-    wherever arena_off[perm[i]] - start[i] < 2**30, which every
-    in-contract input meets. CPU tensors run its plain version,
-    `linearize.materialize`. In contract vis_len >= 0 and each perm row
-    is a permutation of range(n)."""
-    if perm.dim() != 2 or not perm.shape == vis_len.shape == arena_off.shape:
+    gather over rows times tiles of cap, with no host sync between them; a
+    shared row is passed with row stride 0, never copied. `launches`
+    counts the call once. The kernels equal the plain version wherever
+    arena_off[perm[i]] - start[i] < 2**30, which every in-contract input
+    meets. CPU tensors run its plain version, `linearize.materialize`. In
+    contract vis_len >= 0 and each perm row is a permutation of
+    range(n)."""
+    if vis_len.dim() != 2 or any(
+            t.dim() != 2 or t.shape[1] != vis_len.shape[1]
+            or t.shape[0] not in (1, vis_len.shape[0])
+            for t in (perm, arena_off)):
         raise ValueError("perm, vis_len and arena_off must be one [b, n] "
-                         f"shape, got {tuple(perm.shape)}, "
+                         "shape (perm and arena_off may be one shared "
+                         f"[1, n] row), got {tuple(perm.shape)}, "
                          f"{tuple(vis_len.shape)}, {tuple(arena_off.shape)}")
-    b, n = perm.shape
-    if arena.dim() != 2 or arena.shape[0] != b or arena.shape[1] < 1:
-        raise ValueError(f"arena must be [b={b}, pool>=1], got "
+    b, n = vis_len.shape
+    if arena.dim() != 2 or arena.shape[0] not in (1, b) or \
+            arena.shape[1] < 1:
+        raise ValueError(f"arena must be [b={b}, pool>=1] or [1, pool], got "
                          f"{tuple(arena.shape)}")
     if cap < 1:
         raise ValueError(f"cap must be >= 1, got {cap}")
@@ -400,11 +410,14 @@ def materialize_runs(perm: torch.Tensor, vis_len: torch.Tensor,
     # segment's first char
     table = torch.empty((b, lib.dt_materialize_runs_scratch_row(n, cap)),
                         dtype=torch.int32, device=perm.device)
+    # a row stride per input: its row length, or 0 for one shared row
+    strides = [t.shape[1] if t.shape[0] > 1 else 0
+               for t in (perm, arena_off, arena)]
     rc = _launch_on(perm.device, lib.dt_materialize_runs,
                     perm.data_ptr(), vis_len.data_ptr(),
                     arena_off.data_ptr(), arena.data_ptr(), out.data_ptr(),
                     total.data_ptr(), table.data_ptr(), b, n,
-                    arena.shape[1], cap)
+                    arena.shape[1], cap, *strides)
     _raise_on(lib, rc, "materialize_runs launch")
     count_launch("materialize_runs")
     return out, total

@@ -388,16 +388,19 @@ def materialize(perm: torch.Tensor, vis_len: torch.Tensor,
     perm [b, n]: document-order permutation; vis_len [b, n]: visible char
     count of each run (0 for deleted/NIY/padding); arena_off [b, n]: first
     char of the run's content in `arena`; arena [b, pool] int32 char codes;
-    cap: output width. Returns (text [b, cap] int32, total [b] int32): the
-    runs laid out in perm order, clipped at cap, zero past total; total is
-    not clipped.
+    cap: output width. perm, arena_off and arena may instead be one row
+    ([1, n], [1, pool]) that all b rows of vis_len share. Returns (text
+    [b, cap] int32, total [b] int32): the runs laid out in perm order,
+    clipped at cap, zero past total; total is not clipped.
 
     Each live run parks its start and its affine source base (`arena start
     - doc start`) AT its start slot; a cummax fills the starts forward,
     then one gather fetches the base and one the text."""
-    b, n = perm.shape
-    dev = perm.device
-    p = perm.long()
+    b, n = vis_len.shape
+    dev = vis_len.device
+    p = perm.long().expand(b, n)
+    arena_off = arena_off.expand(b, n)
+    arena = arena.expand(b, arena.shape[1])
     vl = vis_len.gather(1, p).to(torch.int32)
     cum = torch.cumsum(vl, dim=1, dtype=torch.int32)
     total = cum[:, -1] if n else torch.zeros(b, dtype=torch.int32, device=dev)

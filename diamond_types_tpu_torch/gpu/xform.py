@@ -18,7 +18,10 @@ device, batched over the bucket:
 
 Old visibility is a pure LV threshold: a fused session's frontier is always
 the oplog version at log length `synced_to`, so `lv < synced_to` iff the
-op is causally at or before the frontier.
+op is causally at or before the frontier. With `DT_XFORM_VALIDATE` set,
+`extract_tail` proves that on the session's device for every LV
+(`validate_prefix_frontier`, over the graph kernels) and raises when it
+fails.
 
 The edit script is emitted in DOCUMENT order (delete old-only runs, insert
 new-only runs, positions = exclusive prefix sum of new visible lengths),
@@ -34,6 +37,7 @@ rung is a device/host new-length disagreement at assembly.
 from __future__ import annotations
 
 import contextlib
+import os
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -129,6 +133,10 @@ def extract_tail(sess) -> Union[TailExtract, TailPlan]:
     ins_run = (new_vis > 0) & (old_vis == 0)
     if (aoff[ins_run] < 0).any():
         return sess.plan_tail()          # insert without stored content
+    if os.environ.get("DT_XFORM_VALIDATE") and not validate_prefix_frontier(
+            ol, sess.frontier, sess.synced_to, device=sess.device):
+        raise AssertionError("log-prefix-frontier contract violated "
+                             "(device reachability)")
     return TailExtract(
         parent=parent, side=side, key_pos=kp, key_agent=ka, key_seq=ks,
         old_vis=old_vis.astype(np.int32), new_vis=new_vis.astype(np.int32),
@@ -276,3 +284,28 @@ def plan_tails_device(sessions: Sequence, oplog_lock=None
         elif isinstance(halves[i], TailExtract):
             stats["device_docs"] += 1
     return plans, stats
+
+
+def validate_prefix_frontier(oplog, frontier: Sequence[int], synced_to: int,
+                             targets: Optional[np.ndarray] = None,
+                             device: Optional[Union[str, torch.device]] = None
+                             ) -> bool:
+    """Prove the log-prefix-frontier threshold with the device DAG
+    reachability kernel (`gpu/graph_kernels.py`) on `device` (None:
+    CUDA): `lv < synced_to  <=>  frontier contains lv`, for every LV (or a
+    caller-chosen sample). This is the property the transform's
+    old-visibility column rests on."""
+    from .graph_kernels import frontier_contains_lv, pack_graph
+
+    n = len(oplog)
+    if n == 0:
+        return int(synced_to) == 0
+    packed = pack_graph(oplog.cg.graph, device)
+    if targets is None:
+        targets = np.arange(n, dtype=np.int32)
+    fr = sorted(int(x) for x in frontier)
+    fr_a = torch.tensor(fr if fr else [-1], dtype=torch.int32)
+    got = frontier_contains_lv(
+        packed, fr_a, torch.from_numpy(np.asarray(targets, np.int32)))
+    want = np.asarray(targets) < int(synced_to)
+    return bool((got.cpu().numpy() == want).all())

@@ -1,33 +1,43 @@
-"""The flush window's device list and its one-launch-per-device replay.
+"""Device lists for the flush window and the sharded merge step.
 
-Port of the serve half of the JAX package's `parallel/mesh.py`. There a
-mesh is a `jax.sharding.Mesh` over a `docs` axis and a window runs as ONE
-`shard_map` program across it. Here the mesh is the ordered list of the
-distinct `torch.device`s the scheduler's shards use (`serve_mesh`); one
-H100 gives `[cuda:0]`. A window's super-batch is split by device (each
-session's rows stay on its own card) and K1 is launched once per device
-slice (`mesh_flush_fn`), so a window over one card is one K1 launch per
-`(cap, max_ins)` class.
+Port of the JAX package's `parallel/mesh.py`. There a mesh is a
+`jax.sharding.Mesh` and each program runs as ONE `shard_map` across it.
+Here the mesh is an ordered list of distinct `torch.device`s: the ones the
+scheduler's shards use (`serve_mesh`), or the first cards (`make_mesh`);
+one H100 gives `[cuda:0]`.
 
-With no jit there is no program cache: `mesh_flush_fn` only notes the
-steered class warm for steering's bookkeeping (cache `"mesh"`), and each
-slice launches at its pow2 floor, as the port's other replay rungs do.
+Serve half. A window's super-batch is split by device (each session's rows
+stay on its own card) and K1 is launched once per device slice
+(`mesh_flush_fn`), so a window over one card is one K1 launch per
+`(cap, max_ins)` class. With no jit there is no program cache:
+`mesh_flush_fn` only notes the steered class warm for steering's
+bookkeeping (cache `"mesh"`), and each slice launches at its pow2 floor, as
+the port's other replay rungs do.
 
-The graph half of the JAX module (`sharded_replay`, `pad_edges`,
-`sharded_reach_fixed_point`, `multichip_merge_step`) is not ported yet.
-The form over several cards (`place_on_devices=True`) splits and launches
-per device but has run on no machine with more than one card.
+Graph half. `sharded_replay` replays `[b, n]` op tapes from empty documents
+with one K1 launch per device slice of the padded rows;
+`sharded_reach_fixed_point` splits the causal graph's padded edge list
+(`pad_edges`) over the devices, relaxes each slice locally every round and
+takes the maximum on the first device (the JAX package's `pmax`);
+`multichip_merge_step` runs both. On one card the reach is X6
+(`gpu/graph_kernels.py`) itself.
+
+The forms over several cards (`place_on_devices=True` for the window, a
+mesh of more than one card for the graph half) have run on no machine with
+more than one card: they are untested.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..gpu import flush_fuse as _ff
+from ..gpu import graph_kernels as _gk
+from ..gpu import resolve_device
 from ..gpu.steer import STEER, _pow2
 from . import arena as _arena
 
@@ -44,6 +54,20 @@ def serve_mesh(devices: Sequence[torch.device]) -> List[torch.device]:
             seen.add(str(d))
             out.append(torch.device(d))
     return out
+
+
+def make_mesh(n_devices: Optional[int] = None) -> List[torch.device]:
+    """The first `n_devices` cards (default: all), `[cuda:0, ...]`. Raises
+    without CUDA; a CPU "mesh" is `[torch.device("cpu")]`, given
+    explicitly."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("make_mesh needs CUDA: no card is available; "
+                           "pass [torch.device('cpu')] as the mesh instead")
+    k = torch.cuda.device_count()
+    n = k if n_devices is None else n_devices
+    if not 1 <= n <= k:
+        raise ValueError(f"need 1..{k} devices, asked for {n}")
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def serve_shard_devices(n_shards: int) -> List[torch.device]:
@@ -68,14 +92,17 @@ def pad_batch_to_mesh(pos, dlen, ilen, chars, n_devices: int):
     """Pad a packed super-batch's row axis to `pad_batch_count` rows:
     padding rows carry all-zero ops, and the caller pairs them with
     `lens = -1` sentinel rows, so they stay identifiably inert through
-    K1. Returns (pos, dlen, ilen, chars, bp)."""
+    K1. Numpy arrays or tensors (padded on their own device). Returns
+    (pos, dlen, ilen, chars, bp)."""
     b = pos.shape[0]
     bp = pad_batch_count(b, n_devices)
     if bp == b:
         return pos, dlen, ilen, chars, bp
 
     def _pad(a):
-        out = np.zeros((bp,) + a.shape[1:], dtype=a.dtype)
+        out = a.new_zeros((bp,) + a.shape[1:]) \
+            if isinstance(a, torch.Tensor) else \
+            np.zeros((bp,) + a.shape[1:], dtype=a.dtype)
         out[:b] = a
         return out
 
@@ -205,3 +232,126 @@ def mesh_fused_replay(mesh: Sequence[torch.device], sessions, plans
         _arena.adopt(mesh, cap, mi, [o[0] for o in outs],
                      [o[1] for o in outs], sessions, ok, bp)
     return ok, device_s, bp, staged
+
+
+# ---------------------------------------------------------------------------
+# the graph half: sharded replay and reachability
+# ---------------------------------------------------------------------------
+
+def _mesh_devices(mesh: Sequence) -> List[torch.device]:
+    if not len(mesh):
+        raise ValueError("the mesh holds no device")
+    return [resolve_device(d) for d in mesh]
+
+
+def sharded_replay(mesh: Sequence[torch.device], pos, dlen, ilen, chars,
+                   cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Replay `[b, n]` op tapes (pos/dlen/ilen int32 [b, n], chars int32
+    [b, n, max_ins], numpy or tensors) into `[b, cap]` documents from empty
+    ones: the rows padded to `pad_batch_count(b, len(mesh))` with inert
+    rows (`pad_batch_to_mesh`), split evenly over the mesh, and K1
+    (`flush_fuse.apply_ops_window`) launched once per device slice.
+
+    The function of the JAX package's `replay_batch` sharded over the
+    `docs` axis: ops with dlen or ilen > max_ins are no-ops and poison
+    EVERY length in the batch to -1. Returns (docs [b, cap], lens [b]) on
+    the mesh's first device. Tensors stay on their device until their
+    slice moves to its own; numpy input is staged from the host."""
+    devs = _mesh_devices(mesh)
+    arrs = [x.to(torch.int32) if isinstance(x, torch.Tensor) else
+            torch.from_numpy(np.ascontiguousarray(x, np.int32))
+            for x in (pos, dlen, ilen, chars)]
+    b = arrs[0].shape[0]
+    mi = arrs[3].shape[-1]
+    any_bad = ((arrs[1] > mi) | (arrs[2] > mi)).any()
+    *padded, bp = pad_batch_to_mesh(*arrs, len(devs))
+    per = bp // len(devs)
+    docs_l, lens_l = [], []
+    for k, dev in enumerate(devs):
+        rows = slice(k * per, (k + 1) * per)
+        p, d, i, c = (a[rows].contiguous().to(dev) for a in padded)
+        docs, lens = _ff.apply_ops_window(
+            torch.zeros((per, cap), dtype=torch.int32, device=dev),
+            torch.zeros(per, dtype=torch.int32, device=dev), p, d, i, c, mi)
+        docs_l.append(docs.to(devs[0]))
+        lens_l.append(lens.to(devs[0]))
+    docs = torch.cat(docs_l)[:b]
+    lens = torch.cat(lens_l)[:b]
+    return docs, torch.where(any_bad.to(devs[0]), -1, lens)
+
+
+def pad_edges(packed: dict, n_devices: int
+              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pad a `pack_graph` CSR edge list to a multiple of n_devices (at
+    least n_devices). Padding edges scatter to the overflow slot (prun ==
+    n) with a -1 LV, so they are inert whatever their activity. Returns
+    (src, plv, prun) int32 numpy arrays ready to split."""
+    n, m = packed["n"], packed["m"]
+    pad_to = max(n_devices, ((m + n_devices - 1) // n_devices) * n_devices)
+    src = np.zeros(pad_to, dtype=np.int32)
+    plv = np.full(pad_to, -1, dtype=np.int32)
+    prun = np.full(pad_to, n, dtype=np.int32)
+    for out, key in ((src, "edge_src"), (plv, "edge_plv"),
+                     (prun, "edge_prun")):
+        v = packed[key]
+        out[:m] = v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+    return src, plv, prun
+
+
+def sharded_reach_fixed_point(mesh: Sequence[torch.device], starts,
+                              edge_src, edge_plv, edge_prun, reach0,
+                              stats: Optional[dict] = None) -> torch.Tensor:
+    """Causal-graph reachability with the EDGE list split across the mesh.
+
+    Each device owns a contiguous slice of the (run, parent) edges (their
+    count divisible by the mesh size: `pad_edges`); `starts` and the reach
+    vector are copied to every device. One round: each device relaxes its
+    slice, and the first device takes the maximum of the contributions and
+    of reach (the JAX package's `pmax`). Rounds repeat to the fixed point,
+    the "changed" flag read once every `graph_kernels.CHECK_EVERY` rounds
+    (`graph_kernels.fixed_point`). Edge sharding, not run sharding, keeps
+    a 10k-way fan-in balanced: its edges spread evenly over the mesh.
+
+    starts int32 [n]; edge_* int32 [m]; reach0 int32 [n]; numpy or
+    tensors. Returns reach int32 [n] on the mesh's first device."""
+    devs = _mesh_devices(mesh)
+
+    def put(x, dev: torch.device) -> torch.Tensor:
+        x = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(x, np.int32))
+        return x.to(device=dev, dtype=torch.int32)
+
+    m = int(np.shape(edge_src)[0])
+    if m % len(devs):
+        raise ValueError(f"{m} edges do not split over {len(devs)} "
+                         "devices: pad them with pad_edges")
+    per = m // len(devs)
+    sl = [tuple(put(e, dev)[k * per:(k + 1) * per]
+                for e in (edge_src, edge_plv, edge_prun))
+          for k, dev in enumerate(devs)]
+    st = [put(starts, dev) for dev in devs]
+    home = devs[0]
+
+    def one_round(reach: torch.Tensor) -> torch.Tensor:
+        out = reach
+        for dev, s, (src, plv, prun) in zip(devs, st, sl):
+            upd = _gk.relax(s, src, plv, prun, reach.to(dev))
+            out = torch.maximum(out, upd.to(home))
+        return out
+
+    reach = _gk.fixed_point(one_round, put(reach0, home)[None], stats)
+    return reach[0]
+
+
+def multichip_merge_step(mesh: Sequence[torch.device], pos, dlen, ilen,
+                         chars, cap: int, starts, edge_src, edge_plv,
+                         edge_prun, reach0,
+                         stats: Optional[dict] = None):
+    """One sharded merge step: the documents' replay split over the mesh
+    (`sharded_replay`, K1 once per device slice) and the causal graph's
+    reachability with its edges split over the mesh
+    (`sharded_reach_fixed_point`). Returns (docs, lens, reach)."""
+    docs, lens = sharded_replay(mesh, pos, dlen, ilen, chars, cap)
+    reach = sharded_reach_fixed_point(mesh, starts, edge_src, edge_plv,
+                                      edge_prun, reach0, stats)
+    return docs, lens, reach

@@ -131,7 +131,7 @@ class SessionBank:
 
         `warmup=True` (device engine) starts a thread that builds the
         kernels and launches K1 once per (batch class of
-        `warmup_batches(flush_docs)`, op class of `WARMUP_SHAPE_CLASSES`)
+        `warmup_batches(flush_docs)`, pow2 op class of `WARMUP_SHAPE_CLASSES`)
         at the default capacity class, on the bank's device, noting each
         class warm for steering; with `mesh_shards > 0` (the scheduler's
         flush window over that many shards and `mesh_devices` devices) it
@@ -187,8 +187,11 @@ class SessionBank:
                     torch.full((b,), length, dtype=torch.int32, device=dev),
                     z, z, z, torch.zeros((b, n, mi), dtype=torch.int32,
                                          device=dev), mi)
+            # the pow2 op classes a flush pads its tape to, as the JAX
+            # package's warm-up notes them
+            classes = sorted({_pow2(k) for k in WARMUP_SHAPE_CLASSES})
             for b in warmup_batches(self.flush_docs):
-                for n in WARMUP_SHAPE_CLASSES:
+                for n in classes:
                     launch(b, n, 0)
                     # both replay keys: groups ("kernel") and per-doc
                     # syncs ("fused") launch K1
@@ -203,8 +206,7 @@ class SessionBank:
                               range(1, self.mesh_shards * self.flush_docs
                                     + 1)})
                 for bp in bps:
-                    for n in sorted({_pow2(k) for k in
-                                     WARMUP_SHAPE_CLASSES}):
+                    for n in classes:
                         launch(bp // nd, n, -1)
                         STEER.note_warm("mesh", mi, cap, bp, n)
             if dev.type == "cuda":

@@ -6,6 +6,7 @@ src/list/branch.rs, src/list/merge.rs:63-96).
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence
 
 from ..utils.rope import Rope
@@ -24,7 +25,9 @@ class Branch:
         # inserts at the same gap (reference: has_conflicts_when_merging,
         # src/list/merge.rs:51); 0 = merged cleanly, None = no merge yet.
         self.last_merge_collisions: Optional[int] = None
-        # the engine that ran the last merge() (always "python" here)
+        # the engine that ran the last merge(): "python", "plan2" or
+        # "device"; None before the first merge. The plan2 and device
+        # engines report no collisions (last_merge_collisions = None).
         self.last_merge_engine: Optional[str] = None
 
     def __len__(self) -> int:
@@ -57,10 +60,39 @@ class Branch:
 
     # --- merge -------------------------------------------------------------
 
-    def merge(self, oplog: OpLog, merge_frontier: Sequence[int]) -> None:
+    def merge(self, oplog: OpLog, merge_frontier: Sequence[int],
+              device=None) -> None:
         """Bring everything in `merge_frontier`'s history into this branch
-        (reference: src/list/merge.rs:63-96), through the pure-Python
-        engine: the transformed-op stream applied to the rope."""
+        (reference: src/list/merge.rs:63-96).
+
+        The engine is chosen behind this one boundary:
+          * DT_TPU_PLAN2=1: the fork/join plan engine (the conflict zone
+            compiled into a Begin/Fork/Max/Apply schedule over numbered
+            state indexes, run on the dense state matrix;
+            listmerge/plan2.py + dense.py);
+          * DT_TPU_DEVICE_MERGE=1: the device merge (`gpu/merge_kernel.py
+            merge_device`: the Fugue-tree linearization and K3) on
+            `device`, which is CUDA unless the caller asks for "cpu";
+          * default: the pure-Python engine (the oracle), the
+            transformed-op stream applied to the rope."""
+        self.last_merge_collisions = None
+        self.last_merge_engine = None
+        if os.environ.get("DT_TPU_PLAN2"):
+            from ..listmerge.dense import merge_via_plan2
+            rows, final = merge_via_plan2(oplog, self.version,
+                                          merge_frontier)
+            self._apply_xf(oplog, rows)
+            self.version = list(final)
+            self.last_merge_engine = "plan2"
+            return
+        if os.environ.get("DT_TPU_DEVICE_MERGE"):
+            from ..gpu.merge_kernel import merge_device
+            text, frontier = merge_device(oplog, self.version,
+                                          merge_frontier, device=device)
+            self.content = Rope(text)
+            self.version = frontier
+            self.last_merge_engine = "device"
+            return
         xf = oplog.get_xf_operations_full(self.version, merge_frontier)
         self._apply_xf(oplog, xf)
         self.version = list(xf.next_frontier)

@@ -416,3 +416,60 @@ def test_window_scheduler_on_card_launches_k1_once_per_class():
     assert ffm.apply_ops_window is kernels.apply_ops_window
     for d, ol in ols.items():
         assert sched.text(d) == ol.checkout_tip().snapshot()
+
+
+@pytest.mark.parametrize("b,n,cap", [(1, 300, 512), (256, 2048, 8192),
+                                     (33, 5000, 1000)])
+def test_k3_shared_rows_match_plain_on_card(b, n, cap):
+    """The history path's form: perm, arena_off and arena are one shared
+    row (stride 0); cap < total on some rows, zero-length runs."""
+    _need_card()
+    rng = np.random.default_rng(b + n)
+    pool = 4 * n
+    perm = torch.from_numpy(rng.permutation(n).astype(np.int32))[None]
+    vis = rng.integers(0, 7, (b, n)) * (rng.random((b, n)) < 0.6)
+    off = rng.integers(0, pool - 7, n)
+    arena = rng.integers(1, 0x10FFFF, pool)
+    vis_t, off_t, arena_t = (torch.from_numpy(np.ascontiguousarray(
+        a, np.int32)) for a in (vis, off[None], arena[None]))
+    args = [t.cuda() for t in (perm, vis_t, off_t, arena_t)]
+    launches = kernels.materialize_runs.launches
+    got = kernels.materialize_runs(*args, cap)
+    torch.cuda.synchronize()
+    assert kernels.materialize_runs.launches == launches + 1
+    want = linearize.materialize(perm, vis_t, off_t, arena_t, cap)
+    expanded = kernels.materialize_runs(
+        args[0].expand(b, n).contiguous(), args[1],
+        args[2].expand(b, n).contiguous(),
+        args[3].expand(b, pool).contiguous(), cap)
+    for g, w, e in zip(got, want, expanded):
+        assert torch.equal(g.cpu(), w) and torch.equal(e, g)
+
+
+def test_graph_kernels_on_card_match_cpu(monkeypatch):
+    _need_card()
+    from diamond_types_tpu_torch import Graph
+    from diamond_types_tpu_torch.gpu import graph_kernels as gk
+    g = Graph()
+    for i in range(300):
+        g.push([], 8 * i, 8 * i + 8)
+    lv = 2400
+    g.push([8 * i + 7 for i in range(300)], lv, lv + 8)
+    for _ in range(40):
+        g.push([lv + 6], lv + 8, lv + 16)
+        lv += 8
+    n_lv = lv + 8
+    rng = np.random.default_rng(1)
+    fr = gk.frontier_matrix([sorted(set(rng.integers(0, n_lv, 2).tolist()))
+                             for _ in range(64)])
+    targets = rng.integers(-1, n_lv, 64).astype(np.int32)
+    for k in (1, 16):
+        monkeypatch.setattr(gk, "CHECK_EVERY", k)
+        got = gk.make_contains_fn(g, "cuda")(fr, targets)
+        want = gk.make_contains_fn(g, "cpu")(fr, targets)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want)
+    a, b = np.array([n_lv - 1], np.int32), np.array([2399, 17], np.int32)
+    ra, rb = gk.make_diff_fn(g, "cuda")(a, b)
+    assert gk.diff_to_spans(g, ra, rb) == tuple(g.diff([n_lv - 1],
+                                                       [17, 2399]))

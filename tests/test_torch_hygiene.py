@@ -33,7 +33,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "serve.scheduler", "serve.bank", "serve.driver",
               "serve.admission", "serve.router", "serve.metrics",
               "serve.__main__", "qos.classes", "obs.hist", "text.trace",
-              "parallel.mesh", "parallel.arena"):
+              "parallel.mesh", "parallel.arena", "gpu.graph_kernels",
+              "gpu.plan_kernels", "listmerge.plan2", "listmerge.dense"):
         assert f"diamond_types_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -127,6 +128,31 @@ def test_device_entry_points_of_the_transform_and_checkout_raise():
     assert merge_kernel.checkout_device(ol, doc, device="cpu") == "abc"
     assert isinstance(kernels.xform_positions.launches, int)
     assert isinstance(kernels.materialize_runs.launches, int)
+
+
+def test_device_entry_points_of_the_graph_and_history_paths_raise():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    import numpy as np
+
+    from diamond_types_tpu_torch import OpLog
+    from diamond_types_tpu_torch.gpu import graph_kernels, plan_kernels
+    from diamond_types_tpu_torch.gpu import xform
+    from diamond_types_tpu_torch.parallel import mesh
+    ol = OpLog()
+    ol.add_insert(ol.get_or_create_agent_id("a"), 0, "abc")
+    z = np.zeros(1, np.int32)
+    for call in (lambda: graph_kernels.pack_graph(ol.cg.graph),
+                 lambda: graph_kernels.make_contains_fn(ol.cg.graph),
+                 lambda: graph_kernels.make_diff_fn(ol.cg.graph),
+                 lambda: xform.validate_prefix_frontier(ol, ol.version, 3),
+                 lambda: plan_kernels.execute_tape(z, z, z, z, z, z, 1, 1, 1),
+                 lambda: plan_kernels.snapshot_rows(ol, []),
+                 lambda: plan_kernels.texts_at_versions(ol, [0]),
+                 lambda: mesh.make_mesh(1)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert xform.validate_prefix_frontier(ol, ol.version, 3, device="cpu")
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -210,15 +210,30 @@ def gather_row(starts, bases, seg_first, arena, cap, counts,
     return out.astype(np.int32), total
 
 
+def _row(buf, r, stride, width):
+    """Row r of a buffer read with a row stride, as the kernel's pointer
+    `buf + r * stride` does: stride 0 reads the one shared row."""
+    flat = buf.reshape(-1)
+    return flat[r * stride:r * stride + width]
+
+
 def tiles_model(perm, vis, off, arena, cap, search=upper_bound,
-                mark_empty=False):
-    """The whole call on a batch: (text [b, cap], total [b], counts)."""
+                mark_empty=False, strides=None):
+    """The whole call on a batch: (text [b, cap], total [b], counts).
+    `strides` (perm, arena_off, arena) are the row strides the wrapper
+    passes: by default each array's own row length; 0 for a shared row
+    ([1, n] or [1, pool]) that every row of vis reads."""
     counts = {"zero_tiles": 0, "mark": 0, "search": 0, "step": 0}
+    b, n = vis.shape
+    pool = arena.shape[1]
+    ps, os_, as_ = strides or (n, n, pool)
     rows = []
-    for r in range(perm.shape[0]):
-        starts, bases, seg_first = scan_row(perm[r], vis[r], off[r], cap)
-        rows.append(gather_row(starts, bases, seg_first, arena[r], cap,
-                               counts, search, mark_empty))
+    for r in range(b):
+        starts, bases, seg_first = scan_row(_row(perm, r, ps, n), vis[r],
+                                            _row(off, r, os_, n), cap)
+        rows.append(gather_row(starts, bases, seg_first,
+                               _row(arena, r, as_, pool), cap, counts,
+                               search, mark_empty))
     return (np.stack([t for t, _ in rows]),
             np.array([x for _, x in rows], np.int32), counts)
 
@@ -426,3 +441,65 @@ def test_scan_model_clamps_perm():
     starts, bases, _ = scan_row(perm, vis, off, 64)
     np.testing.assert_array_equal(starts, [0, 4, 5, 7, 10])
     np.testing.assert_array_equal(bases, [40, 10, 20, 30])
+
+
+# ---- shared rows: the history path's versions ---------------------------------
+
+def shared_table(name, seed):
+    """Versions of one history as K3 sees them: ONE perm, one arena_off
+    row and one arena ([1, n], [1, pool]) and b rows of visibility, each
+    version showing a subset of the runs (the rest zero-length). Returns
+    (perm, vis, off, arena, cap)."""
+    rng = np.random.default_rng(seed)
+    b, n, pool = 6, 400, 1500
+    vl_doc = rng.integers(1, 7, n)
+    cap = 256 if name == "versions_truncated" else 2048
+    if name == "versions_zero_length_runs":
+        # a tile's worth of runs that no version shows, behind a live run
+        vl_doc[1:TILE + 1] = 0
+    [perm], _v, [off], [arena] = _doc_order(rng, 1, n, vl_doc[None], pool)
+    shown = rng.random((b, n)) < np.linspace(0.2, 1.0, b)[:, None]
+    if name == "versions_zero_length_runs":
+        shown[:, 0] = True
+    vis_doc = np.where(shown, vl_doc[None], 0)
+    vis = np.zeros((b, n), np.int64)
+    vis[:, perm] = vis_doc
+    return (perm[None], np.ascontiguousarray(vis, np.int32), off[None],
+            arena[None], cap)
+
+
+SHARED = ["versions_truncated", "versions_zero_fill",
+          "versions_zero_length_runs"]
+
+
+@pytest.mark.parametrize("name", SHARED)
+def test_tiles_model_walks_shared_rows(name):
+    """Stride-0 rows through both passes equal the plain version on the
+    shared rows, on the rows expanded, and the JAX package's vmapped
+    materialize_jax."""
+    perm, vis, off, arena, cap = shared_table(name, SHARED.index(name))
+    b, n = vis.shape
+    got_t, got_n, counts = tiles_model(perm, vis, off, arena, cap,
+                                       strides=(0, 0, 0))
+    want_t, want_n = plain((perm, vis, off, arena), cap)
+    expanded = [np.ascontiguousarray(np.broadcast_to(x, (b, x.shape[1])))
+                for x in (perm, off, arena)]
+    exp_t, exp_n = plain((expanded[0], vis, expanded[1], expanded[2]), cap)
+    jt, jn = _jax_materialize(*(jnp.asarray(x) for x in
+                                (expanded[0], vis, expanded[1],
+                                 expanded[2])), cap)
+    for t, nn in ((want_t, want_n), (exp_t, exp_n),
+                  (np.asarray(jt), np.asarray(jn))):
+        np.testing.assert_array_equal(got_t, t)
+        np.testing.assert_array_equal(got_n, nn)
+    # the same model with each row expanded and read at its own stride
+    e_t, e_n, _ = tiles_model(expanded[0], vis, expanded[1], expanded[2],
+                              cap)
+    np.testing.assert_array_equal(e_t, got_t)
+    np.testing.assert_array_equal(e_n, got_n)
+    if name == "versions_truncated":
+        assert (got_n > cap).all()
+    if name == "versions_zero_fill":
+        assert counts["zero_tiles"] > 0
+    if name == "versions_zero_length_runs":
+        assert counts["search"] > 0

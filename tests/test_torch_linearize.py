@@ -112,8 +112,13 @@ def test_materialize_runs_checks_its_inputs():
     z = torch.zeros((2, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="one \\[b, n\\] shape"):
         kernels.materialize_runs(z, z[:, :3], z, z, 8)
+    # one shared arena row is the history path's form; 3 rows for b 2, or
+    # an empty pool, is no form
     with pytest.raises(ValueError, match="arena"):
-        kernels.materialize_runs(z, z, z, z[:1], 8)
+        kernels.materialize_runs(z, z, z, torch.zeros((3, 4),
+                                                      dtype=torch.int32), 8)
+    with pytest.raises(ValueError, match="arena"):
+        kernels.materialize_runs(z, z, z, z[:, :0], 8)
     with pytest.raises(ValueError, match="cap"):
         kernels.materialize_runs(z, z, z, z, 0)
     with pytest.raises(TypeError, match="int32"):

@@ -10,10 +10,14 @@ the pow2 rounding must agree over a range.
 import numpy as np
 import pytest
 
+from diamond_types_tpu.serve.scheduler import MergeScheduler as JaxScheduler
+from diamond_types_tpu.text.oplog import OpLog as JaxOpLog
 from diamond_types_tpu.tpu import steer as jsteer
 from diamond_types_tpu.tpu.merge_kernel import _pow2 as jax_pow2
 from diamond_types_tpu_torch.gpu import flush_fuse as tff
+from diamond_types_tpu_torch import OpLog
 from diamond_types_tpu_torch.gpu import steer as tsteer
+from diamond_types_tpu_torch.serve import MergeScheduler
 
 from torch_parity import steer_tape
 
@@ -102,3 +106,36 @@ def test_capacity_class_and_warmup_batches_match_jax():
         assert tsteer.warmup_batches(fd) == jsteer.warmup_batches(fd)
     # the session's capacity floor is steer's, as in the JAX package
     assert tff.cap_class is tsteer.cap_class
+
+
+@pytest.mark.parametrize("flush_docs,mesh_window", [(4, False), (3, True)])
+def test_warmup_warm_table_matches_jax(flush_docs, mesh_window):
+    """A bank's warm-up notes the same warm classes as the JAX package's
+    for the same options: K1's replay classes at their pow2 op classes
+    under "kernel" and "fused" (JAX: "pallas" and "fused"), and the
+    window's super-batch classes under "mesh"."""
+    opts = {"cap": 256, "max_ins": 4}
+    for st in (tsteer.STEER, jsteer.STEER):
+        st.reset(table=True)
+    try:
+        jol = JaxOpLog()
+        js = JaxScheduler(1, resolve=lambda d: jol, fused_opts=opts,
+                          flush_docs=flush_docs, warmup=True, pallas=True,
+                          mesh_window=mesh_window)
+        js.banks[0].join_warmup(timeout=300)
+        ol = OpLog()
+        ts = MergeScheduler(1, resolve=lambda d: ol,
+                            fused_opts=dict(opts, device="cpu"),
+                            flush_docs=flush_docs, warmup=True,
+                            mesh_window=mesh_window)
+        ts.banks[0].join_warmup()
+        want = {PORT_CACHE.get(k, k): v
+                for k, v in jsteer.STEER._warm.items()}
+        got = dict(tsteer.STEER._warm)
+        assert got == want
+        assert set(got) == ({"kernel", "fused", "mesh"} if mesh_window
+                            else {"kernel", "fused"})
+        assert {k[3] for k in got["kernel"]} == {2, 4, 8}
+    finally:
+        for st in (tsteer.STEER, jsteer.STEER):
+            st.reset(table=True)
