@@ -146,7 +146,40 @@ package), in phases, each printing one JSON line:
                 to its plain version, the reach covering every fan-in root
                 and equal to X6's. Prints K1's call_ms, device_ms and
                 bound at that shape, and the reach's rounds, syncs and ms.
- 10. kernels  - one line for K1, K2 and K3: launches on the main path (K1
+ 10. zone_kernel - X8 (`kernels.zone_tape_run`, the zone engine's whole
+                step tape in one launch) against its plain version on the
+                card: tapes of a ~2,000-op three-agent history packed with
+                the default budgets and with tiny ones (MB 2, MC 8, MD 2:
+                continuation blocks and delete spill), all ten carry planes
+                equal; B 8 in one launch (each replica its own seq keys)
+                against eight B-1 runs; the text against the C++ tracker's.
+ 11. zone     - `zone_checkout_device` of the history phase's ~40k-op oplog
+                from [] to its tip (one X8 launch), text and frontier equal
+                to the C++ tracker's; W, plen, n_idx, T; the parts in ms
+                (prepare, pack, upload, X8 call_ms and device_ms, the plain
+                version on the card, text assembly); the host yardstick
+                `merge_native` on the same merge. X8's bound there (the
+                sum over steps of each step's bytes) and the serial
+                chain's floor (its barrier-separated phases times one
+                phase's time, measured with X8 on a tape of no-op steps).
+ 12. zone_batch - BASELINE config 4's shape on that tape:
+                `execute_zone_batch` at B 1, 132 and 1,024 (one launch each,
+                every replica's rank and ever equal to B 1's; carry bytes,
+                ms, replicas per second) and `execute_zone_batch_sliced` at
+                B 132 in slices of 128 steps (one launch per slice), equal.
+ 13. scheduler_zone - the zone-session bank: the scheduler phase's 256
+                documents and edits (its generator seed) through
+                `MergeScheduler(fused=False)`, every `DeviceZoneSession`
+                resident: 2 of its 6 rounds, whose new agents make every
+                session resync, then 2 rounds with the last round's agents,
+                where sessions continue their carries in place (listed in
+                "shortened"); round 1 traced; every text equal to the
+                host's merge after every round, 0 host fallbacks, X8
+                launches == the sessions' tape runs, and every launch held
+                exactly against the plain version on the same carry and
+                tape; docs/s, flush p50/p99, builds, resyncs, continued
+                launches and the device busy share.
+ 14. kernels  - one line for K1, K2, K3 and X8: launches on the main path (K1
                 and K2 in the serve phase, K3 in the checkout phase; per
                 path in `launches_by_path`, the scheduler's, the flush
                 window's, the history's (K3) and the merge step's (K1)
@@ -170,7 +203,21 @@ package), in phases, each printing one JSON line:
                 serve line carries K1's call_ms and
                 device_ms at every captured bucket, and K1's CTAs per
                 launch as derived from the launcher's grid rule
-                (b * ceil(cap / 512)), not observed.
+                (b * ceil(cap / 512)), not observed. X8's entry has its
+                launches per path (zone, zone_batch, scheduler_zone), its
+                max error over the zone_kernel, zone and scheduler_zone
+                launches, its times at the zone phase's shape and its
+                bounds there: `bound_ms`, the sum over steps of each
+                step's inputs read once and outputs written once, at HBM
+                rate; `whole_tape_ms`, the tape once and the carry in and
+                out once (a lower limit blind to the chain); and
+                `serial_floor_ms`, the chain's barrier-separated phases
+                times one phase's measured time.
+
+The host's reference merges call the C++ tracker directly
+(`Branch.merge_reference`), so no engine switch or policy state can make a
+reference the engine under test; the history phase's "Python checkout"
+yardstick runs with DT_TPU_NO_NATIVE set.
 
 Each phase draws from its own generator, seeded by (--seed, phase), so the
 served documents do not change when the kernel phases' shapes do.
@@ -191,7 +238,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -499,6 +546,16 @@ def fork(branch):
     return out
 
 
+def host_branch(ol, frontier=None):
+    """The host reference: a branch of `ol` at `frontier` (default: the
+    tip), merged by the C++ tracker called directly
+    (`Branch.merge_reference`), which no engine switch or policy reaches."""
+    from diamond_types_tpu_torch import Branch
+    out = Branch()
+    out.merge_reference(ol, ol.version if frontier is None else frontier)
+    return out
+
+
 def random_edits(rng, ol, agent: int, branch, k: int,
                  cfg: ServeConfig) -> None:
     for _ in range(k):
@@ -662,7 +719,7 @@ def run_serve(rng: np.random.Generator, device, cfg: ServeConfig,
     sessions = [ff.FusedDocSession(ol, max_ins=cfg.max_ins,
                                    headroom=cfg.headroom, device=device)
                 for ol in ols]
-    tips = [ol.checkout_tip() for ol in ols]
+    tips = [host_branch(ol) for ol in ols]
     setup_s = time.perf_counter() - t0
     caps0 = sorted({s.cap for s in sessions})
 
@@ -743,7 +800,7 @@ def run_serve(rng: np.random.Generator, device, cfg: ServeConfig,
                     k = int(rng.integers(cfg.edits_min, cfg.edits_max + 1))
                     random_edits(rng, ol, ol.get_or_create_agent_id(name),
                                  br, k, cfg)
-                tip.merge(ol, ol.version)      # the first agent merges...
+                tip.merge_reference(ol, ol.version)  # the first merges
                 random_edits(rng, ol, ol.get_or_create_agent_id("typist"),
                              tip, 1, cfg)      # ...and edits on top
             stats["lvs"] += sum(len(ol) for ol in ols) - lv0
@@ -829,6 +886,32 @@ class SchedulerConfig:
     bench_steady_rounds: int = 8
 
 
+def round_edits(rng, ols, tips, r: int, cfg: ServeConfig,
+                names: Optional[int] = None) -> list:
+    """One scheduler round's edits: per document two agents fork from the
+    first agent's merged tip and edit concurrently, then the first agent
+    merges the tip (the host's C++ tracker, `Branch.merge_reference`) and
+    edits on top. The two agents are named after round `names` (default:
+    `r`): new names register new agents, which makes a zone session
+    resync; a past round's names keep the agents, and the session
+    continues its carry. Returns the (doc_id, n_ops) submits."""
+    subs = []
+    tag = r if names is None else names
+    for ol, tip in zip(ols, tips):
+        n_ops = 1
+        for name, br in ((f"fork{tag}a", fork(tip)),
+                         (f"fork{tag}b", fork(tip))):
+            k = int(rng.integers(cfg.edits_min, cfg.edits_max + 1))
+            random_edits(rng, ol, ol.get_or_create_agent_id(name), br, k,
+                         cfg)
+            n_ops += k
+        tip.merge_reference(ol, ol.version)    # the first agent merges...
+        random_edits(rng, ol, ol.get_or_create_agent_id("typist"), tip, 1,
+                     cfg)                  # ...and edits on top
+        subs.append((ol.doc_id, n_ops))
+    return subs
+
+
 def run_scheduler(rng: np.random.Generator, device, cfg: ServeConfig,
                   scfg: SchedulerConfig, mesh_window: bool = False) -> dict:
     """The serve layer's entry point: the serve phase's documents and
@@ -858,7 +941,7 @@ def run_scheduler(rng: np.random.Generator, device, cfg: ServeConfig,
     t0 = time.perf_counter()
     ols = build_docs(rng, cfg)
     by_id = {ol.doc_id: ol for ol in ols}
-    tips = [ol.checkout_tip() for ol in ols]
+    tips = [host_branch(ol) for ol in ols]
     STEER.reset(table=True)
     arena.reset_arenas()
     sched = MergeScheduler(
@@ -902,20 +985,7 @@ def run_scheduler(rng: np.random.Generator, device, cfg: ServeConfig,
             for r in range(scfg.rounds):
                 t = time.perf_counter()
                 lv0 = sum(len(ol) for ol in ols)
-                subs = []
-                for ol, tip in zip(ols, tips):
-                    n_ops = 1
-                    for name, br in ((f"fork{r}a", fork(tip)),
-                                     (f"fork{r}b", fork(tip))):
-                        k = int(rng.integers(cfg.edits_min,
-                                             cfg.edits_max + 1))
-                        random_edits(rng, ol, ol.get_or_create_agent_id(name),
-                                     br, k, cfg)
-                        n_ops += k
-                    tip.merge(ol, ol.version)  # the first agent merges...
-                    random_edits(rng, ol, ol.get_or_create_agent_id("typist"),
-                                 tip, 1, cfg)  # ...and edits on top
-                    subs.append((ol.doc_id, n_ops))
+                subs = round_edits(rng, ols, tips, r, cfg)
                 lvs = sum(len(ol) for ol in ols) - lv0
                 edit_s += time.perf_counter() - t
                 before = sched.metrics_json()
@@ -991,7 +1061,7 @@ def run_scheduler(rng: np.random.Generator, device, cfg: ServeConfig,
     m = sched.metrics_json()
     t = time.perf_counter()
     for ol, tip in zip(ols[:scfg.fresh_checkouts], tips):
-        check(tip.snapshot() == ol.checkout_tip().snapshot(),
+        check(tip.snapshot() == host_branch(ol).snapshot(),
               f"scheduler: {ol.doc_id}'s merged branch differs from the "
               "host checkout")
     final_verify_s = time.perf_counter() - t
@@ -1144,7 +1214,7 @@ def run_checkout(ols, frontiers0, merged: List[str], device,
     for i, d in enumerate(docs):
         groups.setdefault(_pow2(max(d.total_len, 1)), []).append(i)
     t = time.perf_counter()
-    want = [ol.checkout_tip().snapshot() for ol in ols]
+    want = [host_branch(ol).snapshot() for ol in ols]
     host_s = time.perf_counter() - t
     for i, text in enumerate(merged):
         check(want[i] == text, f"serve: doc {i}'s merged branch differs "
@@ -1172,8 +1242,8 @@ def run_checkout(ols, frontiers0, merged: List[str], device,
             text, frontier = mk.merge_device(ol, frontiers0[d],
                                              device=device)
             merge_s.append(time.perf_counter() - t)
-            br = ol.checkout(frontiers0[d])
-            br.merge(ol, ol.version)
+            br = host_branch(ol, frontiers0[d])
+            br.merge_reference(ol, ol.version)
             check(text == br.snapshot() and
                   sorted(frontier) == sorted(br.version),
                   f"merge_device: doc {d} differs from the host branch")
@@ -1434,6 +1504,23 @@ def build_history(rng: np.random.Generator, lvs: int, hcfg: HistoryConfig,
     return ol
 
 
+@contextlib.contextmanager
+def python_engine():
+    """`Branch.merge` on the Python engine (DT_TPU_NO_NATIVE) inside the
+    block: the history phase's "Python checkout" yardstick. Outside it
+    the port's default is the C++ tracker, as in the JAX package."""
+    import os
+    was = os.environ.get("DT_TPU_NO_NATIVE")
+    os.environ["DT_TPU_NO_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        if was is None:
+            del os.environ["DT_TPU_NO_NATIVE"]
+        else:
+            os.environ["DT_TPU_NO_NATIVE"] = was
+
+
 def spread(n_entries: int, k: int) -> List[int]:
     """k snapshot entries spread over a plan of n_entries (early, middle
     and late), as the JAX package's sharded plan-tape dry run spreads
@@ -1536,14 +1623,16 @@ def run_history(rng: np.random.Generator, device,
               f"history: version {k} differs from the C++ tracker's text")
         if j in py_picks:
             t = time.perf_counter()
-            want_py = ol.checkout(f).snapshot()
+            with python_engine():
+                want_py = ol.checkout(f).snapshot()
             python_ms.append(1e3 * (time.perf_counter() - t))
             check(got == want_py,
                   f"history: version {k} differs from the Python checkout")
     t = time.perf_counter()
     for k, got in zip(sidx, stexts):
-        want = small.checkout(pk.entry_frontier(small.cg.graph, splan,
-                                                k)).snapshot()
+        with python_engine():
+            want = small.checkout(pk.entry_frontier(small.cg.graph, splan,
+                                                    k)).snapshot()
         check(got == want, f"history: small version {k} differs from the "
               "Python checkout")
     small_python_ms = 1e3 * (time.perf_counter() - t) / len(sidx)
@@ -1807,6 +1896,415 @@ def run_merge_step(rng: np.random.Generator, device, b: int = 256,
                        *args[:6], max_ins), 1),
                    "library_ms": None, "ctas_derived": k1_ctas(bp, cap)}}
 
+# ---- phases 11-14: the zone engine (X8) --------------------------------------
+
+@dataclass
+class ZoneConfig:
+    kernel_lvs: int = 2_000            # the zone_kernel phase's history
+    tiny_budgets: tuple = (2, 8, 2)    # MB, MC, MD: continuation blocks and
+                                       # delete spill, as the JAX tests do
+    replicas: int = 8                  # B of the B-against-B-1 check
+    batches: tuple = (1, 132, 1024)    # config 4: 1,024 replicas
+    slice_steps: int = 128
+    slice_batch: int = 132
+    reps: int = 3                      # timed kernel calls
+    sched_rounds: int = 2              # of the scheduler phase's 6
+    sched_continued_rounds: int = 2    # then with the last round's agents
+    sched_max_slots: int = 1 << 30     # every zone session stays resident
+
+
+def zone_err(got, want) -> int:
+    """Max |a - b| over all ten carry planes (int64)."""
+    return max(exact_err(a, b.to(a.device)) for a, b in zip(got, want))
+
+
+def zone_bytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def zone_bounds(zk, tape, xs: dict, carry) -> dict:
+    """X8's bounds on one replica's run of `tape`, at HBM rate.
+
+    bound_ms: the sum over the steps of what each step must move, its
+    inputs read once and its outputs written once (the next step reads
+    them), plus the tape read once. An APPLY step with m placed ranks
+    before it, n new chars and m' = m + n after reads the order over
+    [0, m) (4m bytes) and the snapshot states of those ranks (m), writes
+    the rank and the order of all m' (8m') and the new chars' keys,
+    origins and state (17n), and on an entry's first sub-step copies the
+    row into the snapshot (2W); a row step moves W (BEGIN), 2W (FORK) or
+    3W (MAX) bytes. The integrate's range and the deletes depend on more
+    than these counts and are left out, so it is a lower count.
+    whole_tape_ms: the tape read once and the carry read and written once,
+    a lower limit that does not see the chain."""
+    op = np.asarray(tape.op, dtype=np.int64)
+    W = int(tape.W)
+    apply = op == zk.OP_APPLY
+    n = np.where(apply, (np.asarray(tape.ch_slot) >= 0).sum(1), 0)
+    m_after = int(carry.m[0]) + np.cumsum(n)
+    m_before = m_after - n
+    snap = apply & (np.asarray(tape.snap_flag) == 1)
+    step = np.where(apply, 5 * m_before + 8 * m_after + 17 * n + 2 * W * snap,
+                    np.where(op == zk.OP_BEGIN, W,
+                             np.where(op == zk.OP_FORK, 2 * W, 3 * W)))
+    tape_b = zone_bytes(xs.values())
+    return {"bound_ms": 1e3 * (int(step.sum()) + tape_b) / HBM_BYTES_PER_S,
+            "bound_step_bytes": int(step.sum()) + tape_b,
+            "whole_tape_ms": 1e3 * (tape_b + 2 * zone_bytes(carry))
+            / HBM_BYTES_PER_S}
+
+
+def zone_phase_us(zk, device, steps: int = 1 << 14) -> float:
+    """The card's time for one barrier-separated phase of X8, measured with
+    X8 itself: a tape of `steps` self-FORKs of a one-slot row (one
+    dependent global read and write and one barrier a step), per step."""
+    from diamond_types_tpu_torch.gpu import kernels
+    xs = {k: torch.zeros((steps,) if k in zk.XS_KEYS[:4] else (steps, 1),
+                         dtype=torch.int32, device=device)
+          for k in zk.XS_KEYS}
+    xs["op"].fill_(zk.OP_FORK)
+    for k in ("blk_cursor", "blk_prev", "ch_slot", "ch_ol_static",
+              "ch_orr_own", "del_kind"):
+        xs[k].fill_(-1)
+    carry = zk.init_zone_carry(1, 0, 1, np.zeros(1), np.zeros(1),
+                               device=device)
+    return 1e3 * device_ms(lambda: kernels.zone_tape_run(carry, xs, 0),
+                           3) / steps
+
+
+def zone_fresh(zk, tape, prep, device, batch: int = 1, seq_k=None):
+    return zk.init_zone_carry(tape.W, tape.plen, tape.n_idx, prep.agent_k,
+                              prep.seq_k if seq_k is None else seq_k,
+                              batch=batch, device=device)
+
+
+def run_zone_kernel(rng: np.random.Generator, device,
+                    hcfg: HistoryConfig, zcfg: ZoneConfig) -> dict:
+    """X8 (`kernels.zone_tape_run`) against its plain version on the card:
+    tapes of a ~2,000-op history of three concurrent agents, packed with
+    the default budgets and with tiny ones (continuation blocks, delete
+    spill); all ten carry planes must be equal. Then B `replicas` in one
+    launch (each replica its own seq keys) against that many B-1 runs,
+    and the text against the C++ tracker's."""
+    from diamond_types_tpu_torch.gpu import kernels
+    from diamond_types_tpu_torch.gpu import zone_kernel as zk
+    from diamond_types_tpu_torch.listmerge.zone_np import prepare_zone
+    from diamond_types_tpu_torch.native.core import get_native_ctx
+    ol = build_history(rng, zcfg.kernel_lvs, hcfg, hcfg.small_turns)
+    prep = prepare_zone(ol)
+    want_text, _ = get_native_ctx(ol).merge_to_string("", [], ol.version)
+    cases, worst = [], 0
+    for name, budgets in (("default", (8, 512, 16)),
+                          ("tiny", zcfg.tiny_budgets)):
+        tape = zk.pack_zone_tape(prep, *budgets)
+        xs = zk.tape_xs(tape, device)
+        want = zk.run_zone_plain(zone_fresh(zk, tape, prep, device), xs,
+                                 tape.plen)
+        got = kernels.zone_tape_run(zone_fresh(zk, tape, prep, device), xs,
+                                    tape.plen)
+        torch.cuda.synchronize()
+        err = zone_err(got, want)
+        seq_b = torch.as_tensor(prep.seq_k.astype(np.int32))[None, :] + \
+            torch.arange(zcfg.replicas, dtype=torch.int32)[:, None]
+        many = kernels.zone_tape_run(
+            zone_fresh(zk, tape, prep, device, zcfg.replicas, seq_b.numpy()),
+            xs, tape.plen)
+        for i in range(zcfg.replicas):
+            one = kernels.zone_tape_run(
+                zone_fresh(zk, tape, prep, device, 1, seq_b[i].numpy()), xs,
+                tape.plen)
+            err = max(err, zone_err([t[i:i + 1] for t in many], one))
+        text = zk.assemble_text(got.rank[0], got.ever[0], prep.pool)
+        check(err == 0, f"zone_kernel {name}: X8 differs from its plain "
+              f"version (or B {zcfg.replicas} from B 1): max abs err {err}")
+        check(text == want_text, f"zone_kernel {name}: the text differs "
+              "from the C++ tracker's")
+        worst = max(worst, err)
+        cases.append({"budgets": budgets, "T": int(tape.op.shape[0]),
+                      "W": tape.W, "n_idx": tape.n_idx, "plen": tape.plen,
+                      "continuation_blocks": int((tape.blk_cursor == -2)
+                                                 .sum()),
+                      "max_abs_err": err})
+    return {"phase": "zone_kernel", "lvs": len(ol),
+            "plan_entries": len(prep.plan.entries), "cases": cases,
+            "replicas_checked": zcfg.replicas, "max_abs_err": worst}
+
+
+def run_zone(device, ol, zcfg: ZoneConfig) -> tuple:
+    """`zone_checkout_device` of the history phase's oplog from [] to its
+    tip on the card (a full run), then its parts taken apart: prepare,
+    pack, upload, X8 (call_ms: CUDA events around back-to-back calls,
+    each on a fresh carry; device_ms: calls queued behind a sleep), the
+    plain version on the card, text assembly; the text and frontier
+    against the C++ tracker's, timed as the host yardstick (`merge_native`
+    on the same merge). X8's count is set to 0 before the full run and
+    read after it. Returns (line, prep, tape)."""
+    from diamond_types_tpu_torch.gpu import kernels
+    from diamond_types_tpu_torch.gpu import zone_kernel as zk
+    from diamond_types_tpu_torch.listmerge.zone_np import prepare_zone
+    from diamond_types_tpu_torch.native.core import merge_native
+    x8 = kernels.zone_tape_run
+    x8.launches = 0
+    (txt, frontier), full_ms = wall_ms(
+        lambda: zk.zone_checkout_device(ol, device=device))
+    launches = x8.launches
+    t = time.perf_counter()
+    want, want_frontier = merge_native(ol, "", [], list(ol.version))
+    native_ms = 1e3 * (time.perf_counter() - t)
+    check(txt == want, "zone: the text differs from the C++ tracker's")
+    check(sorted(frontier) == sorted(want_frontier),
+          "zone: the frontier differs from the C++ tracker's")
+    check(launches == 1, f"zone: X8 launched {launches} times for one "
+          "checkout")
+
+    t = time.perf_counter()
+    prep = prepare_zone(ol, fetch_composed=False)
+    prepare_ms = 1e3 * (time.perf_counter() - t)
+    t = time.perf_counter()
+    tape = zk.pack_zone_tape(prep)
+    pack_ms = 1e3 * (time.perf_counter() - t)
+    xs, upload_ms = wall_ms(lambda: zk.tape_xs(tape, device))
+    init = zone_fresh(zk, tape, prep, device)
+    pool = [tuple(t.clone() for t in init)
+            for _ in range(2 + zcfg.reps + 4 * zcfg.reps + 1)]
+
+    def kernel_call():
+        return x8(zk.ZoneCarry(*pool.pop()), xs, tape.plen)
+
+    got = kernel_call()
+    t_k = timings(kernel_call, zcfg.reps, zcfg.reps)
+    # the serial chain: six barrier-separated phases an APPLY step, one a
+    # row step, each at least one phase's time
+    apply_steps = int((tape.op == zk.OP_APPLY).sum())
+    phases = 6 * apply_steps + (int(tape.op.shape[0]) - apply_steps)
+    phase_us = zone_phase_us(zk, device)
+    want_c, plain_ms = wall_ms(lambda: zk.run_zone_plain(init, xs,
+                                                         tape.plen))
+    err = zone_err(got, want_c)
+    check(err == 0, f"zone: X8 differs from its plain version: max abs "
+          f"err {err}")
+    t = time.perf_counter()
+    text2 = zk.assemble_text(got.rank[0], got.ever[0], prep.pool)
+    assemble_ms = 1e3 * (time.perf_counter() - t)
+    check(text2 == want, "zone: the kernel's text differs")
+    line = {"phase": "zone", "lvs": len(ol), "W": tape.W, "plen": tape.plen,
+            "n_idx": tape.n_idx, "T": int(tape.op.shape[0]),
+            "apply_steps": apply_steps,
+            "plan_entries": len(prep.plan.entries), "chars": len(txt),
+            "launches": launches, "max_abs_err": err,
+            "full_call_ms": full_ms,
+            "parts_ms": {"prepare": prepare_ms, "pack": pack_ms,
+                         "upload": upload_ms, "kernel_call": t_k["call_ms"],
+                         "kernel_device": t_k["device_ms"],
+                         "assemble_text": assemble_ms},
+            "x8": {**t_k, "ms": t_k["call_ms"], "plain_ms": plain_ms,
+                   **zone_bounds(zk, tape, xs, init),
+                   "serial_phases": phases, "phase_us": phase_us,
+                   "serial_floor_ms": phases * phase_us / 1e3,
+                   "bound_by": "bytes", "library_ms": None,
+                   "tape_bytes": zone_bytes(xs.values()),
+                   "carry_bytes": zone_bytes(init),
+                   "device_us_per_step": 1e3 * t_k["device_ms"]
+                   / int(tape.op.shape[0])},
+            "host_merge_native_ms": native_ms}
+    return line, prep, tape
+
+
+def run_zone_batch(device, prep, tape, zcfg: ZoneConfig) -> dict:
+    """BASELINE config 4's shape on the zone phase's tape: one shared tape
+    for B replicas, `execute_zone_batch` (ONE X8 launch) at each of
+    `batches`, every replica's rank and ever equal to B 1's; then
+    `execute_zone_batch_sliced` at `slice_batch` in slices of
+    `slice_steps` (one launch per slice), equal too. X8's count is set to
+    0 before the runs and read after them."""
+    from diamond_types_tpu_torch.gpu import kernels
+    from diamond_types_tpu_torch.gpu import zone_kernel as zk
+    x8 = kernels.zone_tape_run
+    xs = zk.tape_xs(tape, device)
+    per_replica = zone_bytes(zone_fresh(zk, tape, prep, device))
+    x8.launches = 0
+    ref = None
+    runs = []
+    for b in zcfg.batches:
+        torch.cuda.reset_peak_memory_stats()
+        (rank, ever), ms = wall_ms(lambda: zk.execute_zone_batch(
+            tape, prep.agent_k, prep.seq_k, b, device=device, xs=xs))
+        if ref is None:
+            ref = (rank[:1].clone(), ever[:1].clone())
+        same = bool((rank == ref[0]).all()) and bool((ever == ref[1]).all())
+        check(same, f"zone_batch: a replica of B {b} differs from B 1")
+        runs.append({"B": b, "ms": ms, "replicas_per_s": b / (ms / 1e3),
+                     "carry_bytes": per_replica * b,
+                     "peak_mib": torch.cuda.max_memory_allocated() / 2**20})
+        del rank, ever
+    (rank, ever), sliced_ms = wall_ms(lambda: zk.execute_zone_batch_sliced(
+        tape, prep.agent_k, prep.seq_k, zcfg.slice_batch,
+        slice_steps=zcfg.slice_steps, device=device))
+    check(bool((rank == ref[0]).all()) and bool((ever == ref[1]).all()),
+          "zone_batch: the sliced run differs from B 1")
+    n_slices = -(-int(tape.op.shape[0]) // zcfg.slice_steps)
+    launches = x8.launches
+    check(launches == len(zcfg.batches) + n_slices,
+          f"zone_batch: X8 launched {launches} times for "
+          f"{len(zcfg.batches)} batches and {n_slices} slices")
+    return {"phase": "zone_batch", "W": tape.W, "T": int(tape.op.shape[0]),
+            "n_idx": tape.n_idx, "carry_bytes_per_replica": per_replica,
+            "runs": runs, "launches": launches,
+            "sliced": {"B": zcfg.slice_batch, "slice_steps": zcfg.slice_steps,
+                       "slices": n_slices, "ms": sliced_ms}}
+
+
+def run_scheduler_zone(rng: np.random.Generator, device, cfg: ServeConfig,
+                       scfg: SchedulerConfig, zcfg: ZoneConfig) -> dict:
+    """The zone-session bank on the card: the scheduler phase's documents
+    and edits (the same generator seed) through `MergeScheduler(fused=
+    False)`, one `DeviceZoneSession` per document, every session resident
+    (`sched_max_slots`). First `sched_rounds` of the scheduler phase's
+    rounds, whose new agent names make every session resync; then
+    `sched_continued_rounds` rounds that reuse the last round's names, so
+    the sessions continue their resident carries (`sync`). Per round
+    `submit`, `pump()`, `drain()`; round 1 traced by `torch.profiler`
+    (device activity only). Every text must equal the host's merged tip
+    after every round; 0 host fallbacks; X8 launches == the sessions'
+    tape runs (one per resync, one per sync that continued); in every
+    continued round some sessions continued. Each tape run keeps a copy of
+    the carry before and after its launch (copies on the card, inside the
+    timed rounds: they lower docs/s), and afterwards every launch is held
+    exactly against
+    `run_zone_plain` on the same carry and tape, on the card. X8's count is
+    set to 0 just before the rounds and read just after."""
+    import threading
+
+    from diamond_types_tpu_torch.gpu import kernels
+    from diamond_types_tpu_torch.gpu import zone_kernel as zk
+    from diamond_types_tpu_torch.gpu.zone_session import DeviceZoneSession
+    from diamond_types_tpu_torch.serve import MergeScheduler
+
+    t0 = time.perf_counter()
+    ols = build_docs(rng, cfg)
+    by_id = {ol.doc_id: ol for ol in ols}
+    tips = [host_branch(ol) for ol in ols]
+    sched = MergeScheduler(
+        scfg.shards, resolve=by_id.__getitem__, engine="device", fused=False,
+        flush_docs=scfg.flush_docs, flush_workers=True,
+        max_sessions_per_shard=scfg.max_sessions_per_shard,
+        max_slots_per_shard=zcfg.sched_max_slots,
+        session_opts={"device": device}, sync_lock=threading.Lock())
+    for ol in ols:
+        sched.submit(ol.doc_id, 1)
+    sched.drain()                  # builds every session
+    setup_s = time.perf_counter() - t0
+    x8 = kernels.zone_tape_run
+    runs = []                      # (tape, carry before, carry after)
+    real_run = DeviceZoneSession._run_tape
+
+    def counted_run(sess, tape):
+        before = zk.ZoneCarry(*(t.clone() for t in sess.carry))
+        real_run(sess, tape)
+        runs.append((tape, before,
+                     zk.ZoneCarry(*(t.clone() for t in sess.carry))))
+
+    n_rounds = zcfg.sched_rounds + zcfg.sched_continued_rounds
+    rounds, profile = [], None
+    DeviceZoneSession._run_tape = counted_run
+    x8.launches = 0
+    try:
+        for r in range(n_rounds):
+            continued = r >= zcfg.sched_rounds
+            subs = round_edits(rng, ols, tips, r, cfg,
+                               names=zcfg.sched_rounds - 1 if continued
+                               else None)
+            before = sched.metrics_json()
+            n_runs = len(runs)
+            profiling = r == scfg.profile_round
+            with (torch.profiler.profile(activities=PROFILED)
+                  if profiling else contextlib.nullcontext()) as prof:
+                t = time.perf_counter()
+                for doc_id, n_ops in subs:
+                    check(sched.submit(doc_id, n_ops)["accepted"],
+                          f"scheduler_zone round {r}: {doc_id} was not "
+                          "admitted")
+                sched.pump()
+                sched.drain()
+                wall = time.perf_counter() - t
+            if profiling:
+                profile = device_share(prof, wall, r)
+            after = sched.metrics_json()
+            delta = {k: after["totals"][k] - before["totals"][k]
+                     for k in ("flushes", "flushed_docs", "syncs", "builds",
+                               "evictions", "resyncs", "host_fallbacks")}
+            ops = sum(n for _, n in subs)
+            n_x8 = len(runs) - n_runs
+            rounds.append({"round": r, "agents": "kept" if continued
+                           else "new", "wall_ms": 1e3 * wall,
+                           "docs_per_s": delta["flushed_docs"] / wall,
+                           "ops": ops, "ops_per_s": ops / wall,
+                           "x8_launches": n_x8,
+                           "continued_launches": n_x8 - delta["resyncs"],
+                           "tape_steps": sum(int(x[0].op.shape[0])
+                                             for x in runs[n_runs:]),
+                           **delta})
+            for ol, tip in zip(ols, tips):
+                check(sched.text(ol.doc_id) == tip.snapshot(),
+                      f"scheduler_zone round {r}: {ol.doc_id} differs from "
+                      "the host's merge")
+            if continued:
+                check(rounds[-1]["continued_launches"] > 0,
+                      f"scheduler_zone round {r}: no session continued its "
+                      "carry")
+        sched.stop_workers()
+    finally:
+        DeviceZoneSession._run_tape = real_run
+    launches = x8.launches
+    m = sched.metrics_json()
+    check(m["totals"]["host_fallbacks"] == 0, "scheduler_zone: host "
+          "fallbacks")
+    check(launches == len(runs) > 0, f"scheduler_zone: X8 launched "
+          f"{launches} times for {len(runs)} session tape runs")
+    for ol, tip in zip(ols[:scfg.fresh_checkouts], tips):
+        check(tip.snapshot() == host_branch(ol).snapshot(),
+              f"scheduler_zone: {ol.doc_id}'s merged branch differs from "
+              "the host checkout")
+    # every launch of the rounds against the plain version
+    t = time.perf_counter()
+    err = 0
+    while runs:
+        tape, before, after = runs.pop()
+        err = max(err, zone_err(after, zk.run_zone_plain(
+            before, zk.tape_xs(tape, device), tape.plen)))
+    plain_check_s = time.perf_counter() - t
+    check(err == 0, f"scheduler_zone: an X8 launch differs from its plain "
+          f"version: max abs err {err}")
+    lat = m["latencies"]
+    sessions = [s for b in sched.banks for s in b.sessions.values()]
+    return {"phase": "scheduler_zone", "docs": cfg.n_docs,
+            "shards": scfg.shards, "flush_docs": scfg.flush_docs,
+            "shortened": {"rounds": f"{zcfg.sched_rounds} of the scheduler "
+                          f"phase's {scfg.rounds}, then "
+                          f"{zcfg.sched_continued_rounds} with its last "
+                          "round's agents"},
+            "setup_s": setup_s, "launches": launches,
+            "max_abs_err": err, "launches_checked": launches,
+            "plain_check_s": plain_check_s,
+            "summary": {
+                "docs_per_s": [x["docs_per_s"] for x in rounds],
+                "ops_per_s": [x["ops_per_s"] for x in rounds],
+                "flush_ms_p50_p99": [1e3 * lat["flush"]["p50"],
+                                     1e3 * lat["flush"]["p99"]],
+                "x8_launches_per_round": launches / len(rounds),
+                "continued_launches": sum(x["continued_launches"]
+                                          for x in rounds),
+                "builds": m["totals"]["builds"],
+                "resyncs": m["totals"]["resyncs"],
+                "evictions": m["totals"]["evictions"],
+                "device_busy_share": profile["device_busy_share"]
+                if profile else None},
+            "rounds": rounds, "totals": m["totals"], "profile": profile,
+            "resident_sessions": len(sessions),
+            "W_cap_max": max(s.W_cap for s in sessions),
+            "footprint_slots": sum(s.footprint_slots() for s in sessions)}
+
+
 def run_kernel_phases(rng, device) -> tuple:
     """The three kernel-against-plain phases, each line with its seconds."""
     out = []
@@ -1930,6 +2428,25 @@ def main(argv=None) -> int:
         step = run_merge_step(rng(10), device)
         step["seconds"] = time.perf_counter() - t
         emit(step)
+        zcfg = ZoneConfig()
+        t = time.perf_counter()
+        zkern = run_zone_kernel(rng(11), device, HistoryConfig(), zcfg)
+        zkern["seconds"] = time.perf_counter() - t
+        emit(zkern)
+        t = time.perf_counter()
+        zone, zprep, ztape = run_zone(device, history_ol, zcfg)
+        zone["seconds"] = time.perf_counter() - t
+        emit(zone)
+        t = time.perf_counter()
+        zbatch = run_zone_batch(device, zprep, ztape, zcfg)
+        zbatch["seconds"] = time.perf_counter() - t
+        emit(zbatch)
+        # the scheduler phase's documents and edits (its generator seed)
+        t = time.perf_counter()
+        zsched = run_scheduler_zone(rng(5), device, cfg, SchedulerConfig(),
+                                    zcfg)
+        zsched["seconds"] = time.perf_counter() - t
+        emit(zsched)
         timed = ("ms", "call_ms", "device_ms", "plain_ms", "bound_ms",
                  "library_ms")
         kerns = [
@@ -1978,7 +2495,23 @@ def main(argv=None) -> int:
              "merge_device_ms": [r["device_ms"]
                                  for r in checkout["k3_per_call"]
                                  if r["call"] == "merge"],
-             "history": history["k3"]}]
+             "history": history["k3"]},
+            {"name": "zone_tape", "route": "cuda",
+             "source": "diamond_types_tpu_torch/csrc/zone_tape.cu",
+             "replaces": "diamond_types_tpu/tpu/zone_kernel.py:480",
+             "launches": zone["launches"],
+             "launches_by_path": {"zone": zone["launches"],
+                                  "zone_batch": zbatch["launches"],
+                                  "scheduler_zone": zsched["launches"]},
+             "max_abs_err": max(zkern["max_abs_err"], zone["max_abs_err"],
+                                zsched["max_abs_err"]),
+             **{k: zone["x8"][k] for k in timed},
+             "bound_by": "bytes",
+             **{k: zone["x8"][k] for k in ("bound_step_bytes",
+                                           "whole_tape_ms", "serial_phases",
+                                           "phase_us", "serial_floor_ms",
+                                           "device_us_per_step")},
+             "shape": {k: zone[k] for k in ("W", "T", "n_idx", "plen")}}]
         card = nvidia_smi_line()
         emit({"kernels": kerns})
         print(card, flush=True)

@@ -20,6 +20,10 @@ what bounds it.
      arena), any run count. One call is two kernels on one stream: a row
      scan (one CTA per row) into a scratch table of run starts, then a
      gather over rows times tiles of the cap axis.
+  X8 `zone_tape_run` (`csrc/zone_tape.cu`, from the XLA scan of
+     `tpu/zone_kernel.py::make_zone_step`, which has no `pallas_call`): the
+     zone engine's whole step tape for B replicas in one launch, one thread
+     block per replica stepping the tape, the carry updated in place.
 
 Build: each `csrc/*.cu` compiles with `nvcc` for `sm_90a` into a shared
 library with a plain C interface, at first use, into `_build/` beside this
@@ -60,7 +64,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel name -> its source in csrc/
 SOURCES = {"apply_ops": "apply_ops.cu",
            "xform_positions": "xform_positions.cu",
-           "materialize": "materialize.cu"}
+           "materialize": "materialize.cu",
+           "zone_tape": "zone_tape.cu"}
 _libs: Dict[str, ctypes.CDLL] = {}
 _libs_lock = threading.Lock()
 _launches_lock = threading.Lock()
@@ -155,6 +160,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
                    lib.dt_materialize_runs_scratch_row):
             fn.argtypes = [i, i]
             fn.restype = ctypes.c_longlong
+    elif name == "zone_tape":
+        lib.dt_zone_tape_run.argtypes = [p] * 32 + [i] * 8 + [p]
+        lib.dt_zone_tape_run.restype = i
 
 
 # The current CUDA device and a device's current raw stream, through the
@@ -424,3 +432,101 @@ def materialize_runs(perm: torch.Tensor, vis_len: torch.Tensor,
 
 
 materialize_runs.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# X8: the zone engine's step tape over a batch of replicas
+# ---------------------------------------------------------------------------
+
+ZONE_CARRY_DTYPES = {"state": torch.uint8, "snap": torch.uint8,
+                     "rank": torch.int32, "ord": torch.int32,
+                     "ol_id": torch.int32, "orr_id": torch.int32,
+                     "ever": torch.uint8, "m": torch.int32,
+                     "agent_k": torch.int32, "seq_k": torch.int32}
+
+
+def _check_zone(carry, xs: dict) -> tuple:
+    """Shapes, dtypes and devices of a zone carry and tape; returns
+    (B, n_idx, W, T, MB, MC, MD)."""
+    from .zone_kernel import XS_KEYS
+    state = carry.state
+    if state.dim() != 3:
+        raise ValueError(f"state must be [B, n_idx, W], got "
+                         f"{tuple(state.shape)}")
+    B, n_idx, W = state.shape
+    dev = state.device
+    for name, dt in ZONE_CARRY_DTYPES.items():
+        t = getattr(carry, name)
+        want = (B,) if name == "m" else (B, n_idx, W) if name == "state" \
+            else (B, W)
+        if tuple(t.shape) != want:
+            raise ValueError(f"carry.{name} must be {list(want)}, got "
+                             f"{list(t.shape)}")
+        if t.dtype != dt:
+            raise TypeError(f"carry.{name} must be {dt}, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"carry.{name} is on {t.device}, state on "
+                             f"{dev}")
+    missing = [k for k in XS_KEYS if k not in xs]
+    if missing:
+        raise ValueError(f"xs lacks {missing}")
+    T = xs["op"].shape[0]
+    MB, MC, MD = (xs["blk_cursor"].shape[1], xs["ch_slot"].shape[1],
+                  xs["del_kind"].shape[1])
+    for k in XS_KEYS:
+        t = xs[k]
+        want = (T,) if k in ("op", "a", "b", "snap") else \
+            (T, MB) if k.startswith("blk_") else \
+            (T, MC) if k.startswith("ch_") else (T, MD)
+        if tuple(t.shape) != want:
+            raise ValueError(f"xs[{k!r}] must be {list(want)}, got "
+                             f"{list(t.shape)}")
+    _check_int32(dev, **{f"xs[{k!r}]": xs[k] for k in XS_KEYS})
+    if W < 1 or n_idx < 1:
+        raise ValueError(f"W and n_idx must be >= 1, got {W}, {n_idx}")
+    return B, n_idx, W, T, MB, MC, MD
+
+
+def zone_tape_run(carry, xs: dict, plen: int):
+    """Run every step of the tape `xs` (the zone tape's columns, `[T]`,
+    `[T, MB]`, `[T, MC]`, `[T, MD]` int32; `gpu/zone_kernel.tape_xs`) on
+    the batched zone carry (`gpu/zone_kernel.ZoneCarry`), updating the
+    carry IN PLACE; returns it. `plen` is the prefix length (what OP_BEGIN
+    sets).
+
+    CUDA tensors launch the kernel once: one thread block per replica,
+    stepping the whole tape (MB <= 32: the launcher refuses more). CPU
+    tensors run the plain version `zone_kernel.run_zone_plain` and copy its
+    result into the carry."""
+    B, n_idx, W, T, MB, MC, MD = _check_zone(carry, xs)
+    ts = dict(carry._asdict(), **{f"xs_{k}": v for k, v in xs.items()})
+    if not _launch_device(carry.state.device, **ts):
+        from .zone_kernel import run_zone_plain
+        out = run_zone_plain(carry, xs, plen)
+        for dst, src in zip(carry, out):
+            dst.copy_(src)
+        return carry
+    if B == 0 or T == 0:
+        return carry
+    if n_idx * W >= 1 << 31:
+        raise ValueError(f"state row table too large: n_idx={n_idx}, "
+                         f"W={W}")
+    lib = _lib("zone_tape")
+    dev = carry.state.device
+    # per replica: the visibility prefix sum, the snapshot states in rank
+    # order, and the next order
+    cum = torch.empty((B, W), dtype=torch.int32, device=dev)
+    sr = torch.empty((B, W), dtype=torch.uint8, device=dev)
+    ord2 = torch.empty((B, W), dtype=torch.int32, device=dev)
+    from .zone_kernel import XS_KEYS
+    ptrs = [xs[k].data_ptr() for k in XS_KEYS] + \
+        [t.data_ptr() for t in carry] + \
+        [cum.data_ptr(), sr.data_ptr(), ord2.data_ptr()]
+    rc = _launch_on(dev, lib.dt_zone_tape_run, *ptrs, B, T, W, int(plen),
+                    n_idx, MB, MC, MD)
+    _raise_on(lib, rc, "zone_tape_run launch")
+    count_launch("zone_tape_run")
+    return carry
+
+
+zone_tape_run.launches = 0

@@ -1,9 +1,14 @@
 """ctypes bindings over the port's build of the C++ merge core.
 
-The part of the JAX package's `native/core.py` that the device transform
-and the device checkout use: `NativeContext` (a C++ mirror of an OpLog's
-graph, agent runs and op runs) with the tracker transform and its dumps,
-`content_columns` and `get_native_ctx`. The library comes from
+The part of the JAX package's `native/core.py` that the device transform,
+the device checkout, the zone engine and `Branch.merge` use:
+`NativeContext` (a C++ mirror of an OpLog's graph, agent runs and op runs)
+with the tracker transform and its dumps, the full native merge, the entry
+composer (`compose_plan`, `compose_cache_only`, `compose_linear`), the zone
+insert-run table (`zone_ins_runs`) and the collision count of the last
+transform; `content_columns`, `get_native_ctx`, `merge_native` and
+`native_available`. The zone tape packer (`dt_zone_pack`) is bound here
+too and called from `gpu/zone_kernel.py`. The library comes from
 `native/build.py` at first use, never at import.
 """
 
@@ -21,6 +26,7 @@ from .build import build
 
 _lib = None
 _lib_lock = threading.Lock()
+_unavailable = None     # why the library could not be built, once known
 
 
 def _load():
@@ -61,6 +67,54 @@ def _configure(lib) -> None:
     lib.dt_get_zone_common.argtypes = [vp, a64, i64]
     lib.dt_get_zone_common.restype = i64
     lib.dt_release_tracker.argtypes = [vp]
+    lib.dt_last_collisions.argtypes = [vp]
+    lib.dt_last_collisions.restype = i64
+    lib.dt_compose_plan.argtypes = [vp, i64, a64, a64]
+    lib.dt_compose_plan.restype = i64
+    lib.dt_compose_counts.argtypes = [vp, a64]
+    lib.dt_compose_serial.argtypes = [vp]
+    lib.dt_compose_serial.restype = i64
+    lib.dt_compose_fetch.argtypes = [
+        vp, a64, a64, a32, au8, au8, a64, a32, a64, a64, a32, a64, a32, a32,
+        a64, a64, a64, a64]
+    lib.dt_compose_linear.argtypes = [vp, i64, a64, a64]
+    lib.dt_compose_linear.restype = i64
+    lib.dt_fetch_linear.argtypes = [vp, a64, a64]
+    lib.dt_zone_ins_runs.argtypes = [vp, i64, a64, a64, a64, a64, a64]
+    lib.dt_zone_ins_runs.restype = i64
+    lib.dt_zone_pack.argtypes = [
+        vp, i64, a64, a64, a64,              # actions
+        i64, a64,                            # counts
+        a64, a64, au8, a64, a32, a64,        # queries and char columns
+        a32, a64, a32, a32,                  # block columns
+        a64, a64, a64, a64,                  # delete columns
+        i64, a64, a64, i64,                  # slot map
+        a64, a64,                            # keys
+        i64, i64, i64, i64]                  # MB MC MD compose serial
+    lib.dt_zone_pack.restype = i64
+    lib.dt_zone_pack_fetch.argtypes = [vp] + [a32] * 19 + [i64, i64, i64]
+
+
+def native_available() -> bool:
+    """True when the library builds (or is built) and loads here. A
+    failed build is remembered: it is not retried in this process."""
+    global _unavailable
+    if _lib is not None:
+        return True
+    if _unavailable is not None:
+        return False
+    try:
+        _load()
+    except (RuntimeError, OSError) as e:
+        _unavailable = str(e)
+        return False
+    return True
+
+
+def _span_cols(spans):
+    s0 = np.ascontiguousarray([s for s, _ in spans] or [0], dtype=np.int64)
+    s1 = np.ascontiguousarray([e for _, e in spans] or [0], dtype=np.int64)
+    return s0, s1
 
 
 def _read_frontier(fn, ptr, first: int = 16):
@@ -185,6 +239,124 @@ class NativeContext:
         o = np.argsort(lv0, kind="stable")
         return lv0[o], lv1[o], t0[o], t1[o], fwd[o]
 
+    def last_collisions(self) -> int:
+        """Colliding concurrent inserts during the last transform
+        (reference: has_conflicts_when_merging, src/list/merge.rs:51)."""
+        return int(self._lib.dt_last_collisions(self._ptr))
+
+    def compose_serial(self) -> int:
+        """Identity of the current native compose cache (bumped by every
+        dt_compose_plan): the zone packer checks it before packing from
+        the cache."""
+        return int(self._lib.dt_compose_serial(self._ptr))
+
+    def zone_ins_runs(self, spans):
+        """INS sub-runs of the given spans as (lv0, len, cp) int64
+        arrays, or None on unsupported input (an insert without stored
+        content)."""
+        self.sync()
+        s0, s1 = _span_cols(spans)
+        # bounded by the zone's own extent, not the whole history: a span
+        # of L LVs overlaps at most L runs
+        span_lvs = sum(e - s for s, e in spans)
+        cap = min(len(self._oplog.ops.runs), span_lvs) + len(spans) + 1
+        lv0, ln, cp = (np.empty(cap, dtype=np.int64) for _ in range(3))
+        k = self._lib.dt_zone_ins_runs(self._ptr, len(spans), s0, s1, lv0,
+                                       ln, cp)
+        if k < 0:
+            return None
+        return lv0[:k], ln[:k], cp[:k]
+
+    def compose_cache_only(self, spans) -> bool:
+        """Run the native composer, leaving its results only in the ctx
+        cache (the zone packer reads them there). False on unsupported
+        input."""
+        self.sync()
+        s0, s1 = _span_cols(spans)
+        return self._lib.dt_compose_plan(self._ptr, len(spans), s0, s1) == 0
+
+    def compose_plan(self, spans):
+        """The native entry composer (`listmerge/compose.py` in C++):
+        per-entry column dicts for `ComposedEntry`, or None on
+        unsupported input (reverse insert runs)."""
+        self.sync()
+        lib = self._lib
+        n = len(spans)
+        if n == 0:
+            return []
+        s0, s1 = _span_cols(spans)
+        if lib.dt_compose_plan(self._ptr, n, s0, s1) != 0:
+            return None
+        counts = np.empty(n * 5, dtype=np.int64)
+        lib.dt_compose_counts(self._ptr, counts)
+        counts = counts.reshape(n, 5)
+        tq, tc, tb, tdb, tdo = (int(x) for x in counts.sum(axis=0))
+        q = np.empty(tq, dtype=np.int64)
+        ch_lv = np.empty(tc, dtype=np.int64)
+        ch_block = np.empty(tc, dtype=np.int32)
+        ch_head = np.empty(tc, dtype=np.uint8)
+        ch_kind = np.empty(tc, dtype=np.uint8)
+        ch_anchor = np.empty(tc, dtype=np.int64)
+        ch_q = np.empty(tc, dtype=np.int32)
+        ch_headlv = np.empty(tc, dtype=np.int64)
+        ch_orrown = np.empty(tc, dtype=np.int64)
+        blk_root_q = np.empty(tb, dtype=np.int32)
+        blk_root_lv = np.empty(tb, dtype=np.int64)
+        blk_start = np.empty(tb, dtype=np.int32)
+        blk_len = np.empty(tb, dtype=np.int32)
+        db0, db1 = np.empty(tdb, dtype=np.int64), np.empty(tdb, np.int64)
+        do0, do1 = np.empty(tdo, dtype=np.int64), np.empty(tdo, np.int64)
+        lib.dt_compose_fetch(self._ptr, q, ch_lv, ch_block, ch_head,
+                             ch_kind, ch_anchor, ch_q, ch_headlv, ch_orrown,
+                             blk_root_q, blk_root_lv, blk_start, blk_len,
+                             db0, db1, do0, do1)
+        out = []
+        oq = oc = ob = odb = odo = 0
+        for k in range(n):
+            nq, nc, nb, ndb, ndo = (int(x) for x in counts[k])
+            out.append({
+                "q_cursor": q[oq:oq + nq].tolist(),
+                "ch_lv": ch_lv[oc:oc + nc],
+                "ch_block": ch_block[oc:oc + nc],
+                "ch_head": ch_head[oc:oc + nc].astype(np.int8),
+                "ch_kind": ch_kind[oc:oc + nc].astype(np.int8),
+                "ch_anchor": ch_anchor[oc:oc + nc],
+                "ch_q": ch_q[oc:oc + nc],
+                "ch_headlv": ch_headlv[oc:oc + nc],
+                "ch_orrown": ch_orrown[oc:oc + nc],
+                "blk_root_q": blk_root_q[ob:ob + nb],
+                "blk_root_lv": blk_root_lv[ob:ob + nb],
+                "blk_start": blk_start[ob:ob + nb],
+                "blk_len": blk_len[ob:ob + nb],
+                "del_base": list(zip(db0[odb:odb + ndb].tolist(),
+                                     db1[odb:odb + ndb].tolist())),
+                "del_own": list(zip(do0[odo:odo + ndo].tolist(),
+                                    do1[odo:odo + ndo].tolist())),
+            })
+            oq += nq
+            oc += nc
+            ob += nb
+            odb += ndb
+            odo += ndo
+        return out
+
+    def compose_linear(self, spans):
+        """Alive own pieces (lv, len arrays) of a linear-history
+        composition over an empty base (assemble_prefix's hot loop), or
+        None on unsupported input."""
+        self.sync()
+        lib = self._lib
+        s0 = np.ascontiguousarray([s for s, _ in spans], dtype=np.int64)
+        s1 = np.ascontiguousarray([e for _, e in spans], dtype=np.int64)
+        n = lib.dt_compose_linear(self._ptr, len(spans), s0, s1)
+        if n < 0:
+            return None
+        lv = np.empty(n, dtype=np.int64)
+        ln = np.empty(n, dtype=np.int64)
+        if n:
+            lib.dt_fetch_linear(self._ptr, lv, ln)
+        return lv, ln
+
     def merge_to_string(self, init: str, from_frontier: Sequence[int],
                         merge_frontier: Sequence[int]):
         """Full native merge: returns (final_doc_str, final_frontier)."""
@@ -225,3 +397,10 @@ def content_columns(oplog):
     if arena.size == 0:
         arena = np.zeros(1, dtype=np.int32)
     return cp, arena, len(arena_str)
+
+
+def merge_native(oplog, init: str, from_frontier, merge_frontier):
+    """The C++ tracker merge of `merge_frontier` into the document `init`
+    at `from_frontier`: (text, frontier)."""
+    return get_native_ctx(oplog).merge_to_string(init, from_frontier,
+                                                 merge_frontier)

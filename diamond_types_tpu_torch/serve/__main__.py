@@ -4,7 +4,7 @@ differs from the host merge.
 
     python -m diamond_types_tpu_torch.serve [--mode trace|concurrent|flash]
         [--shards 4] [--docs 8] [--device-plan] [--mesh-window]
-        [--no-device-stage] [--device cpu] ...
+        [--no-device-stage] [--no-fused] [--device cpu] ...
 
 Sessions live on CUDA unless `--device cpu` asks for the CPU.
 """
@@ -41,6 +41,10 @@ def main(argv=None) -> int:
                     help="where the sessions live (default: CUDA, shard i "
                     "on cuda:(i %% device count)); 'cpu' runs the "
                     "kernels' plain versions")
+    ap.add_argument("--fused", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="fused bucket flush (--no-fused: zone sessions, "
+                    "each document synced on its own by the X8 kernel)")
     ap.add_argument("--workers", action=argparse.BooleanOptionalAction,
                     default=True, help="per-shard flush worker threads")
     ap.add_argument("--device-plan", action=argparse.BooleanOptionalAction,
@@ -70,7 +74,7 @@ def main(argv=None) -> int:
         seed=args.seed, device=args.device, flush_workers=args.workers,
         warmup=args.warmup, steady_rounds=args.steady_rounds,
         device_plan=args.device_plan, mesh_window=args.mesh_window,
-        device_stage=args.device_stage)
+        device_stage=args.device_stage, fused=args.fused)
     print(json.dumps(report))
     return 0 if report["parity_ok"] else 1
 

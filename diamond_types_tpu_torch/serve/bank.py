@@ -1,14 +1,17 @@
 """Per-shard session bank: LRU-bounded device residency + host fallback.
 
 Port of the JAX package's `serve/bank.py`. One bank per shard owns every
-device-resident `FusedDocSession` of that shard. Residency is bounded two
-ways:
+device-resident session of that shard: a `FusedDocSession` on the fused
+engine (`fused=True`, the default), a `DeviceZoneSession`
+(`gpu/zone_session.py`, the zone engine's resident carry) with
+`fused=False`. Residency is bounded two ways:
 
   * `max_sessions` — at most N documents resident at once;
   * `max_slots`    — total device-slot footprint (sum of each session's
-                     `footprint_slots()`, its `[cap]` buffer) stays under a
-                     budget. A session that GROWS past the budget on
-                     resync evicts its least-recently-used neighbors.
+                     `footprint_slots()`: a fused session's `[cap]` buffer,
+                     a zone session's W_cap x (n_rows + 7) planes) stays
+                     under a budget. A session that GROWS past the budget
+                     on resync evicts its least-recently-used neighbors.
 
 Eviction drops the device state; the document itself lives in its host
 OpLog, so an evicted doc costs one rebuild on its next merge.
@@ -29,9 +32,15 @@ per (cap, max_ins) group. The ladder, most-fused first:
                      from `oplog.checkout_tip()`, counted in
                      `host_fallbacks`.
 
+Zone-session flush (`fused=False`): every item of a bucket is a per-doc
+`sync_doc`, whose `DeviceZoneSession.sync` continues the resident carry
+with one X8 launch (`kernels.zone_tape_run`) per sync, or resyncs.
+
 Unlike the JAX package's bank, no rung catches a fault and drops to
-another: a kernel error, a failed session build or any other exception
-propagates to the caller. Only the fence sends a document to the host.
+another: a kernel error, a failed session build, a zone session's fault or
+any other exception propagates to the caller (the JAX `sync_doc` serves a
+failed zone sync from the host). Only the fused engine's length fence sends
+a document to the host.
 
 Locking contract for `sync_docs`: `oplog_lock` (the scheduler's oplog
 guard, e.g. DocStore.lock) is held only around the HOST-side phases
@@ -50,10 +59,8 @@ outside it) and `_plan_fused` (grouping by (cap, max_ins), under it again).
 tail (sync counts, fence failures to the host, the per-doc rung).
 `sync_docs` is `plan_window`, one replay per group, `adopt_window`.
 
-Left out of the port so far: the zone-session bank (`fused=False` on the
-device engine, the JAX package's `DeviceZoneSession`), the residency tier's
-snapshot hook, and the obs layer's flight recorder, journey stamps and
-device profiler.
+Left out of the port so far: the residency tier's snapshot hook, and the
+obs layer's flight recorder, journey stamps and device profiler.
 """
 
 from __future__ import annotations
@@ -69,6 +76,7 @@ import torch
 from ..gpu import flush_fuse, kernels, resolve_device, xform
 from ..gpu.steer import STEER, WARMUP_SHAPE_CLASSES, _pow2, cap_class, \
     warmup_batches
+from ..gpu.zone_session import DeviceZoneSession
 from ..parallel.mesh import pad_batch_count
 from .metrics import ServeMetrics
 
@@ -115,6 +123,7 @@ class SessionBank:
     def __init__(self, shard_id: int, max_sessions: int = 8,
                  max_slots: int = 1 << 24, engine: str = "device",
                  device=None, metrics: Optional[ServeMetrics] = None,
+                 session_opts: Optional[dict] = None,
                  fused: bool = True,
                  fused_opts: Optional[dict] = None,
                  warmup: bool = False,
@@ -122,12 +131,15 @@ class SessionBank:
                  device_plan: bool = False,
                  mesh_shards: int = 0,
                  mesh_devices: int = 1) -> None:
-        """`engine="device"` keeps sessions on `device`, else on
-        `fused_opts["device"]`; None means CUDA, and the constructor raises
-        without it. `fused_opts` (cap / max_ins / headroom / device) go to
-        each `FusedDocSession`. `device_plan` plans tails through the
-        device transform (`xform.extract_tail` + `resolve_positions`, K2)
-        instead of the host tracker walk.
+        """`engine="device"` keeps sessions on `device`, else on the
+        sessions' options' "device" (`fused_opts` on the fused engine,
+        `session_opts` with `fused=False`); None means CUDA, and the
+        constructor raises without it. `fused_opts` (cap / max_ins /
+        headroom / device) go to each `FusedDocSession`; `session_opts`
+        (n_rows / headroom / max_blocks / max_chars / max_dels / device)
+        to each `DeviceZoneSession`. `device_plan` (fused engine only)
+        plans tails through the device transform (`xform.extract_tail` +
+        `resolve_positions`, K2) instead of the host tracker walk.
 
         `warmup=True` (device engine) starts a thread that builds the
         kernels and launches K1 once per (batch class of
@@ -140,23 +152,20 @@ class SessionBank:
         what it raised."""
         if engine not in ("device", "host"):
             raise ValueError(f"unknown engine {engine!r}")
-        if engine == "device" and not fused:
-            raise NotImplementedError(
-                "the zone-session bank (fused=False on the device engine) "
-                "is not ported yet: ROADMAP item 10")
         self.shard_id = shard_id
         self.max_sessions = max(int(max_sessions), 1)
         self.max_slots = int(max_slots)
         self.engine = engine
         self.metrics = metrics
-        self.fused = engine == "device"
+        self.fused = bool(fused) and engine == "device"
         self.fused_opts = dict(fused_opts or {})
+        self.session_opts = dict(session_opts or {})
         self.device = None
-        if self.fused:
+        if engine == "device":
+            opts = self.fused_opts if self.fused else self.session_opts
             self.device = resolve_device(
-                device if device is not None
-                else self.fused_opts.get("device"))
-            self.fused_opts["device"] = self.device
+                device if device is not None else opts.get("device"))
+            opts["device"] = self.device
         self.flush_docs = int(flush_docs)
         self.device_plan = bool(device_plan) and self.fused
         self.mesh_shards = int(mesh_shards)
@@ -262,7 +271,10 @@ class SessionBank:
         if self.engine == "host":
             return _HostDoc(oplog)
         _ensure_cuda_ready(self.device)
-        sess = flush_fuse.FusedDocSession(oplog, **self.fused_opts)
+        if self.fused:
+            sess = flush_fuse.FusedDocSession(oplog, **self.fused_opts)
+        else:
+            sess = DeviceZoneSession(oplog, **self.session_opts)
         # the initial build counts as this doc's baseline, not a resync
         self._resyncs_seen[doc_id] = sess.resyncs
         return sess
@@ -297,8 +309,9 @@ class SessionBank:
 
     def sync_doc(self, doc_id: str, oplog) -> dict:
         """Fold the doc's appended ops into its shard-resident state. A
-        fence failure (`FenceMismatch`) evicts the session and serves the
-        doc from the host engine; any other exception propagates."""
+        fence failure (`FenceMismatch`, fused sessions) evicts the session
+        and serves the doc from the host engine; any other exception,
+        a zone session's included, propagates."""
         self._bump("syncs")
         t0 = time.perf_counter()
         sess = self.session(doc_id, oplog)

@@ -16,8 +16,10 @@ the host merge. Three workload shapes:
                  shape class) thrashes: the shape-steering stress tape.
 
 Parity: for engine="device" the scheduler's answer comes from the device
-rows (`FusedDocSession.text()`), the reference from the host tracker
-checkout — two independent engines, compared byte for byte per document.
+rows (`FusedDocSession.text()`, or `DeviceZoneSession.text()` with
+`fused=False`), the reference from the host tracker called directly
+(`Branch.merge_reference`, which no engine switch or policy reaches) — two
+independent engines, compared byte for byte per document.
 
 Left out of the report until the obs layer is ported (ROADMAP item 12):
 `slo`, `jit_hit_rate`, `scorecard`, `obs` and `devprof`.
@@ -32,6 +34,7 @@ from typing import Dict, List, Optional, Tuple
 
 from ..gpu.steer import STEER
 from ..parallel.arena import DEVICE_STAGE, reset_arenas
+from ..text.branch import Branch
 from ..text.oplog import OpLog
 from ..text.trace import TestData, load_trace
 from .scheduler import MergeScheduler
@@ -157,7 +160,8 @@ def run_serve_bench(shards: int = 4, docs: int = 8,
                     steady_rounds: int = 0,
                     device_plan: bool = False,
                     mesh_window: bool = False,
-                    device_stage: bool = True) -> dict:
+                    device_stage: bool = True,
+                    fused: bool = True) -> dict:
     """Replay the workload through a fresh scheduler; returns a JSON-able
     report with throughput, the metrics snapshot, the steering counters
     and the parity gate. `device` is where the sessions live: None means
@@ -173,7 +177,9 @@ def run_serve_bench(shards: int = 4, docs: int = 8,
     `parallel/arena.py`), restored when the bench returns. With
     `steady_rounds`, every doc takes that many more lockstep rounds
     against resident sessions after the continuous feed (the fused
-    occupancy measurement)."""
+    occupancy measurement). `fused=False` keeps zone sessions
+    (`DeviceZoneSession`) and syncs each document on its own; the window
+    and device planning are fused-only."""
     doc_ids = [f"doc{i:03d}" for i in range(docs)]
     ols: Dict[str, OpLog] = {}
     for d in doc_ids:
@@ -217,8 +223,9 @@ def run_serve_bench(shards: int = 4, docs: int = 8,
         max_pending=max_pending, flush_docs=flush_docs,
         flush_deadline_s=flush_deadline_s,
         place_on_devices=place_on_devices and device is None,
-        sync_lock=oplog_lock,
+        sync_lock=oplog_lock, fused=fused,
         fused_opts=None if device is None else {"device": device},
+        session_opts=None if device is None else {"device": device},
         flush_workers=flush_workers, warmup=warmup,
         device_plan=device_plan, mesh_window=mesh_window)
     stage_was = DEVICE_STAGE.enabled
@@ -311,7 +318,9 @@ def _feed(sched, ols, doc_ids, feeders, oplog_lock, mode: str, seed: int,
 
     mismatches = []
     for d in doc_ids:
-        want = ols[d].checkout_tip().snapshot()
+        ref = Branch()
+        ref.merge_reference(ols[d], ols[d].version)
+        want = ref.snapshot()
         if sched.text(d) != want:
             mismatches.append(d)
     wall = time.perf_counter() - t0

@@ -36,7 +36,11 @@ bucket, `pump()` folds EVERY due bucket of every shard into one window
 (`_flush_window`) on the calling thread: one K1 launch per (cap, max_ins)
 class and device, and one device resolve (K2) per device for the whole
 window's tails. Its faults propagate the same way; there is no fallback
-rung.
+rung. The window, like `device_plan`, rides on the fused engine only.
+
+Zone sessions (`fused=False` on the device engine): each shard's bank
+keeps `DeviceZoneSession`s, and a flush syncs its bucket's documents one
+by one, each continuing its resident carry with one X8 launch.
 
 Left out of the port so far (ROADMAP item 12): the obs layer's spans,
 exemplars and attribution (`attach_obs`), the residency tier
@@ -73,6 +77,7 @@ class MergeScheduler:
                  flush_docs: int = 8,
                  flush_deadline_s: float = 0.05,
                  place_on_devices: bool = False,
+                 session_opts: Optional[dict] = None,
                  sync_lock=None,
                  admit: Optional[Callable[[str], bool]] = None,
                  fused: bool = True,
@@ -84,15 +89,18 @@ class MergeScheduler:
         """`resolve(doc_id) -> OpLog` is the document authority —
         DocStore.get fits directly; it is always called OUTSIDE
         `sync_lock`. `engine="device"` keeps each shard's sessions on
-        `fused_opts["device"]` (None: CUDA, which must exist), or with
+        `fused_opts["device"]` (`session_opts["device"]` with
+        `fused=False`; None: CUDA, which must exist), or with
         `place_on_devices=True` shard i on `cuda:(i % device_count)`.
-        `fused=False` on the device engine (the zone-session bank) is not
-        ported and raises NotImplementedError. `mesh_window=True` (device
+        `fused=False` on the device engine keeps zone sessions
+        (`DeviceZoneSession`, options `session_opts`) and syncs each
+        document of a flush on its own. `mesh_window=True` (fused device
         engine only) flushes through the window coordinator
         (`_flush_window`) instead of per-shard buckets. `device_plan=True`
-        plans tails through the device transform (K2) instead of the host
-        tracker walk; `warmup=True` starts bank 0's warm-up (see
-        SessionBank), which with the window also covers its classes."""
+        (fused only) plans tails through the device transform (K2) instead
+        of the host tracker walk; `warmup=True` starts bank 0's warm-up
+        (fused only, see SessionBank), which with the window also covers
+        its classes."""
         self.resolve = resolve
         self._sync_lock = sync_lock if sync_lock is not None \
             else contextlib.nullcontext()
@@ -104,13 +112,16 @@ class MergeScheduler:
         devices: List[Optional[torch.device]] = [None] * n_shards
         if place_on_devices and engine == "device":
             devices = serve_shard_devices(n_shards)
-        # the window rides on fused sessions: the host engine ignores it
-        self.mesh_window = bool(mesh_window) and engine == "device"
+        # the window rides on fused sessions: the host engine and the zone
+        # sessions ignore it
+        self.mesh_window = bool(mesh_window) and engine == "device" \
+            and bool(fused)
         self._mesh: Optional[List[torch.device]] = None   # lazy
         self.banks = [
             SessionBank(i, max_sessions=max_sessions_per_shard,
                         max_slots=max_slots_per_shard, engine=engine,
                         device=devices[i], metrics=self.metrics,
+                        session_opts=session_opts,
                         fused=fused, fused_opts=fused_opts,
                         warmup=(warmup and i == 0),
                         flush_docs=flush_docs, device_plan=device_plan,

@@ -7,6 +7,7 @@ src/list/branch.rs, src/list/merge.rs:63-96).
 from __future__ import annotations
 
 import os
+import time
 from typing import List, Optional, Sequence
 
 from ..utils.rope import Rope
@@ -23,11 +24,11 @@ class Branch:
         self.content = Rope()
         # collisions reported by the last merge() — genuinely concurrent
         # inserts at the same gap (reference: has_conflicts_when_merging,
-        # src/list/merge.rs:51); 0 = merged cleanly, None = no merge yet.
+        # src/list/merge.rs:51); 0 = merged cleanly, None = no merge yet
+        # or an engine that does not report (zone, plan2, device).
         self.last_merge_collisions: Optional[int] = None
-        # the engine that ran the last merge(): "python", "plan2" or
-        # "device"; None before the first merge. The plan2 and device
-        # engines report no collisions (last_merge_collisions = None).
+        # the engine that ran the last merge(): "tracker", "zone",
+        # "python", "plan2" or "device"; None before the first merge.
         self.last_merge_engine: Optional[str] = None
 
     def __len__(self) -> int:
@@ -65,16 +66,27 @@ class Branch:
         """Bring everything in `merge_frontier`'s history into this branch
         (reference: src/list/merge.rs:63-96).
 
-        The engine is chosen behind this one boundary:
+        The engine is chosen behind this one boundary, in the JAX
+        package's order:
           * DT_TPU_PLAN2=1: the fork/join plan engine (the conflict zone
             compiled into a Begin/Fork/Max/Apply schedule over numbered
             state indexes, run on the dense state matrix;
             listmerge/plan2.py + dense.py);
           * DT_TPU_DEVICE_MERGE=1: the device merge (`gpu/merge_kernel.py
-            merge_device`: the Fugue-tree linearization and K3) on
-            `device`, which is CUDA unless the caller asks for "cpu";
-          * default: the pure-Python engine (the oracle), the
-            transformed-op stream applied to the rope."""
+            merge_device`: the Fugue-tree linearization and K3);
+          * DT_TPU_ZONE=1: the zone engine (`gpu/zone_kernel.py
+            zone_checkout_device`: the host composes entries, the X8 tape
+            resolves every origin on the device);
+          * default, with the native library: the measured policy
+            (`listmerge/policy.py GLOBAL.choose`) picks the zone engine or
+            the C++ tracker merge (`merge_native`), whose rate it records;
+          * DT_TPU_NO_NATIVE=1, or no native library: the pure-Python
+            engine (the oracle), the transformed-op stream applied to the
+            rope.
+        The device engines run on `device`: CUDA unless the caller asks
+        for "cpu". A policy-selected zone merge that fails propagates; the
+        JAX package demotes the zone engine and falls back to the tracker
+        instead."""
         self.last_merge_collisions = None
         self.last_merge_engine = None
         if os.environ.get("DT_TPU_PLAN2"):
@@ -93,11 +105,75 @@ class Branch:
             self.version = frontier
             self.last_merge_engine = "device"
             return
+
+        from ..listmerge import policy
+
+        def top(v) -> int:
+            return max((int(x) for x in v), default=-1) + 1
+
+        if os.environ.get("DT_TPU_ZONE"):
+            self._zone_merge(oplog, merge_frontier, device)
+            return
+        from ..native import native_ctx_or_none
+        ctx = native_ctx_or_none(oplog)
+        if ctx is not None:
+            # zone is never chosen before both engines are measured (or a
+            # demoted zone engine's cooldown re-probe)
+            if policy.GLOBAL.choose(top(merge_frontier) - top(self.version)) \
+                    == policy.ZONE:
+                self._zone_merge(oplog, merge_frontier, device)
+                return
+            n_before = top(self.version)
+            t0 = time.perf_counter()
+            self._merge_tracker(oplog, merge_frontier, ctx)
+            policy.GLOBAL.record(policy.TRACKER, top(self.version) - n_before,
+                                 time.perf_counter() - t0)
+            return
+        self._merge_python(oplog, merge_frontier)
+
+    def merge_reference(self, oplog: OpLog,
+                        merge_frontier: Sequence[int]) -> None:
+        """`merge` on a host engine that nothing but the native library's
+        presence picks: the C++ tracker called directly, else the
+        pure-Python oracle. No environment switch or engine policy reaches
+        it and it records no rate, so a parity check can hold the engines
+        that `merge` selects against it."""
+        from ..native import native_ctx_or_none
+        ctx = native_ctx_or_none(oplog)
+        if ctx is not None:
+            self._merge_tracker(oplog, merge_frontier, ctx)
+        else:
+            self._merge_python(oplog, merge_frontier)
+
+    def _merge_tracker(self, oplog: OpLog, merge_frontier: Sequence[int],
+                       ctx) -> None:
+        from ..native.core import merge_native
+        doc, frontier = merge_native(oplog, self.snapshot(), self.version,
+                                     merge_frontier)
+        self.content = Rope(doc)
+        self.version = frontier
+        self.last_merge_collisions = ctx.last_collisions()
+        self.last_merge_engine = "tracker"
+
+    def _merge_python(self, oplog: OpLog,
+                      merge_frontier: Sequence[int]) -> None:
         xf = oplog.get_xf_operations_full(self.version, merge_frontier)
         self._apply_xf(oplog, xf)
         self.version = list(xf.next_frontier)
         self.last_merge_collisions = xf.collisions
         self.last_merge_engine = "python"
+
+    def _zone_merge(self, oplog: OpLog, merge_frontier: Sequence[int],
+                    device) -> None:
+        """The zone engine; its full runs record their own rate into the
+        policy (`zone_checkout_device`)."""
+        from ..gpu.zone_kernel import zone_checkout_device
+        from ..listmerge.policy import ZONE
+        text, frontier = zone_checkout_device(oplog, self.version,
+                                              merge_frontier, device=device)
+        self.content = Rope(text)
+        self.version = list(frontier)
+        self.last_merge_engine = ZONE
 
     def _apply_xf(self, oplog: OpLog, rows) -> None:
         """Apply an (lv, op, xf_pos|None) stream to this branch's content —

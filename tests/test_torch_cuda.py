@@ -14,6 +14,7 @@ from diamond_types_tpu_torch import OpLog
 from diamond_types_tpu_torch.gpu import flush_fuse as ff
 from diamond_types_tpu_torch.gpu import (kernels, linearize, merge_kernel,
                                          xform)
+from diamond_types_tpu_torch.native.core import merge_native
 
 pytestmark = pytest.mark.cuda
 
@@ -473,3 +474,94 @@ def test_graph_kernels_on_card_match_cpu(monkeypatch):
     ra, rb = gk.make_diff_fn(g, "cuda")(a, b)
     assert gk.diff_to_spans(g, ra, rb) == tuple(g.diff([n_lv - 1],
                                                        [17, 2399]))
+
+
+# ---- X8: the zone engine's tape --------------------------------------------
+
+def _zone_doc(seed, base=120, rounds=3):
+    """A concurrent history of three agents (`torch_parity.TwinDocs`)."""
+    from torch_parity import TwinDocs
+    agents = ("alice", "bob", "carol")
+    tw = TwinDocs([OpLog()], seed)
+    tw.type_base(agents[0], base)
+    tw.fork(agents)
+    for _ in range(rounds):
+        tw.concurrent_round(agents, 4)
+    return tw.oplogs[0]
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("budgets", [(8, 512, 16), (2, 8, 2)])
+@pytest.mark.parametrize("seed", [1, 2])
+def test_zone_tape_matches_plain_on_card(seed, budgets, batch):
+    _need_card()
+    from diamond_types_tpu_torch.gpu import zone_kernel as zk
+    from diamond_types_tpu_torch.listmerge.zone_np import prepare_zone
+    ol = _zone_doc(seed)
+    prep = prepare_zone(ol)
+    tape = zk.pack_zone_tape(prep, *budgets)
+
+    def carry(dev):
+        return zk.init_zone_carry(tape.W, tape.plen, tape.n_idx,
+                                  prep.agent_k, prep.seq_k, batch=batch,
+                                  device=dev)
+    want = zk.run_zone_plain(carry("cpu"), zk.tape_xs(tape, "cpu"),
+                             tape.plen)
+    got = carry("cuda")
+    launches = kernels.zone_tape_run.launches
+    assert kernels.zone_tape_run(got, zk.tape_xs(tape, "cuda"),
+                                 tape.plen) is got
+    torch.cuda.synchronize()
+    assert kernels.zone_tape_run.launches == launches + 1
+    for name, g, w in zip(zk.ZoneCarry._fields, got, want):
+        assert torch.equal(g.cpu(), w), name
+    # sliced: one launch per slice on the resident carry
+    _s, parts = zk.slice_tape_xs(tape, 5, "cuda")
+    sliced = carry("cuda")
+    for xs in parts:
+        kernels.zone_tape_run(sliced, xs, tape.plen)
+    for name, g, w in zip(zk.ZoneCarry._fields, sliced, got):
+        assert torch.equal(g, w), name
+    assert zk.zone_checkout_device(ol, prep=prep, tape=tape)[0] == \
+        merge_native(ol, "", [], ol.version)[0]
+
+
+def test_zone_session_on_card_matches_tracker():
+    _need_card()
+    from torch_parity import TwinDocs
+    from diamond_types_tpu_torch.gpu.zone_session import DeviceZoneSession
+    agents = ("alice", "bob", "carol")
+    tw = TwinDocs([OpLog()], 9)
+    tw.type_base(agents[0], 80)
+    tw.fork(agents)
+    ol = tw.oplogs[0]
+    sess = DeviceZoneSession(ol, max_chars=32)
+    assert sess.carry.rank.device.type == "cuda"
+    launches = kernels.zone_tape_run.launches
+    for _ in range(6):
+        tw.concurrent_round(agents, 2)
+        sess.sync()
+        assert sess.text() == merge_native(ol, "", [], ol.version)[0]
+    assert kernels.zone_tape_run.launches > launches
+
+
+def test_zone_tape_run_refuses_bad_inputs_on_card():
+    _need_card()
+    from diamond_types_tpu_torch.gpu import zone_kernel as zk
+    from diamond_types_tpu_torch.listmerge.zone_np import prepare_zone
+    ol = _zone_doc(3, rounds=1)
+    prep = prepare_zone(ol)
+    tape = zk.pack_zone_tape(prep)
+    xs = zk.tape_xs(tape, "cuda")
+    c = zk.init_zone_carry(tape.W, tape.plen, tape.n_idx, prep.agent_k,
+                           prep.seq_k, device="cuda")
+    with pytest.raises(TypeError, match="state"):
+        kernels.zone_tape_run(c._replace(state=c.state.int()), xs, tape.plen)
+    with pytest.raises(ValueError, match="cpu"):
+        kernels.zone_tape_run(c._replace(m=c.m.cpu()), xs, tape.plen)
+    with pytest.raises(ValueError, match="cpu"):
+        kernels.zone_tape_run(c, dict(xs, op=xs["op"].cpu()), tape.plen)
+    wide = {k: (v.repeat(1, 5) if k.startswith("blk_") else v)
+            for k, v in xs.items()}
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        kernels.zone_tape_run(c, wide, tape.plen)      # MB 40 > 32

@@ -34,7 +34,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "serve.admission", "serve.router", "serve.metrics",
               "serve.__main__", "qos.classes", "obs.hist", "text.trace",
               "parallel.mesh", "parallel.arena", "gpu.graph_kernels",
-              "gpu.plan_kernels", "listmerge.plan2", "listmerge.dense"):
+              "gpu.plan_kernels", "listmerge.plan2", "listmerge.dense",
+              "listmerge.compose", "listmerge.zone_np", "listmerge.policy",
+              "gpu.zone_kernel", "gpu.zone_session"):
         assert f"diamond_types_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -122,9 +122,10 @@ def test_dense_executor_journal_matches_jax(kind, seed):
 @pytest.mark.parametrize("seed", [3, 11])
 def test_branch_merge_plan2_engine(monkeypatch, seed):
     """DT_TPU_PLAN2=1 selects the fork/join engine behind Branch.merge."""
-    _jol, ol = twin_history(400 + seed, rounds=5)
+    jol, ol = twin_history(400 + seed, rounds=5)
     oracle = ol.checkout_tip()
-    assert oracle.last_merge_engine == "python"
+    # the default engine is the JAX package's for the same environment
+    assert oracle.last_merge_engine == jol.checkout_tip().last_merge_engine
     monkeypatch.setenv("DT_TPU_PLAN2", "1")
     b = ol.checkout([])          # the trivial [] -> [] merge, also plan2
     assert b.last_merge_engine == "plan2"

@@ -350,9 +350,14 @@ def test_per_doc_sync_replays_through_the_kernel_rung(monkeypatch):
 
 def test_unported_options_raise():
     ol = OpLog()
-    cpu = dict(FUSED, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        MergeScheduler(2, resolve=lambda d: ol, fused=False, fused_opts=cpu)
+    # fused=False (the zone-session bank) is ported: it no longer raises,
+    # and the fused-only options fall away as in the JAX package
+    sched = MergeScheduler(2, resolve=lambda d: ol, fused=False,
+                           session_opts={"device": "cpu"},
+                           mesh_window=True, device_plan=True)
+    assert not sched.fused and not sched.mesh_window
+    assert not sched.device_plan
+    assert all(b.device == torch.device("cpu") for b in sched.banks)
     # the host engine ignores fused, as in the JAX package
     assert not MergeScheduler(1, resolve=lambda d: ol, engine="host",
                               fused=False).fused

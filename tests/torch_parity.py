@@ -216,3 +216,35 @@ def serve_round(docs: Dict[str, TwinDocs], seed: int, rnd: int,
         tw.concurrent_round(agents, k, max_ins=11, max_del=9)
         out.append((d, k * len(agents) + 1))
     return out
+
+
+# ---- the zone engine --------------------------------------------------------
+
+def zone_history(oplog_types: Sequence, seed: int, n_edits: int = 40,
+                 agents: Sequence[str] = ("alice", "bob", "git"),
+                 max_branches: int = 5, p_branch: float = 0.3) -> list:
+    """One random concurrent-branch history (`test_zone.random_edit`, as
+    the JAX package's zone tests drive it) into a fresh oplog of each of
+    `oplog_types`, from one `random.Random(seed)` stream per oplog, so the
+    histories are identical. Any agent edits any branch, so one agent
+    also edits on parallel branches."""
+    import random
+
+    from test_zone import random_edit
+    out = []
+    for make in oplog_types:
+        rng = random.Random(seed)
+        ol = make()
+        ids = [ol.get_or_create_agent_id(n) for n in agents]
+        branches = [([], "")]
+        for _ in range(n_edits):
+            bi = rng.randrange(len(branches))
+            version, content = branches[bi]
+            agent = ids[rng.randrange(len(ids))]
+            version, content = random_edit(rng, ol, agent, version, content)
+            if rng.random() < p_branch and len(branches) < max_branches:
+                branches.append((version, content))
+            else:
+                branches[bi] = (version, content)
+        out.append(ol)
+    return out
