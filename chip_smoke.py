@@ -152,21 +152,36 @@ package), in phases, each printing one JSON line:
                 the default budgets and with tiny ones (MB 2, MC 8, MD 2:
                 continuation blocks and delete spill), all ten carry planes
                 equal; B 8 in one launch (each replica its own seq keys)
-                against eight B-1 runs; the text against the C++ tracker's.
+                against eight B-1 runs; the text against the C++ tracker's;
+                then X8 forced to every cluster size (1, 2, 4, 8, 16) in
+                both memory forms (`cluster=`), each against the plain
+                version; "pick" is the rule's launch shape there.
  11. zone     - `zone_checkout_device` of the history phase's ~40k-op oplog
                 from [] to its tip (one X8 launch), text and frontier equal
                 to the C++ tracker's; W, plen, n_idx, T; the parts in ms
                 (prepare, pack, upload, X8 call_ms and device_ms, the plain
                 version on the card, text assembly); the host yardstick
-                `merge_native` on the same merge. X8's bound there (the
-                sum over steps of each step's bytes) and the serial
-                chain's floor (its barrier-separated phases times one
-                phase's time, measured with X8 on a tape of no-op steps).
+                `merge_native` on the same merge. X8's launch shape
+                (`x8.cluster`, `x8.form`: the rule's pick,
+                `kernels.cluster_size`), its times, the same times at c 1
+                in global memory (`x8.c1_global`, the layout before
+                clusters) on the same run, its bound there (the sum over
+                steps of each step's bytes) and the serial chain's floor:
+                each APPLY step at least an empty APPLY step's time and
+                each row step a self-FORK's, both measured with X8 at the
+                pick's shape and W (`empty_apply_step_us`,
+                `self_fork_step_us`; `barrier_us` is the empty step over
+                its two cluster barriers: its time per barrier-separated
+                phase).
  12. zone_batch - BASELINE config 4's shape on that tape:
                 `execute_zone_batch` at B 1, 132 and 1,024 (one launch each,
                 every replica's rank and ever equal to B 1's; carry bytes,
-                ms, replicas per second) and `execute_zone_batch_sliced` at
-                B 132 in slices of 128 steps (one launch per slice), equal.
+                ms, replicas per second); the sweep: at each B, X8 at every
+                launch shape that fits (at B 1 all ten), the least of two
+                launches each, every replica equal to B 1's, with the
+                rule's pick and the best shape; `execute_zone_batch_sliced`
+                at B 132 in slices of 128 steps (one launch per slice),
+                equal.
  13. scheduler_zone - the zone-session bank: the scheduler phase's 256
                 documents and edits (its generator seed) through
                 `MergeScheduler(fused=False)`, every `DeviceZoneSession`
@@ -178,7 +193,10 @@ package), in phases, each printing one JSON line:
                 launches == the sessions' tape runs, and every launch held
                 exactly against the plain version on the same carry and
                 tape; docs/s, flush p50/p99, builds, resyncs, continued
-                launches and the device busy share.
+                launches, the device busy share and `cluster_hist`, the
+                rule's launch shape over the launches (derived from each
+                session's carry shape with `kernels.cluster_size`, as the
+                wrapper picks it).
  14. kernels  - one line for K1, K2, K3 and X8: launches on the main path (K1
                 and K2 in the serve phase, K3 in the checkout phase; per
                 path in `launches_by_path`, the scheduler's, the flush
@@ -231,6 +249,7 @@ script, it fails at once.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import subprocess
@@ -1908,6 +1927,8 @@ class ZoneConfig:
     slice_steps: int = 128
     slice_batch: int = 132
     reps: int = 3                      # timed kernel calls
+    sweep_reps: int = 2                # launches a shape in the sweep (the
+                                       # least time is kept)
     sched_rounds: int = 2              # of the scheduler phase's 6
     sched_continued_rounds: int = 2    # then with the last round's agents
     sched_max_slots: int = 1 << 30     # every zone session stays resident
@@ -1920,6 +1941,27 @@ def zone_err(got, want) -> int:
 
 def zone_bytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def shape_name(shape) -> str:
+    """A launch shape (c, smem) as "c16 shared" / "c1 global"."""
+    return f"c{shape[0]} {'shared' if shape[1] else 'global'}"
+
+
+def zone_shapes(kernels, B: int, W: int, n_idx: int,
+                every: bool = False) -> list:
+    """X8's launch shapes to run: every cluster size in both forms
+    (`every`; the shared-memory ones where the slice fits), else every
+    shared-memory size that fits, c 1 in global memory (the layout before
+    clusters) and the rule's pick."""
+    fits = [(c, True) for c in kernels.CLUSTER_SIZES
+            if kernels.zone_smem_bytes(W, n_idx, c)
+            <= kernels.ZONE_SMEM_BUDGET]
+    if every:
+        return fits + [(c, False) for c in kernels.CLUSTER_SIZES]
+    out = fits + [(1, False)]
+    pick = tuple(kernels.cluster_size(B, W, n_idx))
+    return out if pick in out else out + [pick]
 
 
 def zone_bounds(zk, tape, xs: dict, carry) -> dict:
@@ -1954,22 +1996,31 @@ def zone_bounds(zk, tape, xs: dict, carry) -> dict:
             / HBM_BYTES_PER_S}
 
 
-def zone_phase_us(zk, device, steps: int = 1 << 14) -> float:
-    """The card's time for one barrier-separated phase of X8, measured with
-    X8 itself: a tape of `steps` self-FORKs of a one-slot row (one
-    dependent global read and write and one barrier a step), per step."""
+# cluster barriers in an APPLY step of X8 whose snapshot did not change,
+# as in the empty steps of `zone_step_us`
+ZONE_APPLY_BARRIERS = 2
+
+
+def zone_step_us(zk, device, W: int, n_idx: int, cluster, op: int,
+                 steps: int = 1 << 12) -> float:
+    """The card's time for one step of X8 that does no work, at W slots and
+    n_idx rows and the launch shape `cluster`, measured with X8 itself on a
+    tape of `steps` such steps over a carry with no placed rank: empty
+    APPLY steps (op OP_APPLY: no block, char or delete, m 0; the step's
+    cluster barriers and its block barrier) or self-FORKs of row 0 (a
+    slice copy and one block barrier). Microseconds per step."""
     from diamond_types_tpu_torch.gpu import kernels
     xs = {k: torch.zeros((steps,) if k in zk.XS_KEYS[:4] else (steps, 1),
                          dtype=torch.int32, device=device)
           for k in zk.XS_KEYS}
-    xs["op"].fill_(zk.OP_FORK)
+    xs["op"].fill_(op)
     for k in ("blk_cursor", "blk_prev", "ch_slot", "ch_ol_static",
               "ch_orr_own", "del_kind"):
         xs[k].fill_(-1)
-    carry = zk.init_zone_carry(1, 0, 1, np.zeros(1), np.zeros(1),
-                               device=device)
-    return 1e3 * device_ms(lambda: kernels.zone_tape_run(carry, xs, 0),
-                           3) / steps
+    zeros = np.zeros(W, np.int32)
+    carry = zk.init_zone_carry(W, 0, n_idx, zeros, zeros, device=device)
+    return 1e3 * device_ms(lambda: kernels.zone_tape_run(
+        carry, xs, 0, cluster=cluster), 3) / steps
 
 
 def zone_fresh(zk, tape, prep, device, batch: int = 1, seq_k=None):
@@ -1985,7 +2036,9 @@ def run_zone_kernel(rng: np.random.Generator, device,
     the default budgets and with tiny ones (continuation blocks, delete
     spill); all ten carry planes must be equal. Then B `replicas` in one
     launch (each replica its own seq keys) against that many B-1 runs,
-    and the text against the C++ tracker's."""
+    and the text against the C++ tracker's; then X8 forced to every
+    cluster size in both memory forms (`zone_shapes(every=True)`), each
+    against the plain version."""
     from diamond_types_tpu_torch.gpu import kernels
     from diamond_types_tpu_torch.gpu import zone_kernel as zk
     from diamond_types_tpu_torch.listmerge.zone_np import prepare_zone
@@ -2014,6 +2067,12 @@ def run_zone_kernel(rng: np.random.Generator, device,
                 zone_fresh(zk, tape, prep, device, 1, seq_b[i].numpy()), xs,
                 tape.plen)
             err = max(err, zone_err([t[i:i + 1] for t in many], one))
+        # every cluster size in both memory forms, forced
+        shapes = zone_shapes(kernels, 1, tape.W, tape.n_idx, every=True)
+        for shape in shapes:
+            err = max(err, zone_err(kernels.zone_tape_run(
+                zone_fresh(zk, tape, prep, device), xs, tape.plen,
+                cluster=shape), want))
         text = zk.assemble_text(got.rank[0], got.ever[0], prep.pool)
         check(err == 0, f"zone_kernel {name}: X8 differs from its plain "
               f"version (or B {zcfg.replicas} from B 1): max abs err {err}")
@@ -2024,6 +2083,9 @@ def run_zone_kernel(rng: np.random.Generator, device,
                       "W": tape.W, "n_idx": tape.n_idx, "plen": tape.plen,
                       "continuation_blocks": int((tape.blk_cursor == -2)
                                                  .sum()),
+                      "pick": shape_name(kernels.cluster_size(
+                          1, tape.W, tape.n_idx)),
+                      "clusters_checked": [shape_name(x) for x in shapes],
                       "max_abs_err": err})
     return {"phase": "zone_kernel", "lvs": len(ol),
             "plan_entries": len(prep.plan.entries), "cases": cases,
@@ -2065,22 +2127,33 @@ def run_zone(device, ol, zcfg: ZoneConfig) -> tuple:
     pack_ms = 1e3 * (time.perf_counter() - t)
     xs, upload_ms = wall_ms(lambda: zk.tape_xs(tape, device))
     init = zone_fresh(zk, tape, prep, device)
-    pool = [tuple(t.clone() for t in init)
-            for _ in range(2 + zcfg.reps + 4 * zcfg.reps + 1)]
+    pick = tuple(kernels.cluster_size(1, tape.W, tape.n_idx))
 
-    def kernel_call():
-        return x8(zk.ZoneCarry(*pool.pop()), xs, tape.plen)
+    def x8_timings(cluster):
+        """X8's result and timings at `cluster`, each call on a fresh
+        copy of the carry (copies made before the timed calls)."""
+        pool = [tuple(t.clone() for t in init)
+                for _ in range(2 + zcfg.reps + 4 * zcfg.reps + 1)]
 
-    got = kernel_call()
-    t_k = timings(kernel_call, zcfg.reps, zcfg.reps)
-    # the serial chain: six barrier-separated phases an APPLY step, one a
-    # row step, each at least one phase's time
+        def call():
+            return x8(zk.ZoneCarry(*pool.pop()), xs, tape.plen,
+                      cluster=cluster)
+        got = call()
+        return got, timings(call, zcfg.reps, zcfg.reps)
+
+    got, t_k = x8_timings(None)                 # the rule's pick
+    got_g, t_g = x8_timings((1, False))         # c 1, global memory
+    # the serial chain: an APPLY step at least an empty APPLY step's time
+    # (its cluster barriers), a row step at least a self-FORK's, both
+    # measured with X8 at the pick's shape and W
     apply_steps = int((tape.op == zk.OP_APPLY).sum())
-    phases = 6 * apply_steps + (int(tape.op.shape[0]) - apply_steps)
-    phase_us = zone_phase_us(zk, device)
+    row_steps = int(tape.op.shape[0]) - apply_steps
+    apply_us = zone_step_us(zk, device, tape.W, tape.n_idx, pick,
+                            zk.OP_APPLY)
+    row_us = zone_step_us(zk, device, tape.W, tape.n_idx, pick, zk.OP_FORK)
     want_c, plain_ms = wall_ms(lambda: zk.run_zone_plain(init, xs,
                                                          tape.plen))
-    err = zone_err(got, want_c)
+    err = max(zone_err(got, want_c), zone_err(got_g, want_c))
     check(err == 0, f"zone: X8 differs from its plain version: max abs "
           f"err {err}")
     t = time.perf_counter()
@@ -2099,8 +2172,16 @@ def run_zone(device, ol, zcfg: ZoneConfig) -> tuple:
                          "assemble_text": assemble_ms},
             "x8": {**t_k, "ms": t_k["call_ms"], "plain_ms": plain_ms,
                    **zone_bounds(zk, tape, xs, init),
-                   "serial_phases": phases, "phase_us": phase_us,
-                   "serial_floor_ms": phases * phase_us / 1e3,
+                   "cluster": pick[0],
+                   "form": "shared" if pick[1] else "global",
+                   "c1_global": t_g,
+                   "speedup_vs_c1_global": t_g["device_ms"]
+                   / t_k["device_ms"],
+                   "empty_apply_step_us": apply_us,
+                   "self_fork_step_us": row_us,
+                   "barrier_us": apply_us / ZONE_APPLY_BARRIERS,
+                   "serial_floor_ms": (apply_steps * apply_us
+                                       + row_steps * row_us) / 1e3,
                    "bound_by": "bytes", "library_ms": None,
                    "tape_bytes": zone_bytes(xs.values()),
                    "carry_bytes": zone_bytes(init),
@@ -2114,9 +2195,13 @@ def run_zone_batch(device, prep, tape, zcfg: ZoneConfig) -> dict:
     """BASELINE config 4's shape on the zone phase's tape: one shared tape
     for B replicas, `execute_zone_batch` (ONE X8 launch) at each of
     `batches`, every replica's rank and ever equal to B 1's; then
-    `execute_zone_batch_sliced` at `slice_batch` in slices of
-    `slice_steps` (one launch per slice), equal too. X8's count is set to
-    0 before the runs and read after them."""
+    every launch shape at each B (`zone_shapes`: at B 1 every cluster size
+    in both forms, above it the shared-memory sizes that fit, c 1 in
+    global memory and the rule's pick), each timed by CUDA events around
+    one launch (the least of `sweep_reps` launches, each on a fresh
+    carry), equal too; then `execute_zone_batch_sliced` at `slice_batch`
+    in slices of `slice_steps` (one launch per slice), equal too. X8's
+    count is set to 0 before the runs and read after them."""
     from diamond_types_tpu_torch.gpu import kernels
     from diamond_types_tpu_torch.gpu import zone_kernel as zk
     x8 = kernels.zone_tape_run
@@ -2137,6 +2222,35 @@ def run_zone_batch(device, prep, tape, zcfg: ZoneConfig) -> dict:
                      "carry_bytes": per_replica * b,
                      "peak_mib": torch.cuda.max_memory_allocated() / 2**20})
         del rank, ever
+    # every shape that fits at each B, one launch each on a fresh carry,
+    # timed by CUDA events around the launch; rank and ever against B 1
+    sweep = []
+    for b in zcfg.batches:
+        pick = tuple(kernels.cluster_size(b, tape.W, tape.n_idx))
+        row = {"B": b, "pick": shape_name(pick), "device_ms": {}}
+        for shape in zone_shapes(kernels, b, tape.W, tape.n_idx,
+                                 every=b == 1):
+            times = []
+            for _ in range(zcfg.sweep_reps):
+                carry = zone_fresh(zk, tape, prep, device, b)
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                torch.cuda.synchronize()
+                ev[0].record()
+                x8(carry, xs, tape.plen, cluster=shape)
+                ev[1].record()
+                torch.cuda.synchronize()
+                check(bool((carry.rank == ref[0]).all())
+                      and bool((carry.ever == ref[1]).all()),
+                      f"zone_batch: a replica of B {b} at "
+                      f"{shape_name(shape)} differs from B 1")
+                times.append(ev[0].elapsed_time(ev[1]))
+                del carry
+            row["device_ms"][shape_name(shape)] = min(times)
+        ms = row["device_ms"]
+        row["best"] = min(ms, key=ms.get)
+        row["pick_vs_c1_global"] = ms[row["pick"]] / ms["c1 global"]
+        row["replicas_per_s_pick"] = b / (ms[row["pick"]] / 1e3)
+        sweep.append(row)
     (rank, ever), sliced_ms = wall_ms(lambda: zk.execute_zone_batch_sliced(
         tape, prep.agent_k, prep.seq_k, zcfg.slice_batch,
         slice_steps=zcfg.slice_steps, device=device))
@@ -2144,12 +2258,14 @@ def run_zone_batch(device, prep, tape, zcfg: ZoneConfig) -> dict:
           "zone_batch: the sliced run differs from B 1")
     n_slices = -(-int(tape.op.shape[0]) // zcfg.slice_steps)
     launches = x8.launches
-    check(launches == len(zcfg.batches) + n_slices,
+    n_sweep = zcfg.sweep_reps * sum(len(r["device_ms"]) for r in sweep)
+    check(launches == len(zcfg.batches) + n_sweep + n_slices,
           f"zone_batch: X8 launched {launches} times for "
-          f"{len(zcfg.batches)} batches and {n_slices} slices")
+          f"{len(zcfg.batches)} batches, {n_sweep} sweep launches and "
+          f"{n_slices} slices")
     return {"phase": "zone_batch", "W": tape.W, "T": int(tape.op.shape[0]),
             "n_idx": tape.n_idx, "carry_bytes_per_replica": per_replica,
-            "runs": runs, "launches": launches,
+            "runs": runs, "sweep": sweep, "launches": launches,
             "sliced": {"B": zcfg.slice_batch, "slice_steps": zcfg.slice_steps,
                        "slices": n_slices, "ms": sliced_ms}}
 
@@ -2198,8 +2314,12 @@ def run_scheduler_zone(rng: np.random.Generator, device, cfg: ServeConfig,
     runs = []                      # (tape, carry before, carry after)
     real_run = DeviceZoneSession._run_tape
 
+    shapes = collections.Counter()      # the rule's pick per launch
+
     def counted_run(sess, tape):
         before = zk.ZoneCarry(*(t.clone() for t in sess.carry))
+        B, n_idx, W = sess.carry.state.shape
+        shapes[shape_name(kernels.cluster_size(B, W, n_idx))] += 1
         real_run(sess, tape)
         runs.append((tape, before,
                      zk.ZoneCarry(*(t.clone() for t in sess.carry))))
@@ -2284,6 +2404,7 @@ def run_scheduler_zone(rng: np.random.Generator, device, cfg: ServeConfig,
                           f"{zcfg.sched_continued_rounds} with its last "
                           "round's agents"},
             "setup_s": setup_s, "launches": launches,
+            "cluster_hist": dict(shapes),
             "max_abs_err": err, "launches_checked": launches,
             "plain_check_s": plain_check_s,
             "summary": {
@@ -2508,8 +2629,12 @@ def main(argv=None) -> int:
              **{k: zone["x8"][k] for k in timed},
              "bound_by": "bytes",
              **{k: zone["x8"][k] for k in ("bound_step_bytes",
-                                           "whole_tape_ms", "serial_phases",
-                                           "phase_us", "serial_floor_ms",
+                                           "whole_tape_ms",
+                                           "cluster", "form", "c1_global",
+                                           "speedup_vs_c1_global",
+                                           "empty_apply_step_us",
+                                           "self_fork_step_us", "barrier_us",
+                                           "serial_floor_ms",
                                            "device_us_per_step")},
              "shape": {k: zone[k] for k in ("W", "T", "n_idx", "plen")}}]
         card = nvidia_smi_line()

@@ -22,8 +22,10 @@ what bounds it.
      gather over rows times tiles of the cap axis.
   X8 `zone_tape_run` (`csrc/zone_tape.cu`, from the XLA scan of
      `tpu/zone_kernel.py::make_zone_step`, which has no `pallas_call`): the
-     zone engine's whole step tape for B replicas in one launch, one thread
-     block per replica stepping the tape, the carry updated in place.
+     zone engine's whole step tape for B replicas in one launch, a
+     thread-block cluster per replica stepping the tape, the carry held in
+     the cluster's shared memory where it fits (`cluster_size` picks the
+     cluster and the form) and updated in place.
 
 Build: each `csrc/*.cu` compiles with `nvcc` for `sm_90a` into a shared
 library with a plain C interface, at first use, into `_build/` beside this
@@ -49,7 +51,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -161,8 +163,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             fn.argtypes = [i, i]
             fn.restype = ctypes.c_longlong
     elif name == "zone_tape":
-        lib.dt_zone_tape_run.argtypes = [p] * 32 + [i] * 8 + [p]
+        lib.dt_zone_tape_run.argtypes = [p] * 33 + [i] * 10 + [p]
         lib.dt_zone_tape_run.restype = i
+        lib.dt_zone_tape_smem_bytes.argtypes = [i, i, i]
+        lib.dt_zone_tape_smem_bytes.restype = ctypes.c_longlong
+        lib.dt_zone_tape_smem_budget.argtypes = []
+        lib.dt_zone_tape_smem_budget.restype = ctypes.c_longlong
 
 
 # The current CUDA device and a device's current raw stream, through the
@@ -487,18 +493,85 @@ def _check_zone(carry, xs: dict) -> tuple:
     return B, n_idx, W, T, MB, MC, MD
 
 
-def zone_tape_run(carry, xs: dict, plen: int):
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+SM_COUNT = 132                       # an H100 SXM's streaming multiprocessors
+# the dynamic shared memory one block may take (232,448 bytes less 3,072
+# for the kernel's static arrays); `csrc/zone_tape.cu` holds the same
+ZONE_SMEM_BUDGET = 232448 - 3072
+MIN_SLICE = 1024                     # slots a block keeps when c is raised
+
+
+class ClusterPick(NamedTuple):
+    """X8's launch shape: `c` blocks in a cluster per replica, the carry in
+    shared memory (`smem`) or in global memory."""
+    c: int
+    smem: bool
+
+
+def zone_smem_bytes(W: int, n_idx: int, c: int) -> int:
+    """Shared memory a block of X8's shared-memory form takes for a
+    cluster of c: (n_idx + 36) bytes a slot of its slice, S = ceil(W / c)
+    padded to 16."""
+    S = -(-W // c)
+    return (36 + n_idx) * (-(-S // 16) * 16)
+
+
+def cluster_size(B: int, W: int, n_idx: int) -> ClusterPick:
+    """X8's cluster and form for B replicas of W slots and n_idx rows.
+
+    The shared-memory form at the smallest c whose slice fits, unless the
+    card would run its clusters in more than three times the waves that
+    the global-memory form at c 1 (a replica per SM) takes: on one H100,
+    at the history zone of `chip_smoke.py` (W 38,029, n_idx 6), a replica
+    took 8-10 ms at c 8-16 in shared memory and 31 ms at c 1 in global
+    memory, and at B 132 and 1,024 c 1 global beat c 8 shared 2x (42.6
+    against 87.8 ms, 332 against 671 ms). Where no c fits, the global
+    form. Then c is doubled while the card holds every block at once
+    (B * c <= 132) and each block keeps >= 1,024 slots."""
+    fits = [c for c in CLUSTER_SIZES
+            if zone_smem_bytes(W, n_idx, c) <= ZONE_SMEM_BUDGET]
+    smem = bool(fits)
+    c = fits[0] if fits else 1
+    if smem and c > 1 and -(-B * c // SM_COUNT) > 3 * -(-B // SM_COUNT):
+        c, smem = 1, False
+    while c < CLUSTER_SIZES[-1] and B * 2 * c <= SM_COUNT and \
+            -(-W // (2 * c)) >= MIN_SLICE:
+        c *= 2
+    return ClusterPick(c, smem)
+
+
+def _zone_pick(B: int, W: int, n_idx: int, cluster) -> ClusterPick:
+    if cluster is None:
+        return cluster_size(B, W, n_idx)
+    c, smem = cluster
+    pick = ClusterPick(int(c), bool(smem))
+    if pick.c not in CLUSTER_SIZES:
+        raise ValueError(f"cluster size must be one of {CLUSTER_SIZES}, "
+                         f"got {pick.c}")
+    if pick.smem and zone_smem_bytes(W, n_idx, pick.c) > ZONE_SMEM_BUDGET:
+        raise ValueError(
+            f"a slice of W={W}, n_idx={n_idx} at cluster {pick.c} does not "
+            f"fit shared memory: {zone_smem_bytes(W, n_idx, pick.c)} > "
+            f"{ZONE_SMEM_BUDGET} bytes a block")
+    return pick
+
+
+def zone_tape_run(carry, xs: dict, plen: int, cluster=None):
     """Run every step of the tape `xs` (the zone tape's columns, `[T]`,
     `[T, MB]`, `[T, MC]`, `[T, MD]` int32; `gpu/zone_kernel.tape_xs`) on
     the batched zone carry (`gpu/zone_kernel.ZoneCarry`), updating the
     carry IN PLACE; returns it. `plen` is the prefix length (what OP_BEGIN
-    sets).
+    sets). `cluster`, a (c, smem) pair, forces the launch shape; by default
+    `cluster_size(B, W, n_idx)` picks it. A forced shared-memory form whose
+    slice does not fit raises.
 
-    CUDA tensors launch the kernel once: one thread block per replica,
-    stepping the whole tape (MB <= 32: the launcher refuses more). CPU
-    tensors run the plain version `zone_kernel.run_zone_plain` and copy its
-    result into the carry."""
+    CUDA tensors launch the kernel once: a cluster of c blocks per replica,
+    stepping the whole tape (MB <= 32: the launcher refuses more). A launch
+    the card refuses (an attribute, or a cluster it cannot hold) raises;
+    nothing retries at another shape. CPU tensors run the plain version
+    `zone_kernel.run_zone_plain` and copy its result into the carry."""
     B, n_idx, W, T, MB, MC, MD = _check_zone(carry, xs)
+    pick = _zone_pick(B, W, n_idx, cluster)
     ts = dict(carry._asdict(), **{f"xs_{k}": v for k, v in xs.items()})
     if not _launch_device(carry.state.device, **ts):
         from .zone_kernel import run_zone_plain
@@ -508,23 +581,28 @@ def zone_tape_run(carry, xs: dict, plen: int):
         return carry
     if B == 0 or T == 0:
         return carry
-    if n_idx * W >= 1 << 31:
-        raise ValueError(f"state row table too large: n_idx={n_idx}, "
-                         f"W={W}")
+    if n_idx * W >= 1 << 31 or B * pick.c >= 1 << 31:
+        raise ValueError(f"zone carry too large for one launch: B={B}, "
+                         f"n_idx={n_idx}, W={W}, cluster {pick.c}")
     lib = _lib("zone_tape")
     dev = carry.state.device
-    # per replica: the visibility prefix sum, the snapshot states in rank
-    # order, and the next order
-    cum = torch.empty((B, W), dtype=torch.int32, device=dev)
-    sr = torch.empty((B, W), dtype=torch.uint8, device=dev)
-    ord2 = torch.empty((B, W), dtype=torch.int32, device=dev)
+    # the global form's scratch per replica: the visibility prefix sum, the
+    # snapshot states in rank order, and the second buffers of the order and
+    # of those states (the shared-memory form keeps them in shared memory)
+    scratch = [0, 0, 0, 0]
+    if not pick.smem:
+        bufs = (torch.empty((B, W), dtype=torch.int32, device=dev),
+                torch.empty((B, W), dtype=torch.uint8, device=dev),
+                torch.empty((B, W), dtype=torch.int32, device=dev),
+                torch.empty((B, W), dtype=torch.uint8, device=dev))
+        scratch = [t.data_ptr() for t in bufs]
     from .zone_kernel import XS_KEYS
     ptrs = [xs[k].data_ptr() for k in XS_KEYS] + \
-        [t.data_ptr() for t in carry] + \
-        [cum.data_ptr(), sr.data_ptr(), ord2.data_ptr()]
+        [t.data_ptr() for t in carry] + scratch
     rc = _launch_on(dev, lib.dt_zone_tape_run, *ptrs, B, T, W, int(plen),
-                    n_idx, MB, MC, MD)
-    _raise_on(lib, rc, "zone_tape_run launch")
+                    n_idx, MB, MC, MD, pick.c, int(pick.smem))
+    _raise_on(lib, rc, f"zone_tape_run launch (cluster {pick.c}, "
+              f"{'shared' if pick.smem else 'global'} memory)")
     count_launch("zone_tape_run")
     return carry
 

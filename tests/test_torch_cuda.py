@@ -490,40 +490,123 @@ def _zone_doc(seed, base=120, rounds=3):
     return tw.oplogs[0]
 
 
+# X8's launch shapes: every cluster size in both memory forms
+CLUSTERS = [(c, smem) for smem in (True, False) for c in (1, 2, 4, 8, 16)]
+
+
+def _zone_case(seed, budgets, batch):
+    from diamond_types_tpu_torch.gpu import zone_kernel as zk
+    from diamond_types_tpu_torch.listmerge.zone_np import prepare_zone
+    key = (seed, budgets, batch)
+    if key not in _ZONE_CASES:
+        ol = _zone_doc(seed)
+        prep = prepare_zone(ol)
+        tape = zk.pack_zone_tape(prep, *budgets)
+        want = zk.run_zone_plain(_zone_carry(tape, prep, batch, "cpu"),
+                                 zk.tape_xs(tape, "cpu"), tape.plen)
+        _ZONE_CASES[key] = (ol, prep, tape, want)
+    return _ZONE_CASES[key]
+
+
+_ZONE_CASES = {}
+
+
+def _zone_carry(tape, prep, batch, dev):
+    from diamond_types_tpu_torch.gpu import zone_kernel as zk
+    return zk.init_zone_carry(tape.W, tape.plen, tape.n_idx, prep.agent_k,
+                              prep.seq_k, batch=batch, device=dev)
+
+
+@pytest.mark.parametrize("cluster", CLUSTERS)
 @pytest.mark.parametrize("batch", [1, 8])
 @pytest.mark.parametrize("budgets", [(8, 512, 16), (2, 8, 2)])
 @pytest.mark.parametrize("seed", [1, 2])
-def test_zone_tape_matches_plain_on_card(seed, budgets, batch):
+def test_zone_tape_matches_plain_on_card(seed, budgets, batch, cluster):
+    """X8 at every forced cluster size and form equals the plain version
+    on all ten planes; sliced launches continue it in place."""
     _need_card()
     from diamond_types_tpu_torch.gpu import zone_kernel as zk
-    from diamond_types_tpu_torch.listmerge.zone_np import prepare_zone
-    ol = _zone_doc(seed)
-    prep = prepare_zone(ol)
-    tape = zk.pack_zone_tape(prep, *budgets)
-
-    def carry(dev):
-        return zk.init_zone_carry(tape.W, tape.plen, tape.n_idx,
-                                  prep.agent_k, prep.seq_k, batch=batch,
-                                  device=dev)
-    want = zk.run_zone_plain(carry("cpu"), zk.tape_xs(tape, "cpu"),
-                             tape.plen)
-    got = carry("cuda")
+    ol, prep, tape, want = _zone_case(seed, budgets, batch)
+    got = _zone_carry(tape, prep, batch, "cuda")
     launches = kernels.zone_tape_run.launches
-    assert kernels.zone_tape_run(got, zk.tape_xs(tape, "cuda"),
-                                 tape.plen) is got
+    assert kernels.zone_tape_run(got, zk.tape_xs(tape, "cuda"), tape.plen,
+                                 cluster=cluster) is got
     torch.cuda.synchronize()
     assert kernels.zone_tape_run.launches == launches + 1
     for name, g, w in zip(zk.ZoneCarry._fields, got, want):
         assert torch.equal(g.cpu(), w), name
     # sliced: one launch per slice on the resident carry
     _s, parts = zk.slice_tape_xs(tape, 5, "cuda")
-    sliced = carry("cuda")
+    sliced = _zone_carry(tape, prep, batch, "cuda")
     for xs in parts:
-        kernels.zone_tape_run(sliced, xs, tape.plen)
+        kernels.zone_tape_run(sliced, xs, tape.plen, cluster=cluster)
     for name, g, w in zip(zk.ZoneCarry._fields, sliced, got):
         assert torch.equal(g, w), name
-    assert zk.zone_checkout_device(ol, prep=prep, tape=tape)[0] == \
-        merge_native(ol, "", [], ol.version)[0]
+    if cluster == (1, True):
+        assert zk.zone_checkout_device(ol, prep=prep, tape=tape)[0] == \
+            merge_native(ol, "", [], ol.version)[0]
+
+
+@pytest.mark.parametrize("cluster", [(2, True), (16, True), (4, False),
+                                     (16, False)])
+def test_zone_tape_halves_continue_on_card(cluster):
+    """Two launches over the two halves of a tape equal one launch over
+    the whole tape: the carry continues in place at c > 1."""
+    _need_card()
+    from diamond_types_tpu_torch.gpu import zone_kernel as zk
+    _ol, prep, tape, want = _zone_case(2, (8, 512, 16), 2)
+    xs = zk.tape_xs(tape, "cuda")
+    half = len(tape.op) // 2
+    whole = _zone_carry(tape, prep, 2, "cuda")
+    kernels.zone_tape_run(whole, xs, tape.plen, cluster=cluster)
+    halves = _zone_carry(tape, prep, 2, "cuda")
+    for part in ({k: v[:half] for k, v in xs.items()},
+                 {k: v[half:] for k, v in xs.items()}):
+        kernels.zone_tape_run(halves, part, tape.plen, cluster=cluster)
+    torch.cuda.synchronize()
+    for name, a, b, w in zip(zk.ZoneCarry._fields, halves, whole, want):
+        assert torch.equal(a, b), name
+        assert torch.equal(b.cpu(), w), name
+
+
+def _fork_tape(W):
+    """A carry of W slots and n_idx 6, and a tape of one self-FORK."""
+    from diamond_types_tpu_torch.gpu import zone_kernel as zk
+    c = zk.init_zone_carry(W, 0, 6, np.zeros(W, np.int32),
+                           np.zeros(W, np.int32), device="cuda")
+    xs = {k: torch.zeros((1,) if k in zk.XS_KEYS[:4] else (1, 1),
+                         dtype=torch.int32, device="cuda")
+          for k in zk.XS_KEYS}
+    xs["op"].fill_(zk.OP_FORK)
+    return c, xs
+
+
+def test_zone_tape_cluster_limits_on_card():
+    """The library's shared-memory sizes and budget equal the wrapper's
+    mirror; the card launches clusters of 8 and 16 at the history zone's
+    shape (a launch whose cluster the card cannot hold raises); a forced
+    shape whose slice does not fit raises, with no launch."""
+    _need_card()
+    lib = kernels._lib("zone_tape")
+    assert lib.dt_zone_tape_smem_budget() == kernels.ZONE_SMEM_BUDGET
+    for W, n_idx in ((38029, 6), (87296, 6), (300, 20), (17, 1)):
+        for c in kernels.CLUSTER_SIZES:
+            assert lib.dt_zone_tape_smem_bytes(W, n_idx, c) == \
+                kernels.zone_smem_bytes(W, n_idx, c)
+    assert kernels.cluster_size(1, 38029, 6) == (16, True)
+    for shape in ((16, True), (8, True)):
+        c, xs = _fork_tape(38029)
+        kernels.zone_tape_run(c, xs, 0, cluster=shape)
+        torch.cuda.synchronize()
+    W = 100_000
+    c, xs = _fork_tape(W)
+    launches = kernels.zone_tape_run.launches
+    with pytest.raises(ValueError, match="does not fit"):
+        kernels.zone_tape_run(c, xs, 0, cluster=(16, True))
+    with pytest.raises(ValueError, match="cluster size"):
+        kernels.zone_tape_run(c, xs, 0, cluster=(3, False))
+    assert kernels.zone_tape_run.launches == launches
+    assert kernels.cluster_size(1, W, 6) == (16, False)
 
 
 def test_zone_session_on_card_matches_tracker():

@@ -10,11 +10,16 @@ equal the JAX package's; and `zone_checkout_device(device="cpu")` must equal
 the tracker and the JAX engine. Equality is exact everywhere.
 
 `_kernel_model` is a NumPy model of `csrc/zone_tape.cu`'s phases (a window
-scan in place of the masked reductions, the bump in rank space, deletes
-by binary search, the order copied back with its tail zeroed once per
-launch); it must equal the plain version launch by launch, so the
-kernel's restructuring of the JAX step is held here, where the kernel
-itself cannot run.
+scan in place of the masked reductions, the order and the snapshot states
+in rank order shifted into second buffers that swap, the ranks bumped slot
+by slot, searches and deletes by binary search in the block holding the
+coordinate, the order written back with its tail zeroed), by a cluster of
+1, 2, 4 or 16 blocks: per-slice planes, slice totals and the counts carried
+by the shift, the rank planes cut by the placed ranks; it must equal the
+plain version launch by launch, so the kernel's restructuring of the JAX
+step is held here, where the kernel itself cannot run.
+`cluster_size` (the wrapper's pick of the cluster and the memory form) is
+a pure function, tested here too.
 """
 
 from functools import partial
@@ -130,28 +135,64 @@ def test_plain_carry_matches_jax_scan(seed, budgets):
 
 # ---- a NumPy model of csrc/zone_tape.cu -------------------------------------
 
-def _lower_bound(cum, m, v):
-    """First i in [0, m) with cum[i] >= v, or m."""
-    return int(np.searchsorted(cum[:m], v, side="left"))
+class _Plane:
+    """A carry or scratch plane cut into `cs` slices of S = ceil(W / cs),
+    one per block of a cluster (the last ones short, or empty past W): element
+    idx lives in slice idx // S at idx - (idx // S) * S, which is how the
+    kernel addresses another block's shared memory."""
+
+    def __init__(self, arr, cs):
+        self.S = -(-len(arr) // cs)
+        self.parts = [np.array(arr[k * self.S:(k + 1) * self.S])
+                      for k in range(cs)]
+
+    def __getitem__(self, idx):
+        k = idx // self.S
+        return self.parts[k][idx - k * self.S]
+
+    def __setitem__(self, idx, v):
+        k = idx // self.S
+        self.parts[k][idx - k * self.S] = v
+
+    def whole(self):
+        return np.concatenate(self.parts)
 
 
-def _search_full(cum, m, W, v, total):
-    lb = _lower_bound(cum, m, v)
-    if lb < m:
-        return lb
-    return m if (v <= total and m < W) else W
-
-
-def _kernel_model(c, xs, plen):
+def _kernel_model(c, xs, plen, cs=1):
     """One launch of the kernel over ONE replica's carry `c` (a dict of
-    NumPy planes, m an int), phase by phase as the CUDA source does it."""
-    state, snap, rank, ordv = c["state"], c["snap"], c["rank"], c["ord"]
-    ol_id, orr_id, ever = c["ol_id"], c["orr_id"], c["ever"]
-    ak, sk = c["agent_k"], c["seq_k"]
-    n_idx, W = state.shape
+    NumPy planes, m an int) by a cluster of `cs` blocks, phase by phase as
+    the CUDA source does it: each block loads its slices, works on its own
+    slots and ranks, reads and writes other blocks' slices where the
+    source does, and writes its slices back. The order and the snapshot
+    states in rank order (sr) live in two buffers that swap every APPLY
+    step, their tails stale (filled with junk here, so a read of one shows);
+    sr is rebuilt from the slots on a snapshot step and on the launch's
+    first APPLY, else carried by the shift. Returns what the launch
+    exercised: the least m an APPLY step saw and the integrate windows
+    that crossed a slice boundary."""
+    n_idx, W = c["state"].shape
+    P = {k: _Plane(c[k], cs) for k in ("snap", "rank", "ol_id", "orr_id",
+                                        "ever", "agent_k", "seq_k")}
+    rows = [_Plane(c["state"][q], cs) for q in range(n_idx)]
+    snap, rank = P["snap"], P["rank"]
+    ol_id, orr_id, ever = P["ol_id"], P["orr_id"], P["ever"]
+    ak, sk = P["agent_k"], P["seq_k"]
+    # the rank-indexed planes, cut by the placed ranks: with m placed,
+    # block j holds the ranks [j * Sr, (j+1) * Sr), Sr = ceil(m / cs)
+    cum = np.zeros(W, np.int64)
+    ords = [np.array(c["ord"]), np.full(W, 7777, np.int32)]
+    srs = [np.full(W, 7, np.uint8) for _ in range(2)]
+
+    def rank_slice(mm):
+        return max(1, -(-mm // cs))
+    cur = 0
+    S = snap.S
+    own = [(j * S, min(j * S + S, W)) for j in range(cs)]
     m = c["m"]
-    MB, MC = xs["blk_cursor"].shape[1], xs["ch_slot"].shape[1]
-    tail_zeroed = False
+    MB = xs["blk_cursor"].shape[1]
+    applied = sr_valid = False
+    hist_next = None      # the next step's counts, from this step's shift
+    stats = {"min_m": None, "crossing_windows": 0}
 
     def cl(x, lo, hi):
         return min(max(int(x), lo), hi)
@@ -161,26 +202,73 @@ def _kernel_model(c, xs, plen):
         if op != tk.OP_APPLY:
             a = cl(xs["a"][t], 0, n_idx - 1)
             tgt = cl(xs["a"][t] if op == 0 else xs["b"][t], 0, n_idx - 1)
-            if op == tk.OP_BEGIN:
-                state[tgt] = np.arange(W) < plen
-            elif op == tk.OP_FORK:
-                state[tgt] = state[a]
-            else:
-                state[tgt] = np.maximum(state[tgt], state[a])
+            for j, (lo, hi) in enumerate(own):
+                if op == tk.OP_BEGIN:
+                    rows[tgt].parts[j][:] = np.arange(lo, hi) < plen
+                elif op == tk.OP_FORK:
+                    rows[tgt].parts[j][:] = rows[a].parts[j]
+                else:
+                    rows[tgt].parts[j][:] = np.maximum(rows[tgt].parts[j],
+                                                       rows[a].parts[j])
             continue
+        stats["min_m"] = m if stats["min_m"] is None else \
+            min(stats["min_m"], m)
         x = {k: v[t] for k, v in xs.items()}
-        st = state[cl(x["a"], 0, n_idx - 1)]
-        # phase 1: keys, snapshot, char count
-        ok = (x["ch_slot"] >= 0) & (x["ch_slot"] < W)
-        ak[x["ch_slot"][ok]] = x["ch_agent"][ok]
-        sk[x["ch_slot"][ok]] = x["ch_seq"][ok]
+        st = rows[cl(x["a"], 0, n_idx - 1)]
+        ordv, sr = ords[cur], srs[cur]
+        ord2, sr2 = ords[1 - cur], srs[1 - cur]
+        snap_now = int(x["snap"]) == 1
+        fresh = snap_now or not sr_valid
+        Sr = rank_slice(m)
+        ranks = [(min(j * Sr, m), min(j * Sr + Sr, m)) for j in range(cs)]
+        # phase 1, block by block: keys by the slot's owner, snapshot; on
+        # a fresh step each own placed slot's snapshot state scattered to
+        # its rank (sr[rank[s]] = snap[s]) and counted per rank slice, else
+        # the counts the last step's shift made
+        hist = np.zeros((cs, cs), np.int64) if fresh else hist_next
+        for j, (lo, hi) in enumerate(own):
+            for k in np.flatnonzero((x["ch_slot"] >= lo)
+                                    & (x["ch_slot"] < hi)):
+                ak[int(x["ch_slot"][k])] = x["ch_agent"][k]
+                sk[int(x["ch_slot"][k])] = x["ch_seq"][k]
+            if snap_now:
+                snap.parts[j][:] = st.parts[j]
+            if fresh:
+                for s_ in range(lo, hi):
+                    rs = int(rank[s_])
+                    if rs < m:
+                        sr[rs] = snap[s_]
+                        hist[j, rs // Sr] += snap[s_] == 1
         nvalid = int((x["ch_slot"] >= 0).sum())
-        if int(x["snap"]) == 1:
-            snap[:] = st
-        # phase 2: sr and its visible scan over the m placed ranks
-        sr = snap[np.clip(ordv[:m], 0, W - 1)]
-        cum = np.cumsum(sr == 1)
-        total = int(cum[-1]) if m else 0
+        # phase 2: the slice totals from every block's bins, then each
+        # block's scan of its own placed ranks (cum counts within the
+        # block; its visible coordinates are (below, upto])
+        part = hist.sum(axis=0)
+        incl = np.cumsum(part)
+        total = int(incl[-1])
+        for j, (rlo, rhi) in enumerate(ranks):
+            assert int((sr[rlo:rhi] == 1).sum()) == part[j]
+            cum[rlo:rhi] = np.cumsum(sr[rlo:rhi] == 1)
+        # then each block finds the coordinates (below, upto] it holds in
+        # its own cum: the cursors of the step's blocks, and the origins
+        # of chars placed by coordinate (written into the char's slot)
+        arank = [None] * MB
+        for j, (rlo, rhi) in enumerate(ranks):
+            below, upto = int(incl[j] - part[j]), int(incl[j])
+
+            def local(v):
+                return rlo + int(np.searchsorted(cum[rlo:rhi], v - below,
+                                                 side="left"))
+            for k in range(MB):
+                cur_k = int(x["blk_cursor"][k])
+                if x["blk_len"][k] > 0 and below < cur_k <= upto:
+                    assert arank[k] is None
+                    arank[k] = local(cur_k)
+            for k in range(len(x["ch_slot"])):
+                coord, slot = int(x["ch_ol_coord"][k]), int(x["ch_slot"][k])
+                if x["ch_ol_static"][k] == -2 and below < coord <= upto \
+                        and 0 <= slot < W:
+                    ol_id[slot] = ordv[local(coord)]
         # phase 3: block k's anchors, then the window scan
         s_t, s_L, s_orr = [BIG] * MB, [0] * MB, [-1] * MB
         for k in range(MB):
@@ -193,11 +281,14 @@ def _kernel_model(c, xs, plen):
             elif cursor <= 0:
                 a_rank = -1
             else:
-                a_rank = _search_full(cum, m, W, cursor, total)
-            nn = np.flatnonzero(sr[max(a_rank + 1, 0):m] != 0)
-            b0 = max(a_rank + 1, 0) + int(nn[0]) if len(nn) else W
+                a_rank = arank[k] if cursor <= total else W
+            b0 = next((i for i in range(max(a_rank + 1, 0), m)
+                       if sr[i] != 0), W)
             orr_char = int(ordv[b0]) if b0 < m else -1
             b_rank = min(b0, m)
+            if max(a_rank + 1, 0) < b_rank and \
+                    max(a_rank + 1, 0) // Sr != (b_rank - 1) // Sr:
+                stats["crossing_windows"] += 1
             if cursor == -2:
                 tk_ = a_rank + 1
             else:
@@ -227,54 +318,91 @@ def _kernel_model(c, xs, plen):
                         streak = i
                 tk_ = streak if streak >= 0 else jstar
             s_t[k], s_L[k], s_orr[k] = tk_, int(x["blk_len"][k]), orr_char
-        # phase 4: bump + next order, new chars, deletes by coordinate
-        ord2 = np.zeros(W, np.int32)
-        for i in range(m):
-            nr = i + sum(L for tb, L in zip(s_t, s_L) if tb <= i)
-            rank[ordv[i]] = nr
-            ord2[nr] = ordv[i]
-        for k in np.flatnonzero(ok):
-            slot = int(x["ch_slot"][k])
+
+        def bumped(r_):
+            return r_ + sum(L for tb, L in zip(s_t, s_L) if tb <= r_)
+
+        def char_rank(k):
             bk = cl(x["ch_blk"][k], 0, MB - 1)
-            nr = s_t[bk] + sum(L for tb, L in zip(s_t, s_L)
-                               if tb < s_t[bk]) + (k - int(x["blk_start"][bk]))
-            rank[slot] = nr
-            if 0 <= nr < W:
-                ord2[nr] = slot
-            ol = int(x["ch_ol_static"][k])
-            if ol == -2:
+            return s_t[bk] + sum(L for tb, L in zip(s_t, s_L)
+                                 if tb < s_t[bk]) \
+                + (k - int(x["blk_start"][bk]))
+
+        # phase 4, block by block: its own ranks shifted into the next
+        # order and sr (written into any slice; the visible ones counted
+        # per slice for the next step), the chars whose slot it owns,
+        # deletes by coordinate over its own ranks; no rank written
+        hist_next = np.zeros((cs, cs), np.int64)
+        Srn = rank_slice(m + nvalid)          # the next step's slicing
+        for j, (lo, hi) in enumerate(own):
+            rlo, rhi = ranks[j]
+            for i in range(rlo, rhi):
+                if bumped(i) < W:
+                    ord2[bumped(i)], sr2[bumped(i)] = ordv[i], sr[i]
+                    hist_next[j, bumped(i) // Srn] += sr[i] == 1
+            for k in np.flatnonzero((x["ch_slot"] >= lo)
+                                    & (x["ch_slot"] < hi)):
+                slot = int(x["ch_slot"][k])
+                nr = char_rank(k)
+                if 0 <= nr < W:
+                    ord2[nr], sr2[nr] = slot, snap[slot]
+                    hist_next[j, nr // Srn] += snap[slot] == 1
+                ol = int(x["ch_ol_static"][k])
                 coord = int(x["ch_ol_coord"][k])
-                ol = -1 if coord <= 0 else int(ordv[cl(_search_full(
-                    cum, m, W, coord, total), 0, W - 1)])
-            own = int(x["ch_orr_own"][k])
-            ol_id[slot], orr_id[slot] = ol, own if own >= 0 else s_orr[bk]
-            st[slot] = max(st[slot], 1)
-        for kind, a, b in zip(x["del_kind"], x["del_a"], x["del_b"]):
-            if kind == 0:
-                for i in range(_lower_bound(cum, m, a + 1),
-                               _lower_bound(cum, m, b + 1)):
+                # by a coordinate within the visible text: written in
+                # phase 2; past it the search ends at W
+                if ol != -2:
+                    ol_id[slot] = ol
+                elif coord <= 0:
+                    ol_id[slot] = -1
+                elif coord > total:
+                    ol_id[slot] = int(ordv[W - 1]) \
+                        if W - 1 < m or not applied else 0
+                own_r = int(x["ch_orr_own"][k])
+                orr_id[slot] = own_r if own_r >= 0 else \
+                    s_orr[cl(x["ch_blk"][k], 0, MB - 1)]
+                st[slot] = max(st[slot], 1)
+            mine = cum[rlo:rhi]
+            below = int(incl[j] - part[j])
+            for kind, a, b in zip(x["del_kind"], x["del_a"], x["del_b"]):
+                if kind != 0:
+                    continue
+                r0 = rlo + int(np.searchsorted(mine, a + 1 - below, "left"))
+                r1 = rlo + int(np.searchsorted(mine, b + 1 - below, "left"))
+                for i in range(r0, r1):
                     if sr[i] == 1:
-                        st[ordv[i]], ever[ordv[i]] = 2, 1
-        # phase 5: deletes by own slot range, the order, m
-        for kind, a, b in zip(x["del_kind"], x["del_a"], x["del_b"]):
-            if kind == 1:
-                st[max(a, 0):min(b, W)] = 2
-                ever[max(a, 0):min(b, W)] = 1
-        m_new = m + nvalid
-        ordv[:m_new] = ord2[:m_new]
-        if not tail_zeroed:
-            ordv[m_new:] = 0
-            tail_zeroed = True
-        m = m_new
+                        st[int(ordv[i])], ever[int(ordv[i])] = 2, 1
+        # phase 5, block by block: deletes by own slot range, the own
+        # slots' rank bump; then the new chars' ranks; the buffers swap
+        for j, (lo, hi) in enumerate(own):
+            for kind, a, b in zip(x["del_kind"], x["del_a"], x["del_b"]):
+                if kind == 1:
+                    for s_ in range(max(a, lo), min(b, hi)):
+                        st[s_], ever[s_] = 2, 1
+            for s_ in range(lo, hi):
+                if int(rank[s_]) < BIG:
+                    rank[s_] = bumped(int(rank[s_]))
+        for j, (lo, hi) in enumerate(own):
+            for k in np.flatnonzero((x["ch_slot"] >= lo)
+                                    & (x["ch_slot"] < hi)):
+                rank[int(x["ch_slot"][k])] = char_rank(k)
+        cur = 1 - cur
+        m += nvalid
+        applied = sr_valid = True
+    for k, pl in P.items():
+        c[k][:] = pl.whole()
+    for q in range(n_idx):
+        c["state"][q] = rows[q].whole()
+    if applied:
+        c["ord"][:m] = ords[cur][:m]
+        c["ord"][m:] = 0
     c["m"] = m
+    return stats
 
 
-@pytest.mark.parametrize("slice_steps", [1, 5, 1 << 20])
-@pytest.mark.parametrize("budgets", BUDGETS)
-@pytest.mark.parametrize("seed", [0, 3, 9])
-def test_kernel_model_matches_plain(seed, budgets, slice_steps):
-    """The kernel's phases, launch by launch (a launch per slice), give
-    the plain version's carry bit for bit."""
+def _model_run(seed, budgets, slice_steps, cs):
+    """The model over the seed's tape, a launch per slice, from a fresh
+    carry; returns (carry, the plain version's carry, W, stats)."""
     _jol, _tol, _jp, tp = _preps(seed, n_edits=50,
                                  agents=("a", "b", "c"))
     tape = tk.pack_zone_tape(tp, *budgets)
@@ -284,12 +412,45 @@ def test_kernel_model_matches_plain(seed, budgets, slice_steps):
     c = {k: v.numpy()[0].copy() for k, v in c0._asdict().items()}
     c["m"] = int(c["m"])
     xs = {k: v.numpy() for k, v in tk.tape_xs(tape, "cpu").items()}
+    stats = []
     for i in range(0, len(xs["op"]), slice_steps):
-        _kernel_model(c, {k: v[i:i + slice_steps] for k, v in xs.items()},
-                      tape.plen)
+        stats.append(_kernel_model(
+            c, {k: v[i:i + slice_steps] for k, v in xs.items()},
+            tape.plen, cs))
+    return c, want, tape.W, stats
+
+
+@pytest.mark.parametrize("cs", [1, 2, 4, 16])
+@pytest.mark.parametrize("slice_steps", [1, 5, 1 << 20])
+@pytest.mark.parametrize("budgets", BUDGETS)
+@pytest.mark.parametrize("seed", [0, 3, 9])
+def test_kernel_model_matches_plain(seed, budgets, slice_steps, cs):
+    """The kernel's phases, launch by launch (a launch per slice), by a
+    cluster of `cs` blocks, give the plain version's carry bit for bit."""
+    c, want, _W, _stats = _model_run(seed, budgets, slice_steps, cs)
     for name in tk.ZoneCarry._fields:
         assert np.array_equal(np.asarray(c[name]),
                               getattr(want, name).numpy()[0]), name
+
+
+@pytest.mark.parametrize("cs", [2, 4, 16])
+def test_kernel_model_reaches_slice_edges(cs):
+    """The model's tapes reach the cluster's edges: a W that is no
+    multiple of the cluster, APPLY steps at m < cs, integrate windows that
+    cross a slice boundary; and there the model still equals the plain
+    version."""
+    seen = {"W_ragged": False, "m_below_c": False, "crossing": 0}
+    for seed in (0, 2, 3, 9):
+        c, want, W, stats = _model_run(seed, BUDGETS[0], 1 << 20, cs)
+        for name in tk.ZoneCarry._fields:
+            assert np.array_equal(np.asarray(c[name]),
+                                  getattr(want, name).numpy()[0]), name
+        seen["W_ragged"] |= W % cs != 0
+        seen["m_below_c"] |= any(s["min_m"] is not None and s["min_m"] < cs
+                                 for s in stats)
+        seen["crossing"] += sum(s["crossing_windows"] for s in stats)
+    assert seen["W_ragged"] and seen["m_below_c"] and seen["crossing"] > 0, \
+        seen
 
 
 # ---- executors ----------------------------------------------------------------
@@ -403,3 +564,78 @@ def test_zone_tape_run_checks_its_inputs():
     assert out is carry and kernels.zone_tape_run.launches == launches
     want = _plain_final_carry(tape, tp)
     assert all(torch.equal(a, b) for a, b in zip(carry, want))
+
+
+# ---- the launch shape ---------------------------------------------------------
+
+def test_cluster_size_fit_limits():
+    """A block's slice takes (n_idx + 36) bytes a slot, padded to 16
+    slots, within 232,448 bytes less 3,072 for the kernel's static arrays;
+    c 16 holds 87,296 slots at n_idx 6 (5,456 a block) and not one more,
+    55,552 at n_idx 30; past that the rule takes the global-memory form."""
+    budget = kernels.ZONE_SMEM_BUDGET
+    assert budget == 232448 - 3072
+    assert kernels.zone_smem_bytes(87_296, 6, 16) == 42 * 5456 <= budget
+    assert kernels.zone_smem_bytes(87_297, 6, 16) > budget
+    assert kernels.zone_smem_bytes(55_552, 30, 16) <= budget < \
+        kernels.zone_smem_bytes(55_553, 30, 16)
+    assert kernels.zone_smem_bytes(38_029, 6, 8) == 42 * 4768 <= budget
+    assert kernels.zone_smem_bytes(38_029, 6, 4) > budget
+    assert kernels.cluster_size(1, 87_296, 6) == (16, True)
+    assert kernels.cluster_size(1, 87_297, 6) == (16, False)
+    assert kernels.cluster_size(1, 55_553, 30) == (16, False)
+    assert kernels.cluster_size(1, 55_552, 30) == (16, True)
+
+
+@pytest.mark.parametrize("B,W,n_idx,want", [
+    # the history zone of the smoke: c 8 is the smallest that fits, raised
+    # to 16 for one replica; many replicas take c 1 in global memory once
+    # the clusters would need more than three times its waves
+    (1, 38_029, 6, (16, True)),
+    (16, 38_029, 6, (8, True)),
+    (49, 38_029, 6, (8, True)),
+    (50, 38_029, 6, (2, False)),
+    (132, 38_029, 6, (1, False)),
+    (1_024, 38_029, 6, (1, False)),
+    # a larger n_idx needs c 16 to fit at all
+    (1, 38_029, 30, (16, True)),
+    (24, 38_029, 30, (16, True)),
+    (1_024, 38_029, 30, (1, False)),
+    # small zones fit one block, at any B; c grows while a block keeps
+    # >= 1,024 slots and B * c stays within the card's 132 SMs
+    (1, 300, 6, (1, True)),
+    (1, 5_000, 6, (4, True)),
+    (33, 5_000, 6, (4, True)),
+    (34, 5_000, 6, (2, True)),
+    (132, 5_000, 6, (1, True)),
+    (1_024, 5_000, 6, (1, True)),
+    # past the fit limit: the global form, raised by the same rule
+    (1, 200_000, 6, (16, False)),
+    (16, 200_000, 6, (8, False)),
+    (132, 200_000, 6, (1, False)),
+    (1_024, 200_000, 6, (1, False)),
+])
+def test_cluster_size_rule(B, W, n_idx, want):
+    got = kernels.cluster_size(B, W, n_idx)
+    assert got == want and isinstance(got, kernels.ClusterPick)
+    c, smem = got
+    assert c in kernels.CLUSTER_SIZES
+    assert not smem or kernels.zone_smem_bytes(W, n_idx, c) <= \
+        kernels.ZONE_SMEM_BUDGET
+
+
+def test_zone_tape_run_checks_its_cluster():
+    """A forced shape is checked before anything runs, on the CPU too:
+    an unknown cluster size, or a shared-memory form whose slice does not
+    fit, raises; a valid one runs the plain version."""
+    W = 100_000
+    zeros = np.zeros(W, np.int32)
+    carry = tk.init_zone_carry(W, 0, 6, zeros, zeros, device="cpu")
+    xs = {k: torch.zeros((1,) if k in tk.XS_KEYS[:4] else (1, 1),
+                         dtype=torch.int32) for k in tk.XS_KEYS}
+    xs["op"].fill_(tk.OP_FORK)
+    with pytest.raises(ValueError, match="does not fit"):
+        kernels.zone_tape_run(carry, xs, 0, cluster=(16, True))
+    with pytest.raises(ValueError, match="cluster size"):
+        kernels.zone_tape_run(carry, xs, 0, cluster=(32, False))
+    assert kernels.zone_tape_run(carry, xs, 0, cluster=(16, False)) is carry
