@@ -197,11 +197,43 @@ package), in phases, each printing one JSON line:
                 rule's launch shape over the launches (derived from each
                 session's carry shape with `kernels.cluster_size`, as the
                 wrapper picks it).
- 14. kernels  - one line for K1, K2, K3 and X8: launches on the main path (K1
+ 14. scheduler_hydrated - the serve layer over the residency tier: the
+                scheduler phase's 256 documents (its generator seed), each
+                saved to a `TieredStore` home under a temporary root (removed
+                at the end) and served through `MergeScheduler(4 shards,
+                device_plan, flush_workers)` whose resolve is a
+                `Hydrator(workers=2, warm_max=64)`'s, attached with
+                `attach_hydrator`. Each round takes the documents in waves
+                of 32: a wave is opened (admitted and flushed: the gate
+                defers the cold ones, they hydrate, the bank rebuilds their
+                stale sessions on the warm oplogs), then edited
+                (`round_edits`'s shape as a position script, applied to the
+                warm oplog under the oplog guard and to an in-memory mirror
+                that never touches the tier) and flushed again (K2 plans
+                the tails, K1 replays them); later waves evict it to its
+                snapshot. 6 rounds on per-shard flush workers, then 3 with
+                `mesh_window=True` (a new Hydrator over the same store), so
+                both gate sites run; round 1 traced. Requires every text
+                after its wave equal to the mirror's tip branch, a fresh
+                `TieredStore` over the root loading every document to the
+                C++ tracker's merge of the mirror, 0 flush leaks,
+                quarantines and host fallbacks, the lock witness acyclic,
+                K1 launches == fused calls (window dispatches) + per-doc
+                replays, K2 launches == resolves, and every K1 and K2 call
+                exactly equal to the plain version. Prints docs/s, flush
+                and cold-start p50/p99 per stage, the hydration block,
+                builds, evictions by site (stale-oplog rebuilds among them),
+                K1/K2 launches a round and round 1's device busy share.
+ 15. storage_soak - `storage.soak.run_storage_soak(churn=True, crash=True,
+                slow=True)` at its defaults (120 documents, 12 warm, 8
+                rounds, the host engine): crash-restart, compaction killed
+                at each fsync point, torn tails, corrupt homes, slow loads;
+                fails unless its verdict is ok.
+ 16. kernels  - one line for K1, K2, K3 and X8: launches on the main path (K1
                 and K2 in the serve phase, K3 in the checkout phase; per
                 path in `launches_by_path`, the scheduler's, the flush
-                window's, the history's (K3) and the merge step's (K1)
-                too), max
+                window's, the hydrated scheduler's (K1, K2), the history's
+                (K3) and the merge step's (K1) too), max
                 error against the plain version (see below), and at the
                 main path's widest call two times: `call_ms` (CUDA events
                 around back-to-back wrapper calls: host and device) and
@@ -214,7 +246,7 @@ package), in phases, each printing one JSON line:
                 them the HBM bound and the library yardstick's call_ms and
                 device_ms (`torch.cumsum` for K2); then the card's name and
                 power limit. max_abs_err covers the kernel phases, the serve
-                phase's captured calls, both scheduler runs' calls, the
+                phase's captured calls, the three scheduler runs' calls, the
                 history's K3 calls and the merge step's K1 call; K3's line
                 has its numbers at the history's shape under "history",
                 K1's at the merge step's under "merge_step". The
@@ -2426,6 +2458,400 @@ def run_scheduler_zone(rng: np.random.Generator, device, cfg: ServeConfig,
             "footprint_slots": sum(s.footprint_slots() for s in sessions)}
 
 
+@dataclass
+class HydratedConfig:
+    warm_max: int = 64          # a quarter of the 256 documents
+    workers: int = 2
+    rounds: int = 6             # per-shard flush workers
+    window_rounds: int = 3      # then the flush window
+    wave: int = 32              # documents opened and edited together
+    profile_round: int = 1      # this round is traced
+
+
+def edit_script(rng, text_len: int, r: int, cfg: ServeConfig) -> list:
+    """One round's edits of one document as positions and texts, so any
+    oplog holding the document replays them alike whatever its LV
+    numbering: `round_edits`'s shape (two agents named after round `r`
+    fork the merged tip and make 8-64 edits each, the first agent merges
+    and edits once on top), each op decided from its branch's length."""
+    ops = []
+    for name in (f"fork{r}a", f"fork{r}b"):
+        cur = text_len
+        for _ in range(int(rng.integers(cfg.edits_min, cfg.edits_max + 1))):
+            if cur and rng.random() < 0.4:
+                p = int(rng.integers(0, cur))
+                end = min(cur, p + int(rng.integers(1, cfg.del_max + 1)))
+                ops.append((name, "del", p, end))
+                cur -= end - p
+            else:
+                p = int(rng.integers(0, cur + 1))
+                s = rand_text(rng, int(rng.integers(1, cfg.ins_max + 1)))
+                ops.append((name, "ins", p, s))
+                cur += len(s)
+    ops.append(("typist", "merge"))
+    ops.append(("typist", "ins", 0, rand_text(rng, 1)))
+    return ops
+
+
+def apply_script(ol, ops, tip=None):
+    """Replay `edit_script`'s ops into `ol`: the forks start from `tip`
+    (a branch at `ol`'s tip; default: the C++ tracker's merge of it),
+    "merge" merges the tip again. Returns the merging agent's branch,
+    which ends at the new tip."""
+    tip = host_branch(ol) if tip is None else tip
+    brs = {name: fork(tip) for name, kind, *_ in ops if kind != "merge"}
+    for name, kind, *args in ops:
+        if kind == "merge":
+            brs[name] = host_branch(ol)
+            continue
+        agent = ol.get_or_create_agent_id(name)
+        if kind == "ins":
+            brs[name].insert(ol, agent, *args)
+        else:
+            brs[name].delete(ol, agent, *args)
+    return brs[ops[-1][0]]
+
+
+@contextlib.contextmanager
+def timed_methods(parts: Dict[str, float], targets) -> None:
+    """Wrap each (owner, attribute, part) of `targets` in a function that
+    adds its host seconds to `parts[part]` (summed over threads) and
+    calls through; restored on exit. Unlike `Spy`, the wrapper is a plain
+    function, so it binds as a method when the owner is a class."""
+    saved = []
+    for owner, name, part in targets:
+        real = getattr(owner, name)
+
+        def wrapper(*args, _real=real, _part=part, **kwargs):
+            t = time.perf_counter()
+            try:
+                return _real(*args, **kwargs)
+            finally:
+                parts[_part] += time.perf_counter() - t
+        saved.append((owner, name, real))
+        setattr(owner, name, wrapper)
+    try:
+        yield
+    finally:
+        for owner, name, real in saved:
+            setattr(owner, name, real)
+
+
+def run_scheduler_hydrated(rng: np.random.Generator, device,
+                           cfg: ServeConfig, scfg: SchedulerConfig,
+                           hcfg: HydratedConfig) -> dict:
+    """The serve layer's entry point over the residency tier: the
+    scheduler phase's 256 documents (its generator), each saved to its own
+    `TieredStore` home under a temporary root, served by a device-engine
+    `MergeScheduler(4 shards, fused, device_plan)` whose `resolve` is a
+    `Hydrator(workers=2, warm_max=64)`'s, wired in with `attach_hydrator`.
+    An in-memory mirror oplog per document takes the same edits and never
+    goes through the tier: it is the reference.
+
+    Each round takes the documents in waves of half the warm tier. A wave
+    is opened (`submit` of each document, `pump`, `drain`: the flush gate
+    defers the cold documents once and hydrates them, the bank rebuilds
+    the stale sessions on the warm oplogs), then edited: `edit_script`'s
+    ops go into the warm oplog `hyd.resolve` returns, under the oplog
+    guard, and into the mirror; a second flush plans the tails (K2) and
+    replays them (K1). Later waves evict the wave's documents to their
+    snapshots, so every round hydrates every document anew. 6 rounds on
+    per-shard flush workers, then 3 rounds with `mesh_window=True`, each
+    stage with its own Hydrator over the same store (so both gate sites
+    run); round 1 traced. Requires every text after each wave equal to the
+    mirror's tip branch (the C++ tracker's merge of the mirror and the
+    merging agent's edit), after the last round a fresh `TieredStore` over
+    the root loading every document to the tracker's merge of the mirror,
+    0 flush leaks, quarantines and host fallbacks, the lock witness
+    acyclic, K1 launches == fused calls (window dispatches) + per-doc
+    replays, K2 launches == resolves, and every K1 and K2 call exactly
+    equal to the kernel's plain version. The root is removed."""
+    import shutil
+    import tempfile
+
+    from diamond_types_tpu_torch.analysis import witness
+    from diamond_types_tpu_torch.encoding import decode, encode
+    from diamond_types_tpu_torch.gpu import flush_fuse as ff
+    from diamond_types_tpu_torch.gpu import xform
+    from diamond_types_tpu_torch.serve import scheduler as sched_mod
+    from diamond_types_tpu_torch.storage import tier
+    from diamond_types_tpu_torch.gpu import kernels
+    from diamond_types_tpu_torch.gpu.steer import STEER
+    from diamond_types_tpu_torch.parallel import arena
+    from diamond_types_tpu_torch.serve import MergeScheduler
+    from diamond_types_tpu_torch.serve.bank import SessionBank
+    from diamond_types_tpu_torch.serve.hydrate import Hydrator
+    from diamond_types_tpu_torch.storage.tier import TieredStore
+
+    t0 = time.perf_counter()
+    mirror = build_docs(rng, cfg)
+    ids = [ol.doc_id for ol in mirror]
+    by_id = dict(zip(ids, mirror))
+    tips = {ol.doc_id: host_branch(ol) for ol in mirror}   # mirror tips
+    root = tempfile.mkdtemp(prefix="dt-smoke-hydrated-")
+    witness.witness_enable()
+    witness.witness_reset()
+    guard = witness.make_lock("smoke.oplog", "oplog")
+    k1, k2 = kernels.apply_ops_window, kernels.xform_positions
+    steps: List[int] = []
+    drops: Dict[str, int] = collections.Counter()
+    real_sync, real_drop = ff.FusedDocSession.sync, SessionBank._drop
+
+    def counted_sync(sess):
+        n = real_sync(sess)
+        steps.append(n)
+        return n
+
+    def counted_drop(bank, doc_id, sess, why):
+        drops[why] += 1
+        return real_drop(bank, doc_id, sess, why)
+
+    stages = []
+    rounds = []
+    profile = None
+    verify_s = 0.0
+    try:
+        store = TieredStore(root)
+        for ol in mirror:
+            store.save(ol.doc_id, ol)
+        setup_s = time.perf_counter() - t0
+        ff.FusedDocSession.sync = counted_sync
+        SessionBank._drop = counted_drop
+        # host seconds by part, summed over the threads (flush workers,
+        # hydration workers, the snapshot thread, this one)
+        parts: Dict[str, float] = collections.defaultdict(float)
+        with Spy(ff, "apply_ops_window", keep=True) as k1_calls, \
+                Spy(kernels, "xform_positions", keep=True) as k2_calls, \
+                timed_methods(parts, (
+                    (TieredStore, "load", "load"),
+                    (tier, "decode_into", "decode"),
+                    (decode, "decode_into", "decode"),
+                    (TieredStore, "save", "save"),
+                    (encode, "encode_oplog", "encode"),
+                    (SessionBank, "_build", "session_build"),
+                    (xform, "extract_tail", "extract"),
+                    (xform, "resolve_positions", "resolve"),
+                    (ff, "kernel_fused_replay", "replay"),
+                    (sched_mod, "mesh_fused_replay", "replay"))):
+            r = 0
+            for mesh_window, n_rounds in ((False, hcfg.rounds),
+                                          (True, hcfg.window_rounds)):
+                STEER.reset(table=True)
+                arena.reset_arenas()
+                hyd = Hydrator(store, workers=hcfg.workers,
+                               warm_max=hcfg.warm_max, oplog_lock=guard,
+                               seed=r)
+                sched = MergeScheduler(
+                    scfg.shards, resolve=hyd.resolve, engine="device",
+                    fused=True, device_plan=True,
+                    flush_docs=scfg.flush_docs, flush_workers=True,
+                    mesh_window=mesh_window,
+                    max_sessions_per_shard=scfg.max_sessions_per_shard,
+                    fused_opts={"max_ins": cfg.max_ins,
+                                "headroom": cfg.headroom, "device": device},
+                    sync_lock=guard)
+                sched.attach_hydrator(hyd)
+                n_steps0 = len(steps)
+                k1.launches = k2.launches = 0
+                for _ in range(n_rounds):
+                    profiling = r == hcfg.profile_round
+                    before = sched.metrics_json()
+                    n_k1, n_k2 = len(k1_calls.seconds), len(k2_calls.seconds)
+                    parts0 = dict(parts)
+                    n_ops = n_docs = 0
+                    edit_s = check_s = 0.0
+                    with (torch.profiler.profile(activities=PROFILED)
+                          if profiling else contextlib.nullcontext()) as prof:
+                        t = time.perf_counter()
+                        for w in range(0, len(ids), hcfg.wave):
+                            wave = ids[w:w + hcfg.wave]
+                            for d in wave:          # open
+                                check(sched.submit(d, 1)["accepted"],
+                                      f"round {r}: {d} was not admitted")
+                            sched.pump()
+                            sched.drain()
+                            te = time.perf_counter()
+                            subs = []
+                            for d in wave:          # edit
+                                ops = edit_script(rng, len(tips[d]), r,
+                                                  cfg)
+                                n = sum(1 for op in ops
+                                        if op[1] != "merge")
+                                tips[d] = apply_script(by_id[d], ops,
+                                                       tips[d])
+                                while True:
+                                    ol = hyd.resolve(d)
+                                    with guard:
+                                        # the pop of an eviction runs
+                                        # under the guard: re-resolve if
+                                        # it won the race to this oplog
+                                        if hyd._warm.get(d) is ol:
+                                            apply_script(ol, ops)
+                                            break
+                                subs.append((d, n))
+                            edit_s += time.perf_counter() - te
+                            for d, n in subs:
+                                check(sched.submit(d, n)["accepted"],
+                                      f"round {r}: {d} was not admitted")
+                                n_ops += n
+                            sched.pump()
+                            sched.drain()
+                            n_docs += len(subs)
+                            tc = time.perf_counter()
+                            for d in wave:
+                                check(sched.text(d) == tips[d].snapshot(),
+                                      f"round {r}: {d} differs from the "
+                                      "mirror's merge")
+                            check_s += time.perf_counter() - tc
+                        wall = time.perf_counter() - t - edit_s - check_s
+                    verify_s += check_s
+                    if profiling:
+                        profile = device_share(prof, wall, r)
+                    after = sched.metrics_json()
+                    delta = {k: after["totals"][k] - before["totals"][k]
+                             for k in ("flushes", "flushed_docs", "builds",
+                                       "evictions", "fused_calls",
+                                       "host_fallbacks")}
+                    hd = {k: after["hydration"][k] - before["hydration"][k]
+                          for k in ("hydrations", "sync_hydrations",
+                                    "deferrals", "defer_escalations",
+                                    "evictions_to_snapshot", "snapshots")}
+                    check(after["transform"]["device_docs"]
+                          > before["transform"]["device_docs"],
+                          f"round {r}: no document was planned on the "
+                          "device")
+                    rounds.append({
+                        "round": r, "mesh_window": mesh_window,
+                        "wall_ms": 1e3 * wall, "edit_ms": 1e3 * edit_s,
+                        "check_ms": 1e3 * check_s,
+                        "docs_edited": n_docs, "ops": n_ops,
+                        "docs_per_s": n_docs / wall,
+                        "k1_launches": len(k1_calls.seconds) - n_k1,
+                        "k2_launches": len(k2_calls.seconds) - n_k2,
+                        "host_s": {k: v - parts0.get(k, 0.0)
+                                   for k, v in sorted(parts.items())},
+                        **delta, "hydration": hd})
+                    r += 1
+                sched.stop_workers()
+                launches, k2_launches = k1.launches, k2.launches
+                hyd.stop(checkpoint=True)
+                m = sched.metrics_json()
+                replays = sum(1 for n in steps[n_steps0:] if n)
+                fused_calls = m["fused"]["device_calls"]
+                batches = m["transform"]["batches"]
+                hyd_c = m["hydration"]
+                check(hyd_c["flush_leaks"] == 0,
+                      f"{hyd_c['flush_leaks']} flush leaks")
+                check(hyd_c["quarantined"] == 0 and not store.quarantined,
+                      f"quarantines: {store.quarantined}")
+                check(m["totals"]["host_fallbacks"] == 0,
+                      f"{m['totals']['host_fallbacks']} host fallbacks")
+                if mesh_window:
+                    check(fused_calls == 0, f"{fused_calls} per-shard "
+                          "fused calls under the flush window")
+                    check(launches == m["window"]["dispatches"] + replays,
+                          f"K1 launched {launches} times for "
+                          f"{m['window']['dispatches']} window classes and "
+                          f"{replays} per-doc replays")
+                else:
+                    check(launches == fused_calls + replays,
+                          f"K1 launched {launches} times for {fused_calls} "
+                          f"fused calls and {replays} per-doc replays")
+                check(k2_launches == batches,
+                      f"K2 launched {k2_launches} times for {batches} "
+                      "resolves")
+                lat = m["latencies"]
+                stages.append({
+                    "mesh_window": mesh_window, "rounds": n_rounds,
+                    "launches": launches, "k2_launches": k2_launches,
+                    "fused_calls": fused_calls, "per_doc_replays": replays,
+                    "resolves": batches,
+                    "window_dispatches": m["window"]["dispatches"]
+                    if mesh_window else None,
+                    "flush_ms": {q: 1e3 * lat["flush"][q]
+                                 for q in ("p50", "p90", "p99", "max")},
+                    "cold_start_ms": {
+                        q: 1e3 * lat["hydration_cold_start"][q]
+                        for q in ("p50", "p90", "p99", "max")},
+                    "cold_starts": lat["hydration_cold_start"]["count"],
+                    "hydration": hyd_c, "totals": m["totals"],
+                    "transform": m["transform"]})
+        t = time.perf_counter()
+        fresh = TieredStore(root)
+        for d in ids:
+            check(host_branch(fresh.load(d)).snapshot()
+                  == host_branch(by_id[d]).snapshot()
+                  == tips[d].snapshot(),
+                  f"{d} re-hydrated from its home differs from the mirror")
+        rehydrate_s = time.perf_counter() - t
+    finally:
+        ff.FusedDocSession.sync = real_sync
+        SessionBank._drop = real_drop
+        shutil.rmtree(root, ignore_errors=True)
+    wit = witness.witness_snapshot()
+    check(wit["acyclic"] and wit["violation_count"] == 0,
+          f"lock witness: cycles {wit['cycles']}, "
+          f"violations {wit['violations'][:4]}")
+    t = time.perf_counter()
+    k1_err = k1_calls_err(k1_calls.args, cfg.max_ins)
+    check(k1_err == 0, f"K1 differs from its plain version at a hydrated "
+          f"scheduler call: max abs err {k1_err}")
+    k2_worst = max(k2_err(nv, ov) for nv, ov in k2_calls.args)
+    check(k2_worst == 0, f"K2 differs from its plain version at a "
+          f"hydrated scheduler resolve: max abs err {k2_worst}")
+    plain_check_s = time.perf_counter() - t
+    n_r = len(rounds)
+    launches = sum(s["launches"] for s in stages)
+    k2_launches = sum(s["k2_launches"] for s in stages)
+    summary = {
+        "docs_per_s": [x["docs_per_s"] for x in rounds],
+        "round_wall_ms": [x["wall_ms"] for x in rounds],
+        "flush_ms_p50_p99": [[s["flush_ms"]["p50"], s["flush_ms"]["p99"]]
+                             for s in stages],
+        "cold_start_ms_p50_p99": [[s["cold_start_ms"]["p50"],
+                                   s["cold_start_ms"]["p99"]]
+                                  for s in stages],
+        "k1_launches_per_round": launches / n_r,
+        "k2_launches_per_round": k2_launches / n_r,
+        "builds": sum(s["totals"]["builds"] for s in stages),
+        "evictions": sum(s["totals"]["evictions"] for s in stages),
+        "evictions_by_site": dict(drops),
+        "stale_oplog_rebuilds": drops.get("stale-oplog", 0),
+        "host_fallbacks": sum(s["totals"]["host_fallbacks"]
+                              for s in stages),
+        "flush_leaks": sum(s["hydration"]["flush_leaks"] for s in stages),
+        "device_busy_share": profile["device_busy_share"]
+        if profile else None}
+    return {"phase": "scheduler_hydrated", "summary": summary,
+            "docs": cfg.n_docs, "shards": scfg.shards,
+            "warm_max": hcfg.warm_max, "workers": hcfg.workers,
+            "wave": hcfg.wave, "launches": launches,
+            "k2_launches": k2_launches, "stages": stages,
+            "rounds": rounds, "profile": profile, "setup_s": setup_s,
+            "verify_s": verify_s, "rehydrate_check_s": rehydrate_s,
+            "k1_calls_checked": len(k1_calls.args), "k1_max_abs_err": k1_err,
+            "k2_calls_checked": len(k2_calls.args),
+            "k2_max_abs_err": k2_worst, "plain_check_s": plain_check_s,
+            "lock_witness": {k: wit[k] for k in ("acyclic", "edge_count",
+                                                 "violation_count",
+                                                 "acquires", "edges")}}
+
+
+def run_storage_soak_phase() -> dict:
+    """`run_storage_soak(churn=True, crash=True, slow=True)` at its
+    defaults (120 documents, 12 warm, 8 rounds, the host engine, seed 0):
+    crash-restart, compaction killed at each fsync point, torn tails,
+    corrupt homes and slow loads. Fails unless its verdict is ok."""
+    from diamond_types_tpu_torch.storage.soak import run_storage_soak
+    rep = run_storage_soak(churn=True, crash=True, slow=True)
+    check(rep["ok"], f"storage soak failed: "
+          f"{rep.get('error', '')} byte mismatches "
+          f"{rep['byte_mismatches']}, quarantine match "
+          f"{rep['quarantine_match']}, leaks {rep['quarantine_leaks']}, "
+          f"p99 ok {rep['p99_ok']}, witness {rep['lock_witness']}")
+    return {"phase": "storage_soak", **rep}
+
+
 def run_kernel_phases(rng, device) -> tuple:
     """The three kernel-against-plain phases, each line with its seconds."""
     out = []
@@ -2568,6 +2994,17 @@ def main(argv=None) -> int:
                                     zcfg)
         zsched["seconds"] = time.perf_counter() - t
         emit(zsched)
+        # the scheduler phase's documents and edits again, over the
+        # residency tier
+        t = time.perf_counter()
+        hsched = run_scheduler_hydrated(rng(5), device, cfg,
+                                        SchedulerConfig(), HydratedConfig())
+        hsched["seconds"] = time.perf_counter() - t
+        emit(hsched)
+        t = time.perf_counter()
+        soak = run_storage_soak_phase()
+        soak["seconds"] = time.perf_counter() - t
+        emit(soak)
         timed = ("ms", "call_ms", "device_ms", "plain_ms", "bound_ms",
                  "library_ms")
         kerns = [
@@ -2578,11 +3015,13 @@ def main(argv=None) -> int:
              "launches_by_path": {"serve": serve["launches"],
                                   "scheduler": sched["launches"],
                                   "window": sched_w["launches"],
-                                  "merge_step": step["launches"]},
+                                  "merge_step": step["launches"],
+                                  "scheduler_hydrated": hsched["launches"]},
              "max_abs_err": max(kvp["max_abs_err"], timing["max_abs_err"],
                                 sched["k1_max_abs_err"],
                                 sched_w["k1_max_abs_err"],
-                                step["max_abs_err"]),
+                                step["max_abs_err"],
+                                hsched["k1_max_abs_err"]),
              "bound_by": "bytes", "library_ms": None,
              **{k: widest[k] for k in timed if k in widest},
              "shape": {k: widest[k] for k in ("b", "cap", "n")},
@@ -2595,10 +3034,13 @@ def main(argv=None) -> int:
              "launches": serve["k2_launches"],
              "launches_by_path": {"serve": serve["k2_launches"],
                                   "scheduler": sched["k2_launches"],
-                                  "window": sched_w["k2_launches"]},
+                                  "window": sched_w["k2_launches"],
+                                  "scheduler_hydrated":
+                                      hsched["k2_launches"]},
              "max_abs_err": max(k2p["max_abs_err"], k2["max_abs_err"],
                                 sched["k2_max_abs_err"],
-                                sched_w["k2_max_abs_err"]),
+                                sched_w["k2_max_abs_err"],
+                                hsched["k2_max_abs_err"]),
              "bound_by": "bytes", **{k: k2[k] for k in timed},
              "shape": k2["shape"],
              "library": {"call": "torch.cumsum(nv, 1)", **k2["library"]}},

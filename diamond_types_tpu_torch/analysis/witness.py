@@ -1,0 +1,224 @@
+"""Runtime lock witness: lockdep-style held-while-acquiring edges.
+
+`make_lock(name, order_class, rank)` is a drop-in replacement for
+`threading.Lock()` / `threading.RLock()` at the repo's named lock
+construction sites (scheduler global/shard/device locks, the DocStore
+oplog guard, the replicate maintenance/lease locks). The wrapper costs
+one attribute check per acquire while the witness is DISABLED (the
+default); `witness_enable()` turns on recording:
+
+  * every successful acquire records an edge (held_class -> new_class)
+    for each DISTINCT lock currently held by the thread — the observed
+    lock-order graph;
+  * acquiring two locks of the SAME order class out of rank order
+    (shard/device locks carry their index as `rank`) is recorded as a
+    violation — the runtime form of the unsorted-multi-lock lint;
+  * `witness_assert_acyclic()` DFS-checks the observed class graph —
+    a cycle means two code paths disagree about lock order, i.e. a
+    latent deadlock the soak merely didn't lose the race to.
+
+Reentrant re-acquisition of the SAME lock object (RLocks) records
+nothing. The witness is process-global on purpose: deadlocks are a
+process-level property, and the soaks boot many nodes in one process.
+
+The JAX package's `analysis/witness.py`, copied whole.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional, Tuple
+
+# module-level switch: read unlocked on the acquire fast path (a stale
+# read merely delays the first recorded edge by one acquisition)
+_enabled = False
+_graph_lock = threading.Lock()
+_edges: Dict[Tuple[str, str], int] = {}      # (from_cls, to_cls) -> n
+_violations: List[dict] = []
+_acquires = 0
+_MAX_VIOLATIONS = 256
+
+_tls = threading.local()
+
+
+def _held() -> list:
+    stack = getattr(_tls, "stack", None)
+    if stack is None:
+        stack = _tls.stack = []
+    return stack
+
+
+class WitnessLock:
+    """Instrumented lock: `threading.Lock`/`RLock` surface (acquire/
+    release/context manager) plus witness recording when enabled."""
+
+    __slots__ = ("_inner", "name", "order_class", "rank", "_reentrant")
+
+    def __init__(self, name: str, order_class: str,
+                 rank: Optional[int] = None,
+                 reentrant: bool = False) -> None:
+        self._inner = threading.RLock() if reentrant \
+            else threading.Lock()
+        self.name = name
+        self.order_class = order_class
+        self.rank = rank
+        self._reentrant = reentrant
+
+    # ---- lock surface ----------------------------------------------------
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        got = self._inner.acquire(blocking, timeout)
+        if got and _enabled:
+            self._record_acquire()
+        elif got:
+            # keep the held stack balanced even while disabled so an
+            # enable() mid-run doesn't see releases without acquires
+            _held().append(self)
+        return got
+
+    def release(self) -> None:
+        stack = _held()
+        # pop by identity from the top (condition-variable release order
+        # is LIFO in practice; search defensively anyway)
+        for i in range(len(stack) - 1, -1, -1):
+            if stack[i] is self:
+                del stack[i]
+                break
+        self._inner.release()
+
+    def __enter__(self) -> "WitnessLock":
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+    def locked(self) -> bool:
+        inner = self._inner
+        if hasattr(inner, "locked"):
+            return inner.locked()
+        # RLock has no locked(); probe without recording
+        if inner.acquire(blocking=False):
+            inner.release()
+            return False
+        return True
+
+    # ---- recording -------------------------------------------------------
+
+    def _record_acquire(self) -> None:
+        global _acquires
+        stack = _held()
+        if any(h is self for h in stack):
+            # reentrant re-acquire of the same RLock: no new edge
+            stack.append(self)
+            return
+        seen_cls = set()
+        with _graph_lock:
+            _acquires += 1
+            for h in stack:
+                if h.order_class == self.order_class:
+                    if (h.rank is not None and self.rank is not None
+                            and self.rank <= h.rank
+                            and len(_violations) < _MAX_VIOLATIONS):
+                        _violations.append({
+                            "kind": "unsorted-same-class",
+                            "class": self.order_class,
+                            "held": h.name, "held_rank": h.rank,
+                            "acquiring": self.name,
+                            "rank": self.rank})
+                    continue
+                key = (h.order_class, self.order_class)
+                if key[0] not in seen_cls:
+                    seen_cls.add(key[0])
+                    _edges[key] = _edges.get(key, 0) + 1
+        stack.append(self)
+
+
+def make_lock(name: str, order_class: str, rank: Optional[int] = None,
+              reentrant: bool = False) -> WitnessLock:
+    """Construct a witness-instrumented lock. Always returns the
+    wrapper (near-zero cost disabled) so `witness_enable()` works on
+    locks constructed before the switch flipped."""
+    return WitnessLock(name, order_class, rank=rank,
+                       reentrant=reentrant)
+
+
+# ---- control / reporting ------------------------------------------------
+
+def witness_enable() -> None:
+    global _enabled
+    _enabled = True
+
+
+def witness_disable() -> None:
+    global _enabled
+    _enabled = False
+
+
+def witness_reset() -> None:
+    global _acquires
+    with _graph_lock:
+        _edges.clear()
+        _violations.clear()
+        _acquires = 0
+
+
+def find_cycles() -> List[List[str]]:
+    """Cycles in the observed class graph (each as a closed node list,
+    e.g. ["oplog", "device", "oplog"]). Empty list == acyclic."""
+    with _graph_lock:
+        adj: Dict[str, List[str]] = {}
+        for (a, b) in _edges:
+            adj.setdefault(a, []).append(b)
+    cycles: List[List[str]] = []
+    WHITE, GRAY, BLACK = 0, 1, 2
+    color = {n: WHITE for n in adj}
+    path: List[str] = []
+
+    def dfs(n: str) -> None:
+        color[n] = GRAY
+        path.append(n)
+        for m in adj.get(n, ()):
+            c = color.get(m, WHITE)
+            if c == GRAY:
+                cycles.append(path[path.index(m):] + [m])
+            elif c == WHITE:
+                dfs(m)
+        path.pop()
+        color[n] = BLACK
+
+    for n in list(adj):
+        if color.get(n, WHITE) == WHITE:
+            dfs(n)
+    return cycles
+
+
+def witness_snapshot() -> dict:
+    """JSON-able state for /metrics (`obs` block) and soak reports."""
+    with _graph_lock:
+        edges = {f"{a}->{b}": n for (a, b), n in sorted(_edges.items())}
+        violations = list(_violations)
+        acquires = _acquires
+    cycles = find_cycles()
+    return {"enabled": _enabled,
+            "acquires": acquires,
+            "edges": edges,
+            "edge_count": len(edges),
+            "violations": violations,
+            "violation_count": len(violations),
+            "cycles": ["->".join(c) for c in cycles],
+            "acyclic": not cycles}
+
+
+def witness_assert_acyclic() -> None:
+    """Raise AssertionError when the observed lock-order graph has a
+    cycle (or an unsorted same-class acquisition was recorded)."""
+    snap = witness_snapshot()
+    if snap["cycles"]:
+        raise AssertionError(
+            f"lock-order cycle observed: {snap['cycles']} "
+            f"(edges: {snap['edges']})")
+    if snap["violations"]:
+        raise AssertionError(
+            f"unsorted same-class lock acquisition: "
+            f"{snap['violations'][:4]}")

@@ -1,0 +1,613 @@
+"""v1 oplog file format reader ("DMNDTYPS").
+
+Capability mirror of the reference decoder (reference:
+src/list/encoding/decode_oplog.rs, format spec BINARY.md:55-141): chunked
+binary format, LEB128 varints, per-column RLE, optional LZ4-compressed field
+data, CRC32. Supports both load-into-empty and decode_and_add (merging a
+patch file into an existing oplog, deduping already-known ops).
+
+The JAX package's `encoding/decode.py`, copied. Fresh loads parse in C++
+(`native.core.decode_file_native`) when the native library builds here
+and in Python otherwise; a file the C++ parser rejects raises ParseError
+as the Python parser would.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+from ..text.op import DEL, INS
+from ..text.oplog import OpLog
+from .crc32c import crc32c
+from .lz4 import lz4_decompress_block
+from .varint import decode_leb, decode_zigzag_old, strip_bit
+
+# Chunk ids (reference: src/list/encoding/mod.rs:29-60)
+CHUNK_COMPRESSED = 5
+CHUNK_FILEINFO = 1
+CHUNK_DOCID = 2
+CHUNK_AGENTNAMES = 3
+CHUNK_USERDATA = 4
+CHUNK_STARTBRANCH = 10
+CHUNK_END_BRANCH = 11
+CHUNK_VERSION = 12
+CHUNK_CONTENT = 13
+CHUNK_CONTENT_COMPRESSED = 14
+CHUNK_PATCHES = 20
+CHUNK_OP_VERSIONS = 21
+CHUNK_OP_TYPE_AND_POSITION = 22
+CHUNK_OP_PARENTS = 23
+CHUNK_PATCH_CONTENT = 24
+CHUNK_CONTENT_IS_KNOWN = 25
+CHUNK_TRANSFORMED_POSITIONS = 27
+CHUNK_CRC = 100
+
+DATA_PLAIN_TEXT = 4
+
+MAGIC = b"DMNDTYPS"
+PROTOCOL_VERSION = 0
+
+UNDERWATER = 1 << 62
+
+
+class ParseError(Exception):
+    pass
+
+
+class Buf:
+    __slots__ = ("data", "pos", "end")
+
+    def __init__(self, data: bytes, pos: int = 0, end: Optional[int] = None):
+        self.data = data
+        self.pos = pos
+        self.end = len(data) if end is None else end
+
+    def is_empty(self) -> bool:
+        return self.pos >= self.end
+
+    def next_usize(self) -> int:
+        if self.pos >= self.end:
+            raise ParseError("unexpected EOF")
+        v, self.pos = decode_leb(self.data, self.pos)
+        if self.pos > self.end:
+            raise ParseError("varint overruns chunk")
+        return v
+
+    next_u32 = next_usize
+
+    def next_zigzag(self) -> int:
+        return decode_zigzag_old(self.next_usize())
+
+    def next_n_bytes(self, n: int) -> bytes:
+        if self.pos + n > self.end:
+            raise ParseError("unexpected EOF")
+        out = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def next_str(self) -> str:
+        n = self.next_usize()
+        return self.next_n_bytes(n).decode("utf8")
+
+    def rest(self) -> bytes:
+        return self.data[self.pos:self.end]
+
+    def next_chunk(self) -> Tuple[int, "Buf"]:
+        ctype = self.next_usize()
+        clen = self.next_usize()
+        if self.pos + clen > self.end:
+            raise ParseError("chunk overruns buffer")
+        c = Buf(self.data, self.pos, self.pos + clen)
+        self.pos += clen
+        return ctype, c
+
+    def peek_chunk_type(self) -> Optional[int]:
+        if self.is_empty():
+            return None
+        v, _ = decode_leb(self.data, self.pos)
+        return v
+
+    def read_chunk_if_eq(self, ctype: int) -> Optional["Buf"]:
+        if self.peek_chunk_type() != ctype:
+            return None
+        return self.next_chunk()[1]
+
+    def expect_chunk(self, ctype: int) -> "Buf":
+        t, c = self.next_chunk()
+        if t != ctype:
+            raise ParseError(f"expected chunk {ctype}, got {t}")
+        return c
+
+
+def _content_str(parent: Buf, compressed: Optional[Buf]) -> str:
+    t, r = parent.next_chunk()
+    if t == CHUNK_CONTENT:
+        if r.next_u32() != DATA_PLAIN_TEXT:
+            raise ParseError("unknown content data type")
+        return r.rest().decode("utf8")
+    elif t == CHUNK_CONTENT_COMPRESSED:
+        if r.next_u32() != DATA_PLAIN_TEXT:
+            raise ParseError("unknown content data type")
+        n = r.next_usize()
+        if compressed is None:
+            raise ParseError("compressed chunk missing")
+        return compressed.next_n_bytes(n).decode("utf8")
+    raise ParseError(f"expected content chunk, got {t}")
+
+
+class _PatchesIter:
+    """Op type/position column (reference: decode_oplog.rs:279-346).
+    Yields [kind, start, end, fwd] rows; supports pushback."""
+
+    def __init__(self, buf: Buf) -> None:
+        self.buf = buf
+        self.cursor = 0
+        self.pushed: List[list] = []
+
+    def next(self) -> Optional[list]:
+        if self.pushed:
+            return self.pushed.pop()
+        if self.buf.is_empty():
+            return None
+        n = self.buf.next_usize()
+        n, has_length = strip_bit(n)
+        n, diff_not_zero = strip_bit(n)
+        n, is_del = strip_bit(n)
+        kind = DEL if is_del else INS
+        if has_length:
+            fwd = True
+            if is_del:
+                n, fwd = strip_bit(n)
+            length = n
+            diff = self.buf.next_zigzag() if diff_not_zero else 0
+        else:
+            length = 1
+            fwd = True
+            diff = decode_zigzag_old(n)
+
+        raw_start = self.cursor + diff
+        if kind == INS and fwd:
+            start, raw_end = raw_start, raw_start + length
+        elif kind == DEL and not fwd:
+            start, raw_end = raw_start - length, raw_start - length
+        else:  # (Ins, rev) | (Del, fwd)
+            start, raw_end = raw_start, raw_start
+        self.cursor = raw_end
+        return [kind, start, start + length, fwd]
+
+    def push_back(self, row: list) -> None:
+        self.pushed.append(row)
+
+
+class _ContentIter:
+    """Per-kind content stream: runs of (len, known) + char data
+    (reference: decode_oplog.rs:348-425). Yields [len, str|None]."""
+
+    def __init__(self, chunk: Buf, compressed: Optional[Buf]) -> None:
+        kind = chunk.next_u32()
+        if kind not in (0, 1):
+            raise ParseError("invalid content kind")
+        self.kind = INS if kind == 0 else DEL
+        self.content = _content_str(chunk, compressed)
+        self.cpos = 0
+        self.runs = chunk.expect_chunk(CHUNK_CONTENT_IS_KNOWN)
+        self.pushed: List[list] = []
+
+    def next(self) -> Optional[list]:
+        if self.pushed:
+            return self.pushed.pop()
+        if self.runs.is_empty():
+            if self.cpos < len(self.content):
+                raise ParseError("trailing content")
+            return None
+        n = self.runs.next_usize()
+        length, known = strip_bit(n)
+        if known:
+            s = self.content[self.cpos:self.cpos + length]
+            if len(s) != length:
+                raise ParseError("content underrun")
+            self.cpos += length
+            return [length, s]
+        return [length, None]
+
+    def push_back(self, row: list) -> None:
+        self.pushed.append(row)
+
+
+class _VersionMap:
+    """RLE map file-time -> local LV (reference: decode_oplog.rs:728)."""
+
+    def __init__(self) -> None:
+        self.rows: List[list] = []  # [file_start, local_start, len]
+
+    def push(self, file_start: int, local_start: int, n: int) -> None:
+        if self.rows:
+            r = self.rows[-1]
+            if r[0] + r[2] == file_start and r[1] + r[2] == local_start:
+                r[2] += n
+                return
+        self.rows.append([file_start, local_start, n])
+
+    def map_with_len(self, file_t: int) -> Tuple[int, int]:
+        """Returns (local_t, run_len_remaining)."""
+        from bisect import bisect_right
+        i = bisect_right(self.rows, file_t, key=lambda r: r[0]) - 1
+        r = self.rows[i]
+        off = file_t - r[0]
+        assert 0 <= off < r[2], f"file time {file_t} unmapped"
+        return r[1] + off, r[2] - off
+
+
+def _rebuild_from_native(oplog: OpLog, cols: dict) -> List[int]:
+    """Fill an empty OpLog from the C++ decoder's columns (native/core.py
+    decode_file_native). The op rows arrive pre-merged with push_op's RLE
+    rule, so the resulting tables are identical to the Python decoder's."""
+    from ..text.op import OpRun
+
+    if cols["doc_id"] is not None:
+        oplog.doc_id = cols["doc_id"]
+    local_agents = [oplog.get_or_create_agent_id(n)
+                    for n in cols["agent_names"]]
+    aa = oplog.cg.agent_assignment
+    ar_agent, ar_seq0, ar_n = cols["agent_runs"]
+    lv = 0
+    for i in range(len(ar_agent)):
+        n = int(ar_n[i])
+        aa.assign_span(local_agents[int(ar_agent[i])], int(ar_seq0[i]),
+                       lv, n)
+        lv += n
+
+    ins_base = oplog.ops._arenas[INS].push(cols["ins_blob"])[0]
+    del_base = oplog.ops._arenas[DEL].push(cols["del_blob"])[0]
+    assert ins_base == 0 and del_base == 0, "native decode needs fresh arenas"
+    (olv, okind, ostart, oend, ofwd, oknown, oclen) = cols["ops"]
+    runs = oplog.ops.runs
+    # vectorized arena-cursor math + bulk row conversion: the per-row
+    # Python loop was the decode hot spot on big corpora (~53k rows on
+    # node_nodecc)
+    import numpy as _np
+    known = _np.asarray(oknown, dtype=bool)
+    kind_arr = _np.asarray(okind, dtype=_np.int64)
+    clen = _np.asarray(oclen, dtype=_np.int64)
+    c0 = _np.zeros(len(olv), dtype=_np.int64)
+    for k in (INS, DEL):
+        sel = known & (kind_arr == k)
+        take = _np.where(sel, clen, 0)
+        c0 += _np.where(sel, _np.cumsum(take) - take, 0)
+    rows = zip(_np.asarray(olv).tolist(), kind_arr.tolist(),
+               _np.asarray(ostart).tolist(), _np.asarray(oend).tolist(),
+               _np.asarray(ofwd, dtype=bool).tolist(), known.tolist(),
+               c0.tolist(), clen.tolist())
+    for (lv_i, kind, st, en, fwd, kn, cc, cl) in rows:
+        runs.append(OpRun(lv_i, kind, st, en, fwd,
+                          (cc, cc + cl) if kn else None))
+
+    g_start, g_end, g_off, g_par = cols["graph"]
+    graph = oplog.cg.graph
+    from ..native.core import graph_rebuild_native
+    built = graph_rebuild_native(g_start, g_end, g_off, g_par)
+    if built is not None:
+        # batch path (same push/advance semantics, computed in C++ —
+        # pinned equal to the per-row path by tests/test_decode.py)
+        (ms, me, msh, pind, pflat, cind, cflat, croot, ver) = built
+        graph.starts = ms.tolist()
+        graph.ends = me.tolist()
+        graph.shadows = msh.tolist()
+        pf = pflat.tolist()
+        pi = pind.tolist()
+        graph.parents = [tuple(pf[pi[i]:pi[i + 1]])
+                         for i in range(len(ms))]
+        cf = cflat.tolist()
+        ci = cind.tolist()
+        graph.child_idxs = [cf[ci[i]:ci[i + 1]] for i in range(len(ms))]
+        graph.root_child_idxs = croot.tolist()
+        oplog.cg.version[:] = ver.tolist()
+        return list(oplog.cg.version)
+    for i in range(len(g_start)):
+        parents = [int(p) for p in g_par[g_off[i]:g_off[i + 1]]]
+        span = (int(g_start[i]), int(g_end[i]))
+        graph.push(parents, span[0], span[1])
+        graph._advance_known_run(oplog.cg.version, parents, span)
+    return list(oplog.cg.version)
+
+
+def _try_decode_native(data: bytes):
+    """The C++ fresh-load parse: the file's columns, or None when the
+    library cannot be built here (or the file needs the Python decoder).
+    Corrupt input raises ParseError, as the Python decoder would; any
+    other failure of the library propagates."""
+    from ..native import core
+    try:
+        return core.decode_file_native(data)
+    except core.NativeParseError as e:
+        raise ParseError(str(e)) from None
+
+
+def decode_into(oplog: OpLog, data: bytes, ignore_crc: bool = False) -> List[int]:
+    """Decode a .dt file, merging its ops into `oplog` (dedup-safe).
+    Returns the file's frontier mapped to local LVs
+    (reference: decode_oplog.rs:590-960 decode_internal).
+
+    Fresh loads (empty oplog) go through the native C++ parser when it is
+    available (native/dt_decode.cpp — same format, column for column);
+    patch files and decode-and-add merges use this Python path."""
+    import os
+    if len(oplog) == 0 and not ignore_crc \
+            and not os.environ.get("DT_TPU_NO_NATIVE"):
+        cols = _try_decode_native(data)
+        if cols is not None:
+            return _rebuild_from_native(oplog, cols)
+
+    if data[:8] != MAGIC:
+        raise ParseError("bad magic")
+    top = Buf(data, 8)
+    if top.next_usize() != PROTOCOL_VERSION:
+        raise ParseError("unsupported protocol version")
+
+    # CRC first so we fail before mutating (reference checks last; we can
+    # afford the extra pass).
+    crc_scan = Buf(data, top.pos)
+    crc_expected = None
+    crc_end = None
+    while not crc_scan.is_empty():
+        mark = crc_scan.pos
+        t, c = crc_scan.next_chunk()
+        if t == CHUNK_CRC:
+            crc_expected = int.from_bytes(c.next_n_bytes(4), "little")
+            crc_end = mark
+            break
+    if crc_expected is not None and not ignore_crc:
+        if crc32c(data[:crc_end]) != crc_expected:
+            raise ParseError("checksum failed")
+
+    compressed: Optional[Buf] = None
+    c5 = top.read_chunk_if_eq(CHUNK_COMPRESSED)
+    if c5 is not None:
+        un_len = c5.next_usize()
+        raw = lz4_decompress_block(c5.rest(), un_len)
+        compressed = Buf(raw)
+
+    # --- FileInfo ---
+    fileinfo = top.expect_chunk(CHUNK_FILEINFO)
+    doc_id_chunk = fileinfo.read_chunk_if_eq(CHUNK_DOCID)
+    agent_names = fileinfo.expect_chunk(CHUNK_AGENTNAMES)
+    _userdata = fileinfo.read_chunk_if_eq(CHUNK_USERDATA)
+
+    if doc_id_chunk is not None:
+        if doc_id_chunk.next_u32() != DATA_PLAIN_TEXT:
+            raise ParseError("bad docid type")
+        file_doc_id = doc_id_chunk.rest().decode("utf8")
+        if oplog.doc_id is not None and len(oplog) > 0 \
+                and oplog.doc_id != file_doc_id:
+            raise ParseError("doc id mismatch")
+        oplog.doc_id = file_doc_id
+
+    # agent_map: file agent idx -> [local agent id, seq cursor]
+    agent_map: List[list] = []
+    while not agent_names.is_empty():
+        name = agent_names.next_str()
+        agent_map.append([oplog.get_or_create_agent_id(name), 0])
+
+    aa = oplog.cg.agent_assignment
+
+    def read_version_chunk(parent: Buf) -> List[int]:
+        chunk = parent.read_chunk_if_eq(CHUNK_VERSION)
+        if chunk is None:
+            return []
+        out = []
+        while True:
+            n = chunk.next_usize()
+            mapped_agent, has_more = strip_bit(n)
+            seq = chunk.next_usize()
+            if mapped_agent == 0:
+                break
+            agent = agent_map[mapped_agent - 1][0]
+            lv = aa.try_agent_version_to_lv(agent, seq)
+            if lv is None:
+                raise ParseError("base version unknown (data from the future)")
+            out.append(lv)
+            if not has_more:
+                break
+        return sorted(out)
+
+    # --- StartBranch ---
+    start_branch = top.expect_chunk(CHUNK_STARTBRANCH)
+    start_version = read_version_chunk(start_branch)
+    if not start_branch.is_empty():
+        _start_content = _content_str(start_branch, compressed)
+
+    patches_overlap = start_version != list(oplog.cg.version)
+
+    # --- Patches ---
+    patch_chunk = top.expect_chunk(CHUNK_PATCHES)
+
+    ins_content: Optional[_ContentIter] = None
+    del_content: Optional[_ContentIter] = None
+    while patch_chunk.peek_chunk_type() == CHUNK_PATCH_CONTENT:
+        it = _ContentIter(patch_chunk.next_chunk()[1], compressed)
+        if it.kind == INS:
+            ins_content = it
+        else:
+            del_content = it
+
+    agent_assignment_chunk = patch_chunk.expect_chunk(CHUNK_OP_VERSIONS)
+    pos_patches_chunk = patch_chunk.expect_chunk(CHUNK_OP_TYPE_AND_POSITION)
+    history_chunk = patch_chunk.expect_chunk(CHUNK_OP_PARENTS)
+
+    patches_iter = _PatchesIter(pos_patches_chunk)
+
+    first_new_time = len(oplog)
+    next_patch_time = first_new_time
+    next_assignment_time = first_new_time
+    new_op_start = UNDERWATER if patches_overlap else first_new_time
+    next_file_time = new_op_start
+
+    version_map = _VersionMap()
+
+    def parse_next_patches(n: int, keep: bool) -> None:
+        nonlocal next_patch_time
+        while n > 0:
+            row = patches_iter.next()
+            if row is None:
+                raise ParseError("patch column underrun")
+            kind, start, end, fwd = row
+            max_len = min(n, end - start)
+            content_iter = ins_content if kind == INS else del_content
+            content_here = None
+            if content_iter is not None:
+                crow = content_iter.next()
+                if crow is None:
+                    raise ParseError("content column underrun")
+                clen, cstr = crow
+                max_len = min(max_len, clen)
+                if clen > max_len:
+                    if cstr is not None:
+                        content_iter.push_back([clen - max_len, cstr[max_len:]])
+                        cstr = cstr[:max_len]
+                    else:
+                        content_iter.push_back([clen - max_len, None])
+                content_here = cstr
+            assert max_len > 0
+            n -= max_len
+            # Split the op row: first max_len items, remainder back.
+            from ..text.op import split_op_loc
+            if max_len < end - start:
+                (s0, e0), (s1, e1) = split_op_loc(kind, start, end, fwd, max_len)
+                patches_iter.push_back([kind, s1, e1, fwd])
+                start, end = s0, e0
+            if keep:
+                oplog.ops.push_op(next_patch_time, kind, start, end, fwd,
+                                  content_here)
+                next_patch_time += max_len
+
+    def find_sparse(agent: int, seq: int):
+        """(overlap_lv_start | None, span_end): is `seq` already known, and
+        till where does that (known or unknown) state extend?"""
+        from bisect import bisect_right
+        runs = aa.client_runs[agent]
+        i = bisect_right(runs, seq, key=lambda r: r[0]) - 1
+        if i >= 0 and seq < runs[i][1]:
+            s0, s1, lv0 = runs[i]
+            return lv0 + (seq - s0), s1
+        nxt = runs[i + 1][0] if i + 1 < len(runs) else 1 << 62
+        return None, nxt
+
+    # --- agent assignment + patches ---
+    while not agent_assignment_chunk.is_empty():
+        n = agent_assignment_chunk.next_usize()
+        n, has_jump = strip_bit(n)
+        length = agent_assignment_chunk.next_usize()
+        jump = agent_assignment_chunk.next_zigzag() if has_jump else 0
+        if n == 0:
+            raise ParseError("op assigned to ROOT agent")
+        if n - 1 >= len(agent_map):
+            raise ParseError("invalid agent index")
+        entry = agent_map[n - 1]
+        agent = entry[0]
+        seq_start = entry[1] + jump
+        seq_end = seq_start + length
+        entry[1] = seq_end
+
+        if patches_overlap:
+            seq = seq_start
+            while seq < seq_end:
+                overlap_lv, span_end = find_sparse(agent, seq)
+                end = min(seq_end, span_end)
+                chunk_len = end - seq
+                if overlap_lv is not None:
+                    version_map.push(next_file_time, overlap_lv, chunk_len)
+                    keep = False
+                else:
+                    aa.assign_span(agent, seq, next_assignment_time, chunk_len)
+                    version_map.push(next_file_time, next_assignment_time,
+                                     chunk_len)
+                    next_assignment_time += chunk_len
+                    keep = True
+                next_file_time += chunk_len
+                parse_next_patches(chunk_len, keep)
+                seq = end
+        else:
+            aa.assign_span(agent, seq_start, next_assignment_time, length)
+            version_map.push(next_file_time, next_assignment_time, length)
+            parse_next_patches(length, True)
+            next_assignment_time += length
+            next_file_time += length
+
+    # --- history (parents) ---
+    next_file_time = new_op_start
+    next_history_time = first_new_time
+    file_frontier = list(start_version)
+    graph = oplog.cg.graph
+
+    def read_parents(chunk: Buf, next_time: int) -> List[int]:
+        parents = []
+        while True:
+            n = chunk.next_usize()
+            n, is_foreign = strip_bit(n)
+            n, has_more = strip_bit(n)
+            if is_foreign:
+                if n == 0:
+                    break  # ROOT
+                agent = agent_map[n - 1][0]
+                seq = chunk.next_usize()
+                lv = aa.try_agent_version_to_lv(agent, seq)
+                if lv is None:
+                    raise ParseError("unknown foreign parent")
+                parents.append(lv)
+            else:
+                parents.append(next_time - n)
+            if not has_more:
+                break
+        return sorted(parents)
+
+    while not history_chunk.is_empty():
+        length = history_chunk.next_usize()
+        parents = read_parents(history_chunk, next_file_time)
+        span = (next_file_time, next_file_time + length)
+        next_file_time += length
+
+        # Map through version_map piecewise (reference: decode_oplog.rs:241-269).
+        while True:
+            local_start, run_len = version_map.map_with_len(span[0])
+            n_here = min(span[1] - span[0], run_len)
+            mapped_span = (local_start, local_start + n_here)
+            mapped_parents = []
+            for p in parents:
+                if p >= UNDERWATER:
+                    mp, _ = version_map.map_with_len(p)
+                    mapped_parents.append(mp)
+                else:
+                    mapped_parents.append(p)
+            mapped_parents.sort()
+
+            graph._advance_known_run(file_frontier, mapped_parents, mapped_span)
+
+            if mapped_span[1] > next_history_time:
+                ms, me = mapped_span
+                mp = mapped_parents
+                if ms < next_history_time:
+                    skip = next_history_time - ms
+                    ms += skip
+                    mp = [ms - 1]
+                graph.push(mp, ms, me)
+                graph._advance_known_run(oplog.cg.version, mp, (ms, me))
+                next_history_time = me
+
+            if span[0] + n_here < span[1]:
+                span = (span[0] + n_here, span[1])
+                parents = [span[0] - 1]
+            else:
+                break
+
+    if next_patch_time != next_assignment_time or \
+            next_patch_time != next_history_time:
+        raise ParseError("column length mismatch")
+
+    return file_frontier
+
+
+def load_oplog(data: bytes) -> OpLog:
+    """reference: ListOpLog::load_from (decode_oplog.rs:447)."""
+    ol = OpLog()
+    decode_into(ol, data)
+    return ol

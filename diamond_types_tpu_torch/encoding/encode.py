@@ -1,0 +1,356 @@
+"""v1 oplog file format writer ("DMNDTYPS").
+
+Capability mirror of the reference encoder (reference:
+src/list/encoding/encode_oplog.rs: `encode`, `encode_from`, EncodeOptions /
+ENCODE_FULL / ENCODE_PATCH). Ops are walked in optimized spanning-tree order
+between `from_version` and the oplog tip, renumbered densely into file order,
+and written as per-column RLE chunks. Content fields are LZ4-compressed into
+the shared compressed-fields chunk by default (compress_content=False writes
+plain content chunks; decoders accept both).
+
+The JAX package's `encoding/encode.py`, copied. Where the native library
+builds here (and DT_TPU_NO_NATIVE is unset) full and patch encodes run in
+C++ (`NativeContext.encode_full` / `encode_patch`), byte-identical to the
+Python writer below.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+from ..core.span import Span
+from ..listmerge.walker import SpanningTreeWalker
+from ..text.op import DEL, INS, can_append_ops, OpRun
+from ..text.oplog import OpLog
+from .crc32c import crc32c
+from .decode import (CHUNK_AGENTNAMES, CHUNK_COMPRESSED, CHUNK_CONTENT,
+                     CHUNK_CONTENT_COMPRESSED, CHUNK_CONTENT_IS_KNOWN,
+                     CHUNK_CRC, CHUNK_DOCID, CHUNK_FILEINFO,
+                     CHUNK_OP_PARENTS, CHUNK_OP_TYPE_AND_POSITION,
+                     CHUNK_OP_VERSIONS, CHUNK_PATCH_CONTENT, CHUNK_PATCHES,
+                     CHUNK_STARTBRANCH, CHUNK_USERDATA, CHUNK_VERSION,
+                     DATA_PLAIN_TEXT, MAGIC, PROTOCOL_VERSION)
+from .lz4 import lz4_compress_block
+from .varint import encode_leb, encode_zigzag_old, mix_bit
+
+
+@dataclass
+class EncodeOptions:
+    user_data: Optional[bytes] = None
+    store_start_branch_content: bool = True
+    store_inserted_content: bool = True
+    store_deleted_content: bool = False
+    compress_content: bool = True
+
+
+ENCODE_FULL = EncodeOptions()
+ENCODE_PATCH = EncodeOptions(store_start_branch_content=False)
+
+
+def _chunk(ctype: int, data: bytes) -> bytes:
+    return encode_leb(ctype) + encode_leb(len(data)) + data
+
+
+class _AgentMapping:
+    """File-local agent numbering, 1-based (0 = ROOT), in order of first use
+    (reference: encode_oplog.rs:193-239)."""
+
+    def __init__(self, aa) -> None:
+        self.aa = aa
+        self.map = {}
+        self.names_buf = bytearray()
+        self.seq_cursor = {}
+
+    def map_agent(self, agent: int) -> int:
+        m = self.map.get(agent)
+        if m is None:
+            m = len(self.map) + 1
+            self.map[agent] = m
+            name = self.aa.get_agent_name(agent).encode("utf8")
+            self.names_buf += encode_leb(len(name)) + name
+            self.seq_cursor[agent] = 0
+        return m
+
+    def seq_delta(self, agent: int, seq_start: int, seq_end: int) -> int:
+        old = self.seq_cursor[agent]
+        self.seq_cursor[agent] = seq_end
+        return seq_start - old
+
+
+def _write_op(out: bytearray, kind: int, start: int, end: int, fwd: bool,
+              cursor: List[int]) -> None:
+    """One op run in the type/position column (reference: encode_oplog.rs:20-90)."""
+    length = end - start
+    fwd = fwd or length == 1
+    op_start = end if (kind == DEL and not fwd) else start
+    op_end = end if (kind == INS and fwd) else start
+    diff = op_start - cursor[0]
+    cursor[0] = op_end
+
+    if length != 1:
+        n = length
+        if kind == DEL:
+            n = mix_bit(n, fwd)
+    elif diff != 0:
+        n = encode_zigzag_old(diff)
+    else:
+        n = 0
+    n = mix_bit(n, kind == DEL)
+    n = mix_bit(n, diff != 0)
+    n = mix_bit(n, length != 1)
+    out += encode_leb(n)
+    if length != 1 and diff != 0:
+        out += encode_leb(encode_zigzag_old(diff))
+
+
+class _ContentChunk:
+    """Per-kind content column: chars + (len, known) runs
+    (reference: encode_oplog.rs ContentChunk)."""
+
+    def __init__(self, kind: int) -> None:
+        self.kind = kind
+        self.content: List[str] = []
+        self.runs: List[List] = []  # [len, known]
+        self.any = False
+
+    def push(self, content: Optional[str], n: int) -> None:
+        self.any = True
+        known = content is not None
+        if known:
+            self.content.append(content)
+        if self.runs and self.runs[-1][1] == known:
+            self.runs[-1][0] += n
+        else:
+            self.runs.append([n, known])
+
+    def bake(self, compress_parts: Optional[List[bytes]] = None) -> Optional[bytes]:
+        if not self.any:
+            return None
+        body = bytearray()
+        body += encode_leb(0 if self.kind == INS else 1)
+        text = "".join(self.content).encode("utf8")
+        if compress_parts is not None:
+            compress_parts.append(text)
+            body += _chunk(CHUNK_CONTENT_COMPRESSED,
+                           encode_leb(DATA_PLAIN_TEXT) + encode_leb(len(text)))
+        else:
+            body += _chunk(CHUNK_CONTENT, encode_leb(DATA_PLAIN_TEXT) + text)
+        runs = bytearray()
+        for n, known in self.runs:
+            runs += encode_leb(mix_bit(n, known))
+        body += _chunk(CHUNK_CONTENT_IS_KNOWN, bytes(runs))
+        return bytes(body)
+
+
+def encode_oplog(oplog: OpLog, opts: EncodeOptions = ENCODE_FULL,
+                 from_version: Optional[Sequence[int]] = None) -> bytes:
+    from_version = sorted(from_version) if from_version else []
+    if not opts.store_deleted_content and \
+            (not from_version or not opts.store_start_branch_content):
+        # Native fast paths (native/dt_core.cpp encode_impl): full
+        # snapshots AND patch encodes (the sync-protocol hot path —
+        # every /changes push pays this; VERDICT r4 #4). The native
+        # walk mirrors SpanningTreeWalker's order, so output is
+        # byte-identical to this writer — pinned by tests/test_encode.py.
+        # Deleted-content storage and from_version-with-start-content
+        # snapshots stay here.
+        from ..native import native_ctx_or_none
+        ctx = native_ctx_or_none(oplog)
+        if ctx is not None:
+            if from_version:
+                blob = ctx.encode_patch(
+                    oplog.doc_id, opts.user_data,
+                    opts.store_inserted_content, opts.compress_content,
+                    from_version)
+            else:
+                blob = ctx.encode_full(
+                    oplog.doc_id, opts.user_data,
+                    opts.store_inserted_content, opts.compress_content)
+            if blob is not None:
+                return blob
+    graph = oplog.cg.graph
+    aa = oplog.cg.agent_assignment
+
+    mapping = _AgentMapping(aa)
+
+    agent_chunk = bytearray()
+    pending_aa: Optional[List] = None  # [mapped_agent, delta, len, agent, seq_end]
+
+    def flush_aa() -> None:
+        nonlocal pending_aa
+        if pending_aa is None:
+            return
+        m, delta, n, _agent, _se = pending_aa
+        has_jump = delta != 0
+        agent_chunk.extend(encode_leb(mix_bit(m, has_jump)))
+        agent_chunk.extend(encode_leb(n))
+        if has_jump:
+            agent_chunk.extend(encode_leb(encode_zigzag_old(delta)))
+        pending_aa = None
+
+    ops_chunk = bytearray()
+    ops_cursor = [0]
+    pending_op: Optional[OpRun] = None
+
+    def flush_op() -> None:
+        nonlocal pending_op
+        if pending_op is None:
+            return
+        _write_op(ops_chunk, pending_op.kind, pending_op.start, pending_op.end,
+                  pending_op.fwd, ops_cursor)
+        pending_op = None
+
+    ins_content = _ContentChunk(INS) if opts.store_inserted_content else None
+    del_content = _ContentChunk(DEL) if opts.store_deleted_content else None
+
+    txns_chunk = bytearray()
+    # txn_map: local span start -> output start, ascending in output order.
+    txn_map: List[Tuple[int, int, int]] = []  # (local_start, out_start, len)
+    next_output_time = 0
+
+    def map_local_to_output(p: int) -> Optional[int]:
+        from bisect import bisect_right
+        i = bisect_right(txn_map, p, key=lambda r: r[0]) - 1
+        if i < 0:
+            return None
+        ls, os_, n = txn_map[i]
+        if p >= ls + n:
+            return None
+        return os_ + (p - ls)
+
+    def write_txn(span: Span, parents: Sequence[int]) -> None:
+        nonlocal next_output_time
+        from bisect import insort
+        n = span[1] - span[0]
+        out_start = next_output_time
+        insort(txn_map, (span[0], out_start, n))
+        next_output_time += n
+
+        txns_chunk.extend(encode_leb(n))
+        if not parents:
+            txns_chunk.extend(encode_leb(1))  # foreign-ROOT marker
+            return
+        for i, p in enumerate(parents):
+            has_more = i + 1 < len(parents)
+            mapped = map_local_to_output(p)
+            if mapped is not None:
+                v = mix_bit(mix_bit(out_start - mapped, has_more), False)
+                txns_chunk.extend(encode_leb(v))
+            else:
+                agent, seq = aa.local_to_agent_version(p)
+                m = mapping.map_agent(agent)
+                v = mix_bit(mix_bit(m, has_more), True)
+                txns_chunk.extend(encode_leb(v))
+                txns_chunk.extend(encode_leb(seq))
+
+    # --- main walk (reference: encode_oplog.rs:545-600) ---------------------
+    _only_a, only_b = graph.diff_rev(from_version, oplog.cg.version)
+    assert not _only_a, "from_version must be an ancestor of the oplog version"
+    walker = SpanningTreeWalker(graph, only_b, list(from_version),
+                                track_frontier=False)
+    for walk in walker:
+        span = walk.consume
+        # 1. agent assignment runs
+        pos = span[0]
+        while pos < span[1]:
+            agent, seq, n = aa.local_span_to_agent_span(pos, span[1] - pos)
+            m = mapping.map_agent(agent)
+            if pending_aa is not None and pending_aa[0] == m \
+                    and pending_aa[4] == seq:
+                pending_aa[2] += n
+                pending_aa[4] = seq + n
+                mapping.seq_cursor[agent] = seq + n
+            else:
+                flush_aa()
+                delta = mapping.seq_delta(agent, seq, seq + n)
+                pending_aa = [m, delta, n, agent, seq + n]
+            pos += n
+
+        # 2. ops + content
+        for piece in oplog.ops.iter_range(span):
+            content = oplog.ops.get_run_content(piece)
+            if piece.kind == INS and ins_content is not None:
+                # content may be unknown (oplog decoded from a blob
+                # written without inserted content): a known=false run,
+                # same as the native writer and the reference format
+                ins_content.push(content, len(piece))
+            elif piece.kind == DEL and del_content is not None:
+                del_content.push(content, len(piece))
+            if pending_op is not None and pending_op.kind == piece.kind \
+                    and can_append_ops(piece.kind, pending_op, piece):
+                from ..text.op import append_ops
+                clone = OpRun(piece.lv, piece.kind, piece.start, piece.end,
+                              piece.fwd, None)
+                append_ops(piece.kind, pending_op, clone)
+            else:
+                flush_op()
+                pending_op = OpRun(piece.lv, piece.kind, piece.start,
+                                   piece.end, piece.fwd, None)
+
+        # 3. parents
+        write_txn(span, walk.parents)
+
+    flush_aa()
+    flush_op()
+
+    # --- start branch --------------------------------------------------------
+    compress_parts: Optional[List[bytes]] = [] if opts.compress_content else None
+    start_branch = bytearray()
+    if from_version:
+        vbuf = bytearray()
+        for i, lv in enumerate(from_version):
+            has_more = i + 1 < len(from_version)
+            agent, seq = aa.local_to_agent_version(lv)
+            m = mapping.map_agent(agent)
+            vbuf += encode_leb(mix_bit(m, has_more))
+            vbuf += encode_leb(seq)
+        start_branch += _chunk(CHUNK_VERSION, bytes(vbuf))
+        if opts.store_start_branch_content:
+            content = oplog.checkout(from_version).snapshot().encode("utf8")
+            if compress_parts is not None:
+                compress_parts.append(content)
+                start_branch += _chunk(
+                    CHUNK_CONTENT_COMPRESSED,
+                    encode_leb(DATA_PLAIN_TEXT) + encode_leb(len(content)))
+            else:
+                start_branch += _chunk(
+                    CHUNK_CONTENT, encode_leb(DATA_PLAIN_TEXT) + content)
+
+    # --- file info -----------------------------------------------------------
+    fileinfo = bytearray()
+    if oplog.doc_id is not None:
+        fileinfo += _chunk(CHUNK_DOCID, encode_leb(DATA_PLAIN_TEXT)
+                           + oplog.doc_id.encode("utf8"))
+    fileinfo += _chunk(CHUNK_AGENTNAMES, bytes(mapping.names_buf))
+    if opts.user_data is not None:
+        fileinfo += _chunk(CHUNK_USERDATA, opts.user_data)
+
+    # --- assemble ------------------------------------------------------------
+    patches = bytearray()
+    if ins_content is not None:
+        baked = ins_content.bake(compress_parts)
+        if baked is not None:
+            patches += _chunk(CHUNK_PATCH_CONTENT, baked)
+    if del_content is not None:
+        baked = del_content.bake(compress_parts)
+        if baked is not None:
+            patches += _chunk(CHUNK_PATCH_CONTENT, baked)
+
+    result = bytearray()
+    result += MAGIC
+    result += encode_leb(PROTOCOL_VERSION)
+    if compress_parts:
+        blob = b"".join(compress_parts)
+        result += _chunk(CHUNK_COMPRESSED,
+                         encode_leb(len(blob)) + lz4_compress_block(blob))
+    result += _chunk(CHUNK_FILEINFO, bytes(fileinfo))
+    result += _chunk(CHUNK_STARTBRANCH, bytes(start_branch))
+    patches += _chunk(CHUNK_OP_VERSIONS, bytes(agent_chunk))
+    patches += _chunk(CHUNK_OP_TYPE_AND_POSITION, bytes(ops_chunk))
+    patches += _chunk(CHUNK_OP_PARENTS, bytes(txns_chunk))
+    result += _chunk(CHUNK_PATCHES, bytes(patches))
+
+    checksum = crc32c(bytes(result))
+    result += _chunk(CHUNK_CRC, checksum.to_bytes(4, "little"))
+    return bytes(result)

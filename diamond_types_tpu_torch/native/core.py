@@ -8,15 +8,20 @@ composer (`compose_plan`, `compose_cache_only`, `compose_linear`), the zone
 insert-run table (`zone_ins_runs`) and the collision count of the last
 transform; `content_columns`, `get_native_ctx`, `merge_native` and
 `native_available`. The zone tape packer (`dt_zone_pack`) is bound here
-too and called from `gpu/zone_kernel.py`. The library comes from
-`native/build.py` at first use, never at import.
+too and called from `gpu/zone_kernel.py`. The codec half (slice 10):
+`crc32c_native`, `lz4_compress_native`, the fresh-load decoder
+`decode_file_native` (raising `NativeParseError` on corrupt input), the
+batched graph rebuild `graph_rebuild_native` and the writer
+`NativeContext.encode_full` / `encode_patch`, byte-identical to the
+Python codec in `encoding/`. The library comes from `native/build.py` at
+first use, never at import.
 """
 
 from __future__ import annotations
 
 import ctypes as ct
 import threading
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -93,6 +98,33 @@ def _configure(lib) -> None:
         i64, i64, i64, i64]                  # MB MC MD compose serial
     lib.dt_zone_pack.restype = i64
     lib.dt_zone_pack_fetch.argtypes = [vp] + [a32] * 19 + [i64, i64, i64]
+    # the codec: checksum, compressor, fresh-load decoder, graph rebuild
+    # and writer
+    lib.dt_crc32c.argtypes = [au8, i64, i64]
+    lib.dt_crc32c.restype = i64
+    lib.dt_lz4_compress.argtypes = [au8, i64, au8, i64]
+    lib.dt_lz4_compress.restype = i64
+    lib.dt_decode_new.argtypes = [au8, i64]
+    lib.dt_decode_new.restype = vp
+    lib.dt_decode_free.argtypes = [vp]
+    lib.dt_dec_status.argtypes = [vp]
+    lib.dt_dec_status.restype = i64
+    lib.dt_dec_err.argtypes = [vp, ct.c_char_p, i64]
+    lib.dt_dec_err.restype = i64
+    lib.dt_dec_counts.argtypes = [vp, a64]
+    lib.dt_dec_strings.argtypes = [vp, au8, a64, au8, au8, au8]
+    lib.dt_dec_agent_runs.argtypes = [vp, a64, a64, a64]
+    lib.dt_dec_ops.argtypes = [vp, a64, au8, a64, a64, au8, au8, a64]
+    lib.dt_dec_graph.argtypes = [vp, a64, a64, a64, a64]
+    lib.dt_graph_rebuild.argtypes = [i64] + [a64] * 15
+    lib.dt_graph_rebuild.restype = i64
+    lib.dt_encode_full.argtypes = [vp, ct.c_char_p, i64, ct.c_char_p, i64,
+                                   i64, i64]
+    lib.dt_encode_full.restype = i64
+    lib.dt_encode_patch.argtypes = [vp, ct.c_char_p, i64, ct.c_char_p, i64,
+                                    i64, i64, a64, i64]
+    lib.dt_encode_patch.restype = i64
+    lib.dt_encode_fetch.argtypes = [vp, au8]
 
 
 def native_available() -> bool:
@@ -357,6 +389,42 @@ class NativeContext:
             lib.dt_fetch_linear(self._ptr, lv, ln)
         return lv, ln
 
+    def encode_full(self, doc_id, user_data, store_ins: bool,
+                    compress: bool):
+        """The native v1 full-snapshot writer (from_version=[]),
+        byte-identical to `encoding.encode`'s Python writer; None when
+        the C++ writer refuses the input (the caller writes in Python)."""
+        self.sync()
+        lib = self._lib
+        did = doc_id.encode("utf8") if doc_id is not None else None
+        n = lib.dt_encode_full(
+            self._ptr, did, len(did) if did is not None else -1,
+            user_data, len(user_data) if user_data is not None else -1,
+            1 if store_ins else 0, 1 if compress else 0)
+        if n < 0:
+            return None
+        out = np.empty(n, dtype=np.uint8)
+        lib.dt_encode_fetch(self._ptr, out)
+        return out.tobytes()
+
+    def encode_patch(self, doc_id, user_data, store_ins: bool,
+                     compress: bool, from_version):
+        """The native v1 patch writer (ops since `from_version`),
+        byte-identical to the Python writer; None when it refuses."""
+        self.sync()
+        lib = self._lib
+        did = doc_id.encode("utf8") if doc_id is not None else None
+        f = np.ascontiguousarray(sorted(from_version), dtype=np.int64)
+        n = lib.dt_encode_patch(
+            self._ptr, did, len(did) if did is not None else -1,
+            user_data, len(user_data) if user_data is not None else -1,
+            1 if store_ins else 0, 1 if compress else 0, f, len(f))
+        if n < 0:
+            return None
+        out = np.empty(n, dtype=np.uint8)
+        lib.dt_encode_fetch(self._ptr, out)
+        return out.tobytes()
+
     def merge_to_string(self, init: str, from_frontier: Sequence[int],
                         merge_frontier: Sequence[int]):
         """Full native merge: returns (final_doc_str, final_frontier)."""
@@ -404,3 +472,141 @@ def merge_native(oplog, init: str, from_frontier, merge_frontier):
     at `from_frontier`: (text, frontier)."""
     return get_native_ctx(oplog).merge_to_string(init, from_frontier,
                                                  merge_frontier)
+
+
+# ---- the codec --------------------------------------------------------------
+#
+# Each entry returns None when the library cannot be built here, so its
+# caller runs the Python codec (byte-identical output); any other failure
+# propagates.
+
+
+def crc32c_native(data: bytes, seed: int = 0) -> Optional[int]:
+    """CRC-32C of `data` continuing from `seed`, in C++."""
+    if not native_available():
+        return None
+    buf = np.ascontiguousarray(np.frombuffer(data, dtype=np.uint8))
+    return int(_lib.dt_crc32c(buf, len(data), seed))
+
+
+def lz4_compress_native(data: bytes) -> Optional[bytes]:
+    """The LZ4 block compressor in C++, byte-identical to
+    `encoding.lz4.lz4_compress_block`'s Python loop."""
+    if not native_available():
+        return None
+    buf = np.ascontiguousarray(np.frombuffer(data, dtype=np.uint8))
+    cap = len(data) + len(data) // 255 + 16
+    out = np.zeros(max(1, cap), dtype=np.uint8)
+    n = int(_lib.dt_lz4_compress(buf, len(data), out, cap))
+    if n < 0:       # the output outgrew the estimate: -n is what it needs
+        out = np.zeros(-n, dtype=np.uint8)
+        n = int(_lib.dt_lz4_compress(buf, len(data), out, -n))
+    return out[:n].tobytes()
+
+
+class NativeParseError(Exception):
+    """Corrupt input, as the C++ decoder reports it."""
+
+
+def decode_file_native(data: bytes) -> Optional[dict]:
+    """Parse a v1 .dt file with the C++ decoder (fresh loads only).
+
+    Returns the file's columns, or None when the file needs the Python
+    decoder (a patch with a non-empty start version) or the library
+    cannot be built here. Raises NativeParseError on corrupt input (what
+    the Python decoder raises ParseError for)."""
+    if not native_available():
+        return None
+    lib = _lib
+    buf = np.ascontiguousarray(np.frombuffer(data, dtype=np.uint8))
+    h = lib.dt_decode_new(buf, len(data))
+    try:
+        status = lib.dt_dec_status(h)
+        if status != 0:
+            if status == 1:
+                return None
+            n = lib.dt_dec_err(h, None, 0)
+            msg = ct.create_string_buffer(int(n) + 1)
+            lib.dt_dec_err(h, msg, n)
+            raise NativeParseError(msg.value.decode("utf8", "replace"))
+        counts = np.zeros(10, dtype=np.int64)
+        lib.dt_dec_counts(h, counts)
+        (n_agents, names_bytes, n_aruns, n_ops, n_graph, n_par,
+         ins_bytes, del_bytes, has_doc_id, doc_bytes) = (int(x)
+                                                         for x in counts)
+
+        def cols(n, dtype, k):
+            return [np.zeros(max(1, n), dtype=dtype) for _ in range(k)]
+
+        names, ins_blob, del_blob, doc_id = (
+            np.zeros(max(1, k), dtype=np.uint8)
+            for k in (names_bytes, ins_bytes, del_bytes, doc_bytes))
+        name_lens = np.zeros(max(1, n_agents), dtype=np.int64)
+        lib.dt_dec_strings(h, names, name_lens, ins_blob, del_blob, doc_id)
+        ar_agent, ar_seq0, ar_n = cols(n_aruns, np.int64, 3)
+        lib.dt_dec_agent_runs(h, ar_agent, ar_seq0, ar_n)
+        op_lv, op_start, op_end, op_clen = cols(n_ops, np.int64, 4)
+        op_kind, op_fwd, op_known = cols(n_ops, np.uint8, 3)
+        lib.dt_dec_ops(h, op_lv, op_kind, op_start, op_end, op_fwd,
+                       op_known, op_clen)
+        g_start, g_end = cols(n_graph, np.int64, 2)
+        g_off = np.zeros(n_graph + 1, dtype=np.int64)
+        g_par = np.zeros(max(1, n_par), dtype=np.int64)
+        lib.dt_dec_graph(h, g_start, g_end, g_off, g_par)
+
+        names_b = names.tobytes()[:names_bytes]
+        agent_names = []
+        k = 0
+        for i in range(n_agents):
+            ln = int(name_lens[i])
+            agent_names.append(names_b[k:k + ln].decode("utf8"))
+            k += ln
+        return {
+            "doc_id": (doc_id.tobytes()[:doc_bytes].decode("utf8")
+                       if has_doc_id else None),
+            "agent_names": agent_names,
+            "agent_runs": (ar_agent[:n_aruns], ar_seq0[:n_aruns],
+                           ar_n[:n_aruns]),
+            "ops": (op_lv[:n_ops], op_kind[:n_ops], op_start[:n_ops],
+                    op_end[:n_ops], op_fwd[:n_ops], op_known[:n_ops],
+                    op_clen[:n_ops]),
+            "ins_blob": ins_blob.tobytes()[:ins_bytes].decode("utf8"),
+            "del_blob": del_blob.tobytes()[:del_bytes].decode("utf8"),
+            "graph": (g_start[:n_graph], g_end[:n_graph], g_off,
+                      g_par[:n_par]),
+        }
+    finally:
+        lib.dt_decode_free(h)
+
+
+def graph_rebuild_native(g_start, g_end, g_off, g_par):
+    """The decoder's graph rows pushed in C++ with `Graph.push` and
+    `_advance_known_run` semantics: (starts, ends, shadows, parents CSR,
+    children CSR, roots, version), or None when the library cannot be
+    built here or the rows are malformed (the caller pushes row by row)."""
+    if not native_available():
+        return None
+    n = len(g_start)
+    npar = len(g_par)
+
+    def a(x):
+        return np.ascontiguousarray(x, dtype=np.int64)
+
+    one = np.zeros(1, np.int64)
+    ms, me, msh, croot, ver = (np.empty(max(n, 1), np.int64)
+                               for _ in range(5))
+    pind = np.empty(n + 1, np.int64)
+    cind = np.empty(n + 1, np.int64)
+    pflat = np.empty(max(npar, 1), np.int64)
+    cflat = np.empty(max(npar, 1), np.int64)
+    crn = np.zeros(1, np.int64)
+    vern = np.zeros(1, np.int64)
+    m = _lib.dt_graph_rebuild(
+        n, a(g_start), a(g_end), a(g_off), a(g_par) if npar else one,
+        ms, me, msh, pind, pflat, cind, cflat, croot, crn, ver, vern)
+    if m < 0:
+        return None
+    k = int(m)
+    return (ms[:k], me[:k], msh[:k], pind[:k + 1], pflat[:int(pind[k])],
+            cind[:k + 1], cflat[:int(cind[k])], croot[:int(crn[0])],
+            ver[:int(vern[0])])

@@ -16,6 +16,9 @@ the device replay (K1) and, with `device_plan`, device planning (K2):
   * `driver`     — the serve-bench workload driver with a byte-parity gate
                    against the host merge (`python -m
                    diamond_types_tpu_torch.serve`)
+  * `hydrate`    — the residency tier's `Hydrator` (cold documents on
+                   disk -> warm oplogs), wired in by
+                   `MergeScheduler.attach_hydrator`
 """
 
 from .admission import AdmissionQueue, Backpressure, shape_bucket

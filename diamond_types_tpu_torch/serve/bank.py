@@ -14,7 +14,11 @@ engine (`fused=True`, the default), a `DeviceZoneSession`
                      on resync evicts its least-recently-used neighbors.
 
 Eviction drops the device state; the document itself lives in its host
-OpLog, so an evicted doc costs one rebuild on its next merge.
+OpLog, so an evicted doc costs one rebuild on its next merge. With the
+residency tier attached (`MergeScheduler.attach_hydrator`), every
+eviction — LRU, footprint, explicit, and the stale-oplog rebuild of a
+re-hydrated document — calls `snapshot_hook(doc_id, pending_ops)`, so
+the doc's warm oplog is persisted to its durable home.
 
 Fused flush: `sync_docs` replays a whole taken bucket in ONE device call
 per (cap, max_ins) group. The ladder, most-fused first:
@@ -47,8 +51,8 @@ guard, e.g. DocStore.lock) is held only around the HOST-side phases
 (session build, tail extraction and planning, fallback bookkeeping);
 `device_lock` (per device) only around the device replay, so shards flush
 concurrently. The first CUDA touch in the process runs once under a module
-lock; kernels and the native library build at first use under their own
-locks.
+lock (a witness lock, `first_touch`, as in the JAX package); kernels and
+the native library build at first use under their own locks.
 
 Planning runs in three steps, so that the scheduler's flush window
 (`mesh_window=True`) can resolve every shard's tails at once: `extract_window`
@@ -59,8 +63,8 @@ outside it) and `_plan_fused` (grouping by (cap, max_ins), under it again).
 tail (sync counts, fence failures to the host, the per-doc rung).
 `sync_docs` is `plan_window`, one replay per group, `adopt_window`.
 
-Left out of the port so far: the residency tier's snapshot hook, and the
-obs layer's flight recorder, journey stamps and device profiler.
+Left out of the port so far: the obs layer's flight recorder, journey
+stamps and device profiler.
 """
 
 from __future__ import annotations
@@ -73,6 +77,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from ..analysis.witness import make_lock
 from ..gpu import flush_fuse, kernels, resolve_device, xform
 from ..gpu.steer import STEER, WARMUP_SHAPE_CLASSES, _pow2, cap_class, \
     warmup_batches
@@ -82,7 +87,7 @@ from .metrics import ServeMetrics
 
 # the first CUDA touch in the process initialises the driver and its
 # device table; it runs exactly once, under this lock
-_first_touch_lock = threading.Lock()
+_first_touch_lock = make_lock("first_touch", "leaf")
 _first_touch_done = False
 
 
@@ -172,6 +177,12 @@ class SessionBank:
         self.mesh_devices = max(int(mesh_devices), 1)
         self.sessions: "OrderedDict[str, object]" = OrderedDict()
         self._resyncs_seen: Dict[str, int] = {}
+        # residency tier (MergeScheduler.attach_hydrator): called as
+        # snapshot_hook(doc_id, pending_ops) at every eviction site so
+        # the doc's state is persisted, not dropped. Enqueue-only by
+        # contract: eviction runs under shard/oplog locks and must never
+        # wait on disk.
+        self.snapshot_hook = None
         self._warmup_thread: Optional[threading.Thread] = None
         self._warmup_error: Optional[Exception] = None
         if warmup and self.fused:
@@ -242,11 +253,21 @@ class SessionBank:
     def footprint_slots(self) -> int:
         return sum(s.footprint_slots() for s in self.sessions.values())
 
-    def _drop(self, doc_id: str) -> None:
-        """Shared eviction tail: forget the doc's resync baseline and
-        count the eviction."""
+    @staticmethod
+    def _pending_ops(sess) -> int:
+        """Ops the session's oplog holds beyond its synced frontier:
+        what a lossy eviction would have dropped."""
+        return max(len(sess.oplog) - sess.synced_to, 0)
+
+    def _drop(self, doc_id: str, sess, why: str) -> None:
+        """Shared eviction tail: forget the doc's resync baseline, count
+        the eviction and, with a residency tier attached, route the doc
+        to its snapshot (`why` names the site: capacity, explicit or
+        stale-oplog). The hook only enqueues; what it raises propagates."""
         self._resyncs_seen.pop(doc_id, None)
         self._bump("evictions")
+        if self.snapshot_hook is not None:
+            self.snapshot_hook(doc_id, self._pending_ops(sess))
 
     def _evict_until_fits(self, keep: Optional[str] = None) -> None:
         def over() -> bool:
@@ -256,12 +277,12 @@ class SessionBank:
             victim = next((k for k in self.sessions if k != keep), None)
             if victim is None:
                 break      # only `keep` is resident; nothing to evict
-            self.sessions.pop(victim)
-            self._drop(victim)
+            self._drop(victim, self.sessions.pop(victim), why="capacity")
 
     def evict(self, doc_id: str) -> bool:
-        if self.sessions.pop(doc_id, None) is not None:
-            self._drop(doc_id)
+        sess = self.sessions.pop(doc_id, None)
+        if sess is not None:
+            self._drop(doc_id, sess, why="explicit")
             return True
         return False
 
@@ -284,11 +305,13 @@ class SessionBank:
         and enforcing both residency bounds."""
         sess = self.sessions.get(doc_id)
         if sess is not None and sess.oplog is not oplog:
-            # the doc's oplog was replaced: a session bound to the old
-            # one would serve a frozen view forever. Rebuild against the
-            # live oplog (counted as an eviction).
+            # the doc's oplog was replaced (residency churn: evicted from
+            # the warm tier and re-hydrated into a new OpLog): a session
+            # bound to the old one would serve a frozen view forever.
+            # Rebuild against the live oplog (counted as an eviction,
+            # snapshot-routed like any other).
             self.sessions.pop(doc_id)
-            self._drop(doc_id)
+            self._drop(doc_id, sess, why="stale-oplog")
             sess = None
         if sess is not None:
             self.sessions.move_to_end(doc_id)

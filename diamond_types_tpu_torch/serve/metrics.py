@@ -2,14 +2,15 @@
 
 The JAX package's `serve/metrics.py` `ServeMetrics`, copied for the
 layers the port has: plain host-side counters, so recording a sample never
-touches the device. Left out until their layers are ported: the
-residency tier's `hydration` block and cold-start histogram, the
-follower-read `read` block, the Pallas-rung fallback counter, and the obs layer's flight recorder and
+touches the device. The residency tier's `hydration` block (the JAX
+package's `HYDRATION_KEYS`, copied) and its cold-start histogram are in.
+Left out until their layers are ported: the follower-read `read` block,
+the Pallas-rung fallback counter, and the obs layer's flight recorder and
 time-series double-writes.
 
 Schema (snapshot()):
 
-  {"version": 1, "uptime_s": s, "shards": N, "flush_docs": B,
+  {"version": 3, "uptime_s": s, "shards": N, "flush_docs": B,
    "max_pending": P,
    "totals": {"submits", "coalesced", "rejects", "denied", "fenced",
               "flushes", "flushed_docs", "flushed_ops", "builds",
@@ -31,10 +32,14 @@ Schema (snapshot()):
               "shards_hist": {"2": n, ...}},  # shards per window
    "transform": {"device_docs", "host_docs", "fallbacks", "batches",
                  "device_ratio"},             # device tail planning
+   "hydration": {"prefetches", "warm_hits", "hydrations", ...},
+                                    # the residency tier (HYDRATION_KEYS;
+                                    # all zero until a Hydrator is attached)
    "max_depth_seen": d,
    "queue_bound_violations": 0,     # depth observed above max_pending
    "latencies": {"flush": hist,     # obs.hist snapshot w/ p50/p90/p99
-                 "queue_wait": hist},            # admit -> flush start
+                 "queue_wait": hist,             # admit -> flush start
+                 "hydration_cold_start": hist},  # prefetch/miss -> warm
    "per_shard": [{"shard", "queue_depth", "footprint_slots",
                   "flush_wall_s", "device_sync_s", <totals' keys>}, ...]}
 """
@@ -52,11 +57,51 @@ _SHARD_KEYS = ("submits", "coalesced", "rejects", "denied", "fenced",
                "evictions", "resyncs", "syncs", "host_fallbacks",
                "fused_calls", "fused_docs")
 
+# the residency tier's counter set (serve.hydrate.Hydrator feeds these
+# through record_hydration; hydrate.py imports the tuple so the two
+# surfaces can never drift)
+HYDRATION_KEYS = (
+    "prefetches",           # async hydrations queued on first admit
+    "warm_hits",            # resolve served from the warm map
+    "hydrations",           # cold -> warm installs (async + sync)
+    "sync_hydrations",      # resolve cold misses hydrated inline
+    "attempts", "retries",  # load attempts / attempts after the first
+    "timeouts",             # per-attempt HydrationTimeouts
+    "load_errors",          # unexpected load exceptions (transient)
+    "hydrate_gave_up",      # async ladder exhausted; doc left cold
+    "quarantined",          # docs the HYDRATOR quarantined
+    "quarantined_drops",    # flush-gate drops of quarantined docs
+    "deferrals",            # cold docs requeued for a delayed flush
+    "defer_escalations",    # 2nd gate visit: hydrated sync in-flush
+    "defer_gave_up",        # defer budget exhausted -> quarantined
+    "deferred_drops",       # deferral requeue hit backpressure
+    "prefetch_queue_full",  # prefetch rejected, bounded queue full
+    "flush_leaks",          # resolve raised INSIDE a batch (must be 0)
+    "snapshot_requests",    # bank eviction hook enqueues
+    "snapshots",            # successful doc-file persists
+    "snapshot_queue_full",  # hook enqueue rejected
+    "snapshot_errors",      # persist failed (doc stays warm)
+    "evictions_to_snapshot",  # warm evictions that saved first
+    "eviction_aborts",      # eviction raced a resolve; doc kept warm
+    "spills_to_snapshot",   # device-tier spills: warm state persisted
+                            # to the snapshot home under bank/warm-map
+                            # pressure (eviction + bank-evict persists)
+    "spill_bytes",          # on-disk bytes those spills wrote (home
+                            # file growth, clamped at 0 per spill —
+                            # compaction can shrink the home)
+    "remote_fills",         # cold misses whose empty home was filled
+                            # from a peer's snapshot frame (wire tier)
+    "remote_fill_errors",   # remote snapshot fetch/apply failures
+                            # (doc stays a legitimate fresh-empty doc)
+)
+
 
 class ServeMetrics:
     # the port's own counter-set version; bump whenever it changes
-    # (2: the flush window's super-batch and staging fields)
-    SCHEMA_VERSION = 2
+    # (2: the flush window's super-batch and staging fields; 3: the
+    # residency tier's `hydration` block and
+    # `latencies.hydration_cold_start`)
+    SCHEMA_VERSION = 3
 
     def __init__(self, n_shards: int, flush_docs: int,
                  max_pending: int) -> None:
@@ -91,6 +136,9 @@ class ServeMetrics:
         self.queue_bound_violations = 0
         self.queue_depth: List[int] = [0] * n_shards
         self.footprint_slots: List[int] = [0] * n_shards
+        # residency tier (serve.hydrate.Hydrator via attach_hydrator)
+        self.hydration: Dict[str, int] = {k: 0 for k in HYDRATION_KEYS}
+        self.cold_start_latency = Histogram()
         self.flush_latency = Histogram()
         self.queue_wait_latency = Histogram()
         self.flush_wall_s: List[float] = [0.0] * n_shards
@@ -183,6 +231,17 @@ class ServeMetrics:
         with self._lock:
             self.footprint_slots[shard] = int(slots)
 
+    def record_hydration(self, event: str, n: int = 1) -> None:
+        """One residency-tier event (a HYDRATION_KEYS key). Unknown
+        keys are created rather than dropped."""
+        with self._lock:
+            self.hydration[event] = self.hydration.get(event, 0) + n
+
+    def observe_cold_start(self, dur_s: float) -> None:
+        """Cold-start latency: prefetch enqueue (or resolve miss) to
+        warm install. The histogram has its own lock."""
+        self.cold_start_latency.record(dur_s)
+
     def observe_queue_wait(self, dur_s: float) -> None:
         """Admit (or coalesce origin) -> flush-start wait for one queued
         merge."""
@@ -195,6 +254,7 @@ class ServeMetrics:
         # taking ours (never nest)
         flush_hist = self.flush_latency.snapshot()
         queue_wait_hist = self.queue_wait_latency.snapshot()
+        cold_hist = self.cold_start_latency.snapshot()
         with self._lock:
             totals = {k: sum(s[k] for s in self.shard)
                       for k in _SHARD_KEYS}
@@ -255,10 +315,12 @@ class ServeMetrics:
                         / max(self.xform_device_docs + self.xform_host_docs
                               + self.xform_fallbacks, 1), 4),
                 },
+                "hydration": dict(self.hydration),
                 "max_depth_seen": self.max_depth_seen,
                 "queue_bound_violations": self.queue_bound_violations,
                 "latencies": {"flush": flush_hist,
-                              "queue_wait": queue_wait_hist},
+                              "queue_wait": queue_wait_hist,
+                              "hydration_cold_start": cold_hist},
                 "per_shard": [
                     {"shard": i, "queue_depth": self.queue_depth[i],
                      "footprint_slots": self.footprint_slots[i],

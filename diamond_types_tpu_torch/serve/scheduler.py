@@ -17,7 +17,10 @@ The lease-epoch recheck runs inside the worker (`_fence`), at merge time.
 `sync_lock` is the OPLOG guard (e.g. DocStore.lock), held around host-side
 oplog reads in the bank; device execution is guarded by a PER-DEVICE lock
 (shards placed on the same card share one). Lock order is always
-global → shard → sync(oplog) → device, never reversed.
+global → shard → sync(oplog) → device, never reversed. The global, shard
+and device locks are witness locks (`analysis.witness.make_lock`) under
+the JAX package's names, classes and ranks, so `witness_enable()` records
+the lock-order graph the storage soak holds acyclic.
 
 Faults are not swallowed: an exception in a flush (a kernel error, a
 failed session build) propagates out of `pump()` inline; from a worker
@@ -42,10 +45,18 @@ Zone sessions (`fused=False` on the device engine): each shard's bank
 keeps `DeviceZoneSession`s, and a flush syncs its bucket's documents one
 by one, each continuing its resident carry with one X8 launch.
 
+Residency tier (`attach_hydrator`, a `serve.hydrate.Hydrator`): `submit`
+rejects a quarantined document and prefetches a document on its first
+admit; both flush paths gate each taken bucket right after the lease
+fence (`_hydration_gate`: warm docs flush, quarantined docs drop, cold
+docs requeue for a later pump), resolve through `_flush_resolve` (which
+counts a resolve that raises inside a batch as a flush leak), and every
+bank eviction routes the doc to its snapshot. The Hydrator never touches
+the device.
+
 Left out of the port so far (ROADMAP item 12): the obs layer's spans,
-exemplars and attribution (`attach_obs`), the residency tier
-(`attach_hydrator`), the QoS controller (`attach_qos`) and follower-read
-invalidation.
+exemplars and attribution (`attach_obs`), the QoS controller
+(`attach_qos`) and follower-read invalidation.
 """
 
 from __future__ import annotations
@@ -58,6 +69,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from ..analysis.witness import make_lock
 from ..parallel.mesh import (mesh_fused_replay, serve_mesh,
                              serve_shard_devices)
 from ..qos.classes import QOS_PRIORITY
@@ -133,21 +145,33 @@ class MergeScheduler:
         self.device_plan = self.banks[0].device_plan
         # per-DEVICE locks: shards placed on the same card share one;
         # unplaced shards get their own (contention there is a perf
-        # matter, not a correctness one)
-        by_dev: Dict[object, threading.Lock] = {}
-        self._device_locks: List[threading.Lock] = []
+        # matter, not a correctness one). The witness rank is the first
+        # shard index mapped to the device, so rank order is the
+        # sorted-shard order `_flush_window` takes them in.
+        by_dev: Dict[object, object] = {}
+        self._device_locks: List = []
         for i, dev in enumerate(devices):
             key = str(dev) if dev is not None else ("shard", i)
-            self._device_locks.append(by_dev.setdefault(key,
-                                                        threading.Lock()))
+            lock = by_dev.get(key)
+            if lock is None:
+                lock = by_dev[key] = make_lock(f"device[{i}]", "device",
+                                               rank=i)
+            self._device_locks.append(lock)
         # `admit(doc_id) -> bool` — the cross-host ownership gate; None =
         # single-host, admit all
         self.admit = admit
         # `epoch_of(doc_id) -> int` — the ACTIVE lease epoch this host
         # holds; None = unfenced
         self.epoch_of: Optional[Callable[[str], int]] = None
-        self.lock = threading.Lock()
-        self._shard_locks = [threading.Lock() for _ in range(n_shards)]
+        # serve.hydrate.Hydrator (attach_hydrator); None = every document
+        # stays resident: no prefetch, no flush gate
+        self.hydrator = None
+        # docs the hydration gate requeued (written under self.lock):
+        # drain() counts a pump that only deferred as progress
+        self._deferred = 0
+        self.lock = make_lock("scheduler.global", "global")
+        self._shard_locks = [make_lock(f"shard[{i}]", "shard", rank=i)
+                             for i in range(n_shards)]
         self._pump_stop = threading.Event()
         self._pump_thread: Optional[threading.Thread] = None
         # per-shard flush workers (lazy-spawned daemons): pump() hands
@@ -164,6 +188,23 @@ class MergeScheduler:
         self._idle_cv = threading.Condition()
         self._error: Optional[Exception] = None
 
+    def attach_hydrator(self, hydrator) -> None:
+        """Wire the residency tier in: `submit` prefetches on a doc's
+        first admit (budgeted by the bucket flush deadline), the flush
+        paths gate on warmth right after the lease fence (cold docs
+        requeue, quarantined docs drop before they can join a batch), and
+        every bank eviction routes through the hydrator's snapshot queue.
+        The scheduler's `resolve` should be `hydrator.resolve`;
+        `attach_hydrator` does not rebind it."""
+        self.hydrator = hydrator
+        if hydrator.metrics is None:
+            hydrator.metrics = self.metrics
+        if hydrator.oplog_lock is None and not isinstance(
+                self._sync_lock, contextlib.nullcontext):
+            hydrator.oplog_lock = self._sync_lock
+        for bank in self.banks:
+            bank.snapshot_hook = hydrator.request_snapshot
+
     # ---- intake ----------------------------------------------------------
 
     def submit(self, doc_id: str, n_ops: int = 1,
@@ -172,7 +213,9 @@ class MergeScheduler:
         """Queue pending merge work. Returns {"accepted": True, "shard",
         "bucket"}, {"accepted": False, "retry_after"} on backpressure, or
         {"accepted": False, "reason": "not_owner"} when the ownership gate
-        denies (never raises — rejects and denials are normal operation).
+        denies, or "quarantined" when the residency tier holds the doc in
+        quarantine (never raises — rejects and denials are normal
+        operation).
         `qos` is the ingress-classified class (default interactive);
         unknown classes normalize to interactive."""
         now = time.monotonic() if now is None else now
@@ -184,6 +227,17 @@ class MergeScheduler:
             self.metrics.bump(shard, "denied")
             return {"accepted": False, "shard": shard,
                     "reason": "not_owner"}
+        hyd = self.hydrator
+        if hyd is not None:
+            if hyd.store.is_quarantined(doc_id) is not None:
+                return {"accepted": False,
+                        "shard": self.router.shard_of(doc_id),
+                        "reason": "quarantined"}
+            # async prefetch on FIRST admit, budgeted by the bucket flush
+            # deadline. The unlocked peek is a benign race: a doc already
+            # warm or pending makes prefetch a no-op.
+            if doc_id not in self.router.assignments:
+                hyd.prefetch(doc_id, budget_s=self.queue.flush_deadline_s)
         # stamp the admit-time lease epoch; the flush rechecks it
         epoch = self.epoch_of(doc_id) if self.epoch_of is not None \
             else -1
@@ -326,18 +380,55 @@ class MergeScheduler:
                 kept.append(item)
         return kept
 
+    def _flush_resolve(self, doc_id: str):
+        """The flush paths' resolve: `self.resolve`, except that an
+        exception inside a batch is counted as a flush leak (the
+        hydration gate should have filtered the doc) before it
+        propagates."""
+        try:
+            return self.resolve(doc_id)
+        except Exception as e:
+            if self.hydrator is not None:
+                self.hydrator.note_flush_leak(doc_id, e)
+            raise
+
+    def _hydration_gate(self, shard: int, items) -> list:
+        """Residency recheck right after the lease fence: keep warm docs,
+        drop quarantined ones (they never join a batch) and requeue
+        still-cold ones, a delayed flush on a later pump once hydration
+        lands, never a batch stalled on disk."""
+        hyd = self.hydrator
+        if hyd is None:
+            return items
+        keep, defer, _dropped = hyd.flush_gate(shard, items)
+        if defer:
+            now = time.monotonic()
+            with self.lock:
+                self._deferred += len(defer)
+                for it in defer:
+                    try:
+                        self.queue.submit(shard, it.doc_id, it.n_ops, now,
+                                          epoch=it.epoch)
+                    except Backpressure:
+                        # the queue refilled meanwhile; the doc's ops are
+                        # durable, so its merge work drops like a fenced
+                        # item's
+                        hyd._bump("deferred_drops")
+        return keep
+
     def _flush_items(self, shard: int, reason: str, items) -> None:
         """Sync one taken batch into its shard's bank, under that shard's
         lock only (items are already off the queue, so a concurrent
         submit for the same doc simply queues fresh work). The lease
-        recheck runs first."""
+        recheck runs first, the hydration gate second."""
         items = self._fence(shard, items)
+        items = self._hydration_gate(shard, items)
         if not items:
             return
         t0 = time.perf_counter()
         with self._shard_locks[shard]:
             self.banks[shard].sync_docs(
-                items, self.resolve, oplog_lock=self._sync_lock,
+                items, self._flush_resolve, oplog_lock=self._sync_lock,
                 device_lock=self._device_locks[shard])
         self.metrics.record_flush(
             shard, len(items), sum(i.n_ops for i in items), reason,
@@ -363,7 +454,8 @@ class MergeScheduler:
         """The flush-window coordinator: every due bucket in `taken`,
         across all shards, in one window on the calling thread.
 
-          1. the lease-epoch recheck (window assembly is merge time);
+          1. the lease-epoch recheck (window assembly is merge time) and
+             the hydration gate;
           2. planning in three steps: each shard's `extract_window` under
              the oplog lock, ONE `resolve_windows` for the whole window (a
              K2 resolve per device, where the JAX window resolves once per
@@ -385,6 +477,7 @@ class MergeScheduler:
         entries = []        # (shard, reason, items), post-fencing
         for shard, reason, items in taken:
             items = self._fence(shard, items)
+            items = self._hydration_gate(shard, items)
             if items:
                 entries.append((shard, reason, items))
         if not entries:
@@ -401,7 +494,8 @@ class MergeScheduler:
             for s in shards:
                 sstack.enter_context(self._shard_locks[s])
             wins = [self.banks[s].extract_window(
-                        items, self.resolve, oplog_lock=self._sync_lock)
+                        items, self._flush_resolve,
+                        oplog_lock=self._sync_lock)
                     for s, _r, items in entries]
             resolve_windows(wins)
             for (s, _r, _items), win in zip(entries, wins):
@@ -454,16 +548,25 @@ class MergeScheduler:
         """Flush everything regardless of triggers (shutdown, rebalance,
         parity checks), then wait for the shard workers to go idle — the
         return means every dispatched doc has actually merged — and raise
-        the first exception a worker stored."""
+        the first exception a worker stored. A hydration-gate deferral
+        requeues from inside a flush, so after the workers go idle the
+        depth is checked again: deferred docs get further rounds until
+        they hydrate (the gate defers a doc once, then hydrates it in the
+        flush) or the queue is empty."""
         total = 0
-        while self.queue.total_depth():
-            n = self.pump(force=True)
-            if n == 0:
-                break     # defensive: a take() returning nothing
-            total += n
-        self._wait_idle()
-        self._raise_stored_error()
-        return total
+        while True:
+            progressed = False
+            while self.queue.total_depth():
+                deferred0 = self._deferred
+                n = self.pump(force=True)
+                if n == 0 and self._deferred == deferred0:
+                    break     # defensive: a take() returning nothing
+                progressed = True
+                total += n
+            self._wait_idle()
+            self._raise_stored_error()
+            if not self.queue.total_depth() or not progressed:
+                return total
 
     # ---- reads / control -------------------------------------------------
 

@@ -648,3 +648,27 @@ def test_zone_tape_run_refuses_bad_inputs_on_card():
             for k, v in xs.items()}
     with pytest.raises(RuntimeError, match="invalid argument"):
         kernels.zone_tape_run(c, wide, tape.plen)      # MB 40 > 32
+
+
+def test_hydrated_scheduler_on_card_at_the_smokes_shape():
+    """The smoke's hydrated scheduler phase at its document shape (256
+    documents of 2,048-12,288 chars, 4 shards, a Hydrator with 64 warm
+    slots over `TieredStore` homes, waves of 32), 2 rounds on per-shard
+    workers and 1 with the flush window: every text equal to the mirror's
+    merge after its wave and after re-hydration from disk, 0 flush leaks,
+    quarantines and host fallbacks, K1/K2 launch counts matching the
+    fused calls, replays and resolves, and every K1 and K2 call captured
+    on the path held exactly against its plain version (all checked
+    inside `run_scheduler_hydrated`)."""
+    _need_card()
+    import chip_smoke as cs
+    out = cs.run_scheduler_hydrated(
+        np.random.default_rng([0, 5]), torch.device("cuda"),
+        cs.ServeConfig(), cs.SchedulerConfig(profile_round=-1),
+        cs.HydratedConfig(rounds=2, window_rounds=1, profile_round=-1))
+    assert out["launches"] > 0 and out["k2_launches"] > 0
+    assert out["k1_max_abs_err"] == 0 and out["k2_max_abs_err"] == 0
+    assert out["k1_calls_checked"] == out["launches"]
+    assert out["summary"]["flush_leaks"] == 0
+    assert out["summary"]["stale_oplog_rebuilds"] > 0
+    assert out["lock_witness"]["acyclic"]

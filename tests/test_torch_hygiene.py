@@ -36,7 +36,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "parallel.mesh", "parallel.arena", "gpu.graph_kernels",
               "gpu.plan_kernels", "listmerge.plan2", "listmerge.dense",
               "listmerge.compose", "listmerge.zone_np", "listmerge.policy",
-              "gpu.zone_kernel", "gpu.zone_session"):
+              "gpu.zone_kernel", "gpu.zone_session",
+              "causalgraph.summary", "encoding.varint", "encoding.crc32c",
+              "encoding.lz4", "encoding.decode", "encoding.encode",
+              "analysis.witness", "replicate.peers", "storage.store",
+              "storage.pages", "storage.tier", "storage.soak",
+              "wire.frames", "wire.snapshot", "serve.hydrate"):
         assert f"diamond_types_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
