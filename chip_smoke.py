@@ -229,11 +229,45 @@ package), in phases, each printing one JSON line:
                 rounds, the host engine): crash-restart, compaction killed
                 at each fsync point, torn tails, corrupt homes, slow loads;
                 fails unless its verdict is ok.
- 16. kernels  - one line for K1, K2, K3 and X8: launches on the main path (K1
+ 16. scheduler_qos - the QoS controller steering the device scheduler:
+                the scheduler phase's kind of 256 documents (its own
+                generator), named `t{k}-doc{nnn}` over 4 tenants, each with
+                a class fixed by the generator (128 interactive, 80 bulk,
+                48 catchup), through `MergeScheduler(4 shards, device_plan,
+                flush_docs=8, flush_workers)` with `attach_qos(QosController(
+                interval_s=0.05))`, the controller reading a `TimeSeries`
+                through `attach_obs`, and `start_pump()` running (the pump's
+                and the controller's threads). 5 rounds: every edit passes
+                `controller.admit(cls, tenant_of(doc))` first (a shed edit
+                is never applied), admitted ones are applied and submitted
+                with their class, spread evenly over 1 s (a synthetic
+                arrival process: one edit per admitted document a round;
+                the pump flushes what its size or published deadline makes
+                due), `drain()` ends the round; round 4 runs
+                under `force_mesh_state("warning")`, round 5 under
+                "burning". Requires every K1 and K2 call equal to its plain
+                version, the controller's steps growing every round, every
+                text equal to the host mirror's after every round, 0 host
+                and plan fallbacks, interactive's published deadline never
+                past the static deadline, no bulk or catchup admit in round
+                5 and the lock witness acyclic. Prints docs/s and flush
+                p50/p99 a round, queue wait p50/p99, K1/K2 launches a
+                round, the `QosMetrics` snapshot (per class admitted, shed,
+                deferred and deadline_s; the controller's decisions) and
+                round 1's device busy share.
+ 17. replay_batch - `kernels.replay_batch_kernel` (the counterpart of
+                `replay_batch_pallas`: one K1 launch over a whole op
+                sequence from empty rows) against its plain version at b
+                128, n 64, cap 4,096, max_ins 16 on in-contract ops; its
+                call_ms, device_ms, plain ms and HBM bound. It is on no
+                serve path.
+ 18. kernels  - one line for K1, K2, K3, X8 and `replay_batch_kernel`:
+                launches on the main path (K1
                 and K2 in the serve phase, K3 in the checkout phase; per
                 path in `launches_by_path`, the scheduler's, the flush
-                window's, the hydrated scheduler's (K1, K2), the history's
-                (K3) and the merge step's (K1) too), max
+                window's, the hydrated scheduler's and the QoS scheduler's
+                (K1, K2), the history's (K3) and the merge step's (K1)
+                too; `replay_batch_kernel`'s from its own check), max
                 error against the plain version (see below), and at the
                 main path's widest call two times: `call_ms` (CUDA events
                 around back-to-back wrapper calls: host and device) and
@@ -2837,6 +2871,382 @@ def run_scheduler_hydrated(rng: np.random.Generator, device,
                                                  "acquires", "edges")}}
 
 
+QOS_TENANTS = 4                     # documents named t{k}-doc{nnn}
+QOS_INTERVAL_S = 0.05               # the controller's step interval
+QOS_TS_WINDOW_S = 1.0               # the time series' window width
+
+
+@dataclass
+class QosConfig:
+    interactive: int = 128          # the documents of each class
+    bulk: int = 80
+    catchup: int = 48
+    rounds: int = 5
+    warning_round: int = 3          # rounds counted from 0
+    burning_round: int = 4
+    arrival_s: float = 1.0          # a round's submits spread over this
+    profile_round: int = 0          # the first round is traced
+
+
+def run_scheduler_qos(rng: np.random.Generator, device, cfg: ServeConfig,
+                      scfg: SchedulerConfig, qcfg: QosConfig) -> dict:
+    """The QoS controller steering the device scheduler: the scheduler
+    phase's kind of 256 documents (this phase's own generator), named
+    `t{k}-doc{nnn}` over 4 tenants, each with a class fixed by the
+    generator (128 interactive, 80 bulk, 48 catchup), served by
+    `MergeScheduler(4 shards, fused, device_plan, flush_docs=8,
+    flush_workers)` with `attach_qos(QosController(interval_s=0.05))`; the
+    controller reads a `TimeSeries` (1 s windows) through `attach_obs`.
+    `start_pump()` runs, so the pump's and the controller's own threads
+    run as in a server. Each round every document's edit passes the
+    ingress gate first (`controller.admit(cls, tenant_of(doc))`): a shed
+    edit is never applied to the oplog nor to the host mirror (the merged
+    tip branch); an admitted one is applied, then submitted with its
+    class, the submits spread evenly over `arrival_s` (a synthetic arrival
+    process, one edit per admitted document a round: the pump flushes the
+    buckets whose size or published deadline fires, and the controller
+    sees arrival rates), and the round ends with `drain()`. Flush times
+    and queue waits are the rounds' own, not the open pass's. Rounds 1-3
+    run free, round 4
+    under `force_mesh_state("warning")` (sheddable admits count as
+    deferred, their deadlines pinned to the ceilings), round 5 under
+    `force_mesh_state("burning")` (bulk and catchup shed). Requires every
+    K1 and K2 call equal to its plain version, the controller's `steps`
+    growing in every round, every text equal to the host mirror's after
+    every round, 0 host and plan fallbacks, interactive's published
+    deadline at most the static deadline at every controller step, no
+    bulk or catchup admit in round 5, and the lock witness acyclic."""
+    import threading
+    from types import SimpleNamespace
+
+    from diamond_types_tpu_torch.analysis import witness
+    from diamond_types_tpu_torch.gpu import flush_fuse as ff
+    from diamond_types_tpu_torch.gpu import kernels
+    from diamond_types_tpu_torch.gpu.steer import STEER
+    from diamond_types_tpu_torch.obs.timeseries import TimeSeries
+    from diamond_types_tpu_torch.qos import QosController, tenant_of
+    from diamond_types_tpu_torch.serve import MergeScheduler
+
+    t0 = time.perf_counter()
+    ols = build_docs(rng, cfg)
+    for d, ol in enumerate(ols):
+        ol.doc_id = f"t{d % QOS_TENANTS}-doc{d:03d}"
+    names = (["interactive"] * qcfg.interactive + ["bulk"] * qcfg.bulk
+             + ["catchup"] * qcfg.catchup)
+    check(len(names) == len(ols), "the class counts must cover the docs")
+    classes = {ol.doc_id: str(c)
+               for ol, c in zip(ols, rng.permutation(names))}
+    by_id = {ol.doc_id: ol for ol in ols}
+    tips = [host_branch(ol) for ol in ols]
+    STEER.reset(table=True)
+    witness.witness_enable()
+    witness.witness_reset()
+    guard = witness.make_lock("smoke.oplog", "oplog")
+    sched = MergeScheduler(
+        scfg.shards, resolve=by_id.__getitem__, engine="device", fused=True,
+        device_plan=True, flush_docs=scfg.flush_docs, flush_workers=True,
+        max_sessions_per_shard=scfg.max_sessions_per_shard,
+        fused_opts={"max_ins": cfg.max_ins, "headroom": cfg.headroom,
+                    "device": device},
+        sync_lock=guard)
+    ctl = QosController(interval_s=QOS_INTERVAL_S)
+    sched.attach_qos(ctl)
+    ctl.attach_obs(SimpleNamespace(ts=TimeSeries(window_s=QOS_TS_WINDOW_S,
+                                                  n_windows=600)))
+    static_s = sched.queue.flush_deadline_s
+    # every controller step's published interactive deadlines (the
+    # controller's thread calls self.step())
+    published: List[float] = []
+    real_step = ctl.step
+
+    def watched_step(now=None):
+        out = real_step(now)
+        published.extend(v for (_s, c), v in ctl._table.items()
+                         if c == "interactive")
+        return out
+
+    ctl.step = watched_step
+    for ol in ols:                 # open every document: build sessions
+        check(sched.submit(ol.doc_id, 1, qos=classes[ol.doc_id])
+              ["accepted"], f"{ol.doc_id} was not admitted at open")
+    sched.drain()
+    setup_s = time.perf_counter() - t0
+    m0 = sched.metrics_json()
+    snap0 = ctl.metrics.snapshot()
+
+    syncs: List[int] = []          # each per-doc sync's replayed ops
+    real_sync = ff.FusedDocSession.sync
+
+    def counted_sync(sess):
+        n = real_sync(sess)
+        syncs.append(n)
+        return n
+
+    flush_s: List[float] = []      # each flush of a taken batch
+    real_flush = sched._flush_items
+
+    def timed_flush(shard, reason, items):
+        t = time.perf_counter()
+        try:
+            return real_flush(shard, reason, items)
+        finally:
+            flush_s.append(time.perf_counter() - t)
+
+    sched._flush_items = timed_flush
+    # each queued edit's admit -> flush-start wait in the rounds (the
+    # scheduler's own histogram also holds the open pass above)
+    waits_s: List[float] = []
+    real_wait = sched.metrics.observe_queue_wait
+
+    def kept_wait(dur_s):
+        waits_s.append(dur_s)
+        real_wait(dur_s)
+
+    sched.metrics.observe_queue_wait = kept_wait
+    k1, k2 = kernels.apply_ops_window, kernels.xform_positions
+    rounds = []
+    edit_s = verify_s = 0.0
+    profile = None
+    ff.FusedDocSession.sync = counted_sync
+    k1.launches = k2.launches = 0
+    try:
+        sched.start_pump()
+        with Spy(ff, "apply_ops_window", keep=True) as k1_calls, \
+                Spy(kernels, "xform_positions", keep=True) as k2_calls:
+            for r in range(qcfg.rounds):
+                mesh = ("warning" if r == qcfg.warning_round else
+                        "burning" if r == qcfg.burning_round else None)
+                ctl.force_mesh_state(mesh)
+                steps0 = ctl.metrics.snapshot()["controller"]["steps"]
+                c0 = ctl.metrics.snapshot()["classes"]
+                before = sched.metrics_json()
+                n_k1, n_k2, n_fl, n_qw = (len(k1_calls.seconds),
+                                          len(k2_calls.seconds),
+                                          len(flush_s), len(waits_s))
+                # the ingress gate, then the admitted documents' edits
+                t = time.perf_counter()
+                subs, gate = [], collections.Counter()
+                for ol, tip in zip(ols, tips):
+                    cls = classes[ol.doc_id]
+                    ok, _retry, why = ctl.admit(cls, tenant_of(ol.doc_id))
+                    gate[(cls, "admitted" if ok else "shed")] += 1
+                    if not ok:
+                        continue
+                    subs += [(d, n, cls) for d, n in round_edits(
+                        rng, [ol], [tip], r, cfg)]
+                edit_s += time.perf_counter() - t
+                profiling = r == qcfg.profile_round
+                gap = qcfg.arrival_s / max(len(subs), 1)
+                with (torch.profiler.profile(activities=PROFILED)
+                      if profiling else contextlib.nullcontext()) as prof:
+                    t = time.perf_counter()
+                    for k, (doc_id, n_ops, cls) in enumerate(subs):
+                        # paced arrivals: the pump's thread flushes the
+                        # buckets whose size or published deadline fires
+                        time.sleep(max(0.0, t + k * gap
+                                       - time.perf_counter()))
+                        check(sched.submit(doc_id, n_ops, qos=cls)
+                              ["accepted"],
+                              f"round {r}: {doc_id} was not accepted")
+                    t_drain = time.perf_counter()
+                    sched.drain()
+                    wall = time.perf_counter() - t
+                    drain_ms = 1e3 * (time.perf_counter() - t_drain)
+                if profiling:
+                    profile = device_share(prof, wall, r)
+                after = sched.metrics_json()
+                t = time.perf_counter()
+                for ol, tip in zip(ols, tips):
+                    check(sched.text(ol.doc_id) == tip.snapshot(),
+                          f"round {r}: {ol.doc_id} differs from the host "
+                          "mirror's merge")
+                verify_s += time.perf_counter() - t
+                snap = ctl.metrics.snapshot()
+                steps = snap["controller"]["steps"] - steps0
+                check(steps > 0, f"round {r}: the QoS controller did not "
+                      "step")
+                cls_delta = {c: {k: snap["classes"][c][k] - c0[c][k]
+                                 for k in ("admitted", "shed", "deferred")}
+                             for c in snap["classes"]}
+                if r == qcfg.burning_round:
+                    check(all(cls_delta[c]["admitted"] == 0
+                              and gate[(c, "admitted")] == 0
+                              for c in ("bulk", "catchup")),
+                          f"round {r} (burning) admitted a sheddable "
+                          f"edit: {cls_delta}")
+                fl = np.asarray(flush_s[n_fl:]) * 1e3
+                qw = np.asarray(waits_s[n_qw:]) * 1e3
+                flushed = after["totals"]["flushed_docs"] \
+                    - before["totals"]["flushed_docs"]
+                rounds.append({
+                    "round": r, "mesh_state": mesh or "ok",
+                    "wall_ms": 1e3 * wall, "drain_ms": drain_ms,
+                    "docs_submitted": len(subs),
+                    "docs_flushed": flushed, "docs_per_s": flushed / wall,
+                    "ops": sum(n for _, n, _c in subs),
+                    "flush_ms_p50_p99": ([float(np.percentile(fl, 50)),
+                                          float(np.percentile(fl, 99))]
+                                         if fl.size else None),
+                    "flushes": int(fl.size),
+                    "queue_wait_ms_p50_p99": (
+                        [float(np.percentile(qw, 50)),
+                         float(np.percentile(qw, 99))] if qw.size else None),
+                    "k1_launches": len(k1_calls.seconds) - n_k1,
+                    "k2_launches": len(k2_calls.seconds) - n_k2,
+                    "controller_steps": steps,
+                    "classes": cls_delta,
+                    "deadline_s": {c: snap["classes"][c]["deadline_s"]
+                                   for c in snap["classes"]},
+                    "flush_reasons": {
+                        k: after["flush_reasons"].get(k, 0)
+                        - before["flush_reasons"].get(k, 0)
+                        for k in after["flush_reasons"]}})
+        sched.stop_pump()
+    finally:
+        ff.FusedDocSession.sync = real_sync
+        sched._flush_items = real_flush
+        sched.metrics.observe_queue_wait = real_wait
+        if sched._pump_thread is not None:     # a round failed: stop the
+            with contextlib.suppress(Exception):   # pump and controller
+                sched.stop_pump(drain=False)
+    launches, k2_launches = k1.launches, k2.launches
+    m = sched.metrics_json()
+    wit = witness.witness_snapshot()
+    check(wit["acyclic"] and wit["violation_count"] == 0,
+          f"lock witness: cycles {wit['cycles']}, "
+          f"violations {wit['violations'][:4]}")
+    check(m["totals"]["host_fallbacks"] == 0,
+          f"{m['totals']['host_fallbacks']} host fallbacks in scheduler_qos")
+    check(m["transform"]["fallbacks"] == 0,
+          f"{m['transform']['fallbacks']} plan fallbacks in scheduler_qos")
+    worst = max(published, default=0.0)
+    check(published and worst <= static_s + 1e-12,
+          f"interactive's published deadline reached {worst} s, past the "
+          f"static {static_s} s")
+    t = time.perf_counter()
+    k1_err = k1_calls_err(k1_calls.args, cfg.max_ins)
+    check(k1_err == 0, f"K1 differs from its plain version at a "
+          f"scheduler_qos call: max abs err {k1_err}")
+    k2_worst = max((k2_err(nv, ov) for nv, ov in k2_calls.args), default=0)
+    check(k2_worst == 0, f"K2 differs from its plain version at a "
+          f"scheduler_qos resolve: max abs err {k2_worst}")
+    plain_check_s = time.perf_counter() - t
+    fused_calls = m["fused"]["device_calls"] - m0["fused"]["device_calls"]
+    replays = sum(1 for n in syncs if n)
+    batches = m["transform"]["batches"] - m0["transform"]["batches"]
+    check(launches == fused_calls + replays and launches > 0,
+          f"K1 launched {launches} times for {fused_calls} fused calls and "
+          f"{replays} per-doc replays")
+    check(k2_launches == batches and k2_launches > 0,
+          f"K2 launched {k2_launches} times for {batches} resolves")
+    snap = ctl.metrics.snapshot()
+    fl_all = np.asarray(flush_s) * 1e3           # the rounds' flushes only
+    qw_all = np.asarray(waits_s) * 1e3           # and queued edits' waits
+    summary = {
+        "docs_per_s": [x["docs_per_s"] for x in rounds],
+        "round_wall_ms": [x["wall_ms"] for x in rounds],
+        "flush_ms_p50_p99": [x["flush_ms_p50_p99"] for x in rounds],
+        "queue_wait_ms_p50_p99": [x["queue_wait_ms_p50_p99"]
+                                  for x in rounds],
+        "k1_launches": [x["k1_launches"] for x in rounds],
+        "k2_launches": [x["k2_launches"] for x in rounds],
+        "controller_steps": [x["controller_steps"] for x in rounds],
+        "interactive_published_max_s": worst,
+        "host_fallbacks": m["totals"]["host_fallbacks"],
+        "device_busy_share": profile["device_busy_share"]
+        if profile else None}
+    return {"phase": "scheduler_qos", "summary": summary,
+            "docs": cfg.n_docs, "shards": scfg.shards,
+            "flush_docs": scfg.flush_docs,
+            "class_docs": {"interactive": qcfg.interactive,
+                           "bulk": qcfg.bulk, "catchup": qcfg.catchup},
+            "tenants": QOS_TENANTS, "static_deadline_s": static_s,
+            "interval_s": QOS_INTERVAL_S, "launches": launches,
+            "k2_launches": k2_launches, "fused_device_calls": fused_calls,
+            "per_doc_replays": replays, "resolves": batches,
+            "rounds": rounds, "qos": snap,
+            "qos_since_open": {
+                c: {k: snap["classes"][c][k] - snap0["classes"][c][k]
+                    for k in ("admitted", "shed", "deferred")}
+                for c in snap["classes"]},
+            "controller": ctl.export()["controller"],
+            "published_interactive_steps": len(published),
+            "profile": profile, "setup_s": setup_s, "edit_s": edit_s,
+            "verify_s": verify_s, "k1_calls_checked": len(k1_calls.args),
+            "k1_max_abs_err": k1_err,
+            "k2_calls_checked": len(k2_calls.args),
+            "k2_max_abs_err": k2_worst, "plain_check_s": plain_check_s,
+            "flush_ms": {f"p{q}": float(np.percentile(fl_all, q))
+                         for q in (50, 90, 99, 100)} if fl_all.size
+            else None,
+            "queue_wait_ms": {f"p{q}": float(np.percentile(qw_all, q))
+                              for q in (50, 90, 99, 100)} if qw_all.size
+            else None,
+            "flush_reasons": m["flush_reasons"], "totals": m["totals"],
+            "transform": m["transform"],
+            "lock_witness": {k: wit[k] for k in ("acyclic", "edge_count",
+                                                 "violation_count",
+                                                 "acquires", "edges")}}
+
+
+def replay_batch_inputs(rng: np.random.Generator, b: int, n: int, cap: int,
+                        mi: int, device) -> List[torch.Tensor]:
+    """In-contract whole-trace replays for `replay_batch_kernel`: per row
+    n ops from an empty document, each an insert of 1..mi chars at a
+    position within the row's text or a delete of 1..mi chars inside it,
+    the text kept within cap."""
+    pos = np.zeros((b, n), np.int32)
+    dlen = np.zeros((b, n), np.int32)
+    ilen = np.zeros((b, n), np.int32)
+    chars = rng.integers(1, 0x10FFFF, (b, n, mi)).astype(np.int32)
+    length = np.zeros(b, np.int64)
+    for k in range(n):
+        dele = (rng.random(b) < 0.3) & (length > 0)
+        d = np.minimum(rng.integers(1, mi + 1, b), length)
+        i = np.where(length + mi <= cap, rng.integers(1, mi + 1, b), 0)
+        p = (rng.random(b) * (length - np.where(dele, d, 0) + 1)).astype(
+            np.int64)
+        dlen[:, k] = np.where(dele, d, 0)
+        ilen[:, k] = np.where(dele, 0, i)
+        pos[:, k] = p
+        length += ilen[:, k] - dlen[:, k]
+    return [torch.from_numpy(a).to(device) for a in (pos, dlen, ilen, chars)]
+
+
+def run_replay_batch(rng: np.random.Generator, device, b: int = 128,
+                     n: int = 64, cap: int = 4096,
+                     mi: int = MAX_INS) -> dict:
+    """`replay_batch_kernel` (the counterpart of `replay_batch_pallas`: one
+    K1 launch over a whole [b, n] op sequence from empty rows) against its
+    plain version on the card at one shape; its call_ms, device_ms, the
+    plain version's ms and its HBM bound (the op tape read once, the rows
+    and lengths written once). It is on no serve path: its launch count is
+    this check's."""
+    from diamond_types_tpu_torch.gpu import kernels
+    args = replay_batch_inputs(rng, b, n, cap, mi, device)
+    fn = kernels.replay_batch_kernel
+    kernels.apply_ops_window.launches = 0
+    got_d, got_l = fn(*args, cap=cap)
+    torch.cuda.synchronize()
+    launches = kernels.apply_ops_window.launches     # K1's, at its launch
+    want_d, want_l = kernels.replay_batch_plain(*args, cap=cap)
+    err = max(exact_err(got_d, want_d), exact_err(got_l, want_l))
+    check(err == 0 and launches == 1,
+          f"replay_batch_kernel differs from its plain version (max abs err "
+          f"{err}) or launched {launches} times")
+    check(bool((got_l >= 0).all()), "an in-contract replay was poisoned")
+    out = {"phase": "replay_batch", "shape": {"b": b, "n": n, "cap": cap,
+                                              "max_ins": mi},
+           "launches": launches, "max_abs_err": err,
+           "bound_ms": 1e3 * 4 * (b * n * (3 + mi) + b * cap + b)
+           / HBM_BYTES_PER_S,
+           "plain_ms": time_ms(lambda: kernels.replay_batch_plain(
+               *args, cap=cap), 3)}
+    out.update(timings(lambda: fn(*args, cap=cap), 20, 50))
+    out["ms"] = out["call_ms"]
+    return out
+
+
 def run_storage_soak_phase() -> dict:
     """`run_storage_soak(churn=True, crash=True, slow=True)` at its
     defaults (120 documents, 12 warm, 8 rounds, the host engine, seed 0):
@@ -3005,6 +3415,15 @@ def main(argv=None) -> int:
         soak = run_storage_soak_phase()
         soak["seconds"] = time.perf_counter() - t
         emit(soak)
+        t = time.perf_counter()
+        qsched = run_scheduler_qos(rng(16), device, cfg, SchedulerConfig(),
+                                   QosConfig())
+        qsched["seconds"] = time.perf_counter() - t
+        emit(qsched)
+        t = time.perf_counter()
+        replay = run_replay_batch(rng(17), device)
+        replay["seconds"] = time.perf_counter() - t
+        emit(replay)
         timed = ("ms", "call_ms", "device_ms", "plain_ms", "bound_ms",
                  "library_ms")
         kerns = [
@@ -3016,12 +3435,14 @@ def main(argv=None) -> int:
                                   "scheduler": sched["launches"],
                                   "window": sched_w["launches"],
                                   "merge_step": step["launches"],
-                                  "scheduler_hydrated": hsched["launches"]},
+                                  "scheduler_hydrated": hsched["launches"],
+                                  "scheduler_qos": qsched["launches"]},
              "max_abs_err": max(kvp["max_abs_err"], timing["max_abs_err"],
                                 sched["k1_max_abs_err"],
                                 sched_w["k1_max_abs_err"],
                                 step["max_abs_err"],
-                                hsched["k1_max_abs_err"]),
+                                hsched["k1_max_abs_err"],
+                                qsched["k1_max_abs_err"]),
              "bound_by": "bytes", "library_ms": None,
              **{k: widest[k] for k in timed if k in widest},
              "shape": {k: widest[k] for k in ("b", "cap", "n")},
@@ -3036,11 +3457,13 @@ def main(argv=None) -> int:
                                   "scheduler": sched["k2_launches"],
                                   "window": sched_w["k2_launches"],
                                   "scheduler_hydrated":
-                                      hsched["k2_launches"]},
+                                      hsched["k2_launches"],
+                                  "scheduler_qos": qsched["k2_launches"]},
              "max_abs_err": max(k2p["max_abs_err"], k2["max_abs_err"],
                                 sched["k2_max_abs_err"],
                                 sched_w["k2_max_abs_err"],
-                                hsched["k2_max_abs_err"]),
+                                hsched["k2_max_abs_err"],
+                                qsched["k2_max_abs_err"]),
              "bound_by": "bytes", **{k: k2[k] for k in timed},
              "shape": k2["shape"],
              "library": {"call": "torch.cumsum(nv, 1)", **k2["library"]}},
@@ -3078,7 +3501,17 @@ def main(argv=None) -> int:
                                            "self_fork_step_us", "barrier_us",
                                            "serial_floor_ms",
                                            "device_us_per_step")},
-             "shape": {k: zone[k] for k in ("W", "T", "n_idx", "plen")}}]
+             "shape": {k: zone[k] for k in ("W", "T", "n_idx", "plen")}},
+            {"name": "replay_batch_kernel", "route": "cuda",
+             "source": "diamond_types_tpu_torch/csrc/apply_ops.cu",
+             "replaces": "diamond_types_tpu/tpu/pallas_kernels.py:352",
+             "on_main_path": False,
+             "launches": replay["launches"],
+             "launches_by_path": {"replay_batch": replay["launches"]},
+             "max_abs_err": replay["max_abs_err"],
+             "bound_by": "bytes", "library_ms": None,
+             **{k: replay[k] for k in timed if k in replay},
+             "shape": replay["shape"]}]
         card = nvidia_smi_line()
         emit({"kernels": kerns})
         print(card, flush=True)

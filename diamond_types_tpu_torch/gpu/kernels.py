@@ -9,7 +9,9 @@ what bounds it.
      rows) in one launch, as a gather: each output element's source is
      found by walking the tape backwards, over a grid of rows times tiles
      of the cap axis; the TPU kernel applies one op per row and is
-     launched n times per window inside a scan.
+     launched n times per window inside a scan. `replay_batch_kernel` (from
+     `replay_batch_pallas`, that scan from empty rows) is one K1 launch
+     from zero rows.
   K2 `xform_positions` (`csrc/xform_positions.cu`, from
      `xform_positions_pallas`): the device transform's position scans over
      a bucket's doc-order columns `[b, n]`, one launch per bucket, one warp
@@ -319,6 +321,46 @@ def apply_ops_window(docs: torch.Tensor, lens: torch.Tensor,
 
 
 apply_ops_window.launches = 0
+
+
+def _empty_rows(pos: torch.Tensor, chars: torch.Tensor,
+                cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zero [b, cap] rows and zero lengths on pos's device, for a replay
+    from empty documents."""
+    if chars.dim() != 3:
+        raise ValueError(f"chars must be [b, n, max_ins], got "
+                         f"{tuple(chars.shape)}")
+    b = pos.shape[0]
+    return (torch.zeros((b, cap), dtype=torch.int32, device=pos.device),
+            torch.zeros(b, dtype=torch.int32, device=pos.device))
+
+
+def replay_batch_plain(pos: torch.Tensor, dlen: torch.Tensor,
+                       ilen: torch.Tensor, chars: torch.Tensor,
+                       cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`replay_batch_kernel`'s plain version: K1's plain version over the
+    whole op sequence from zero rows and zero lengths."""
+    docs, lens = _empty_rows(pos, chars, cap)
+    return apply_ops_window_plain(docs, lens, pos, dlen, ilen, chars,
+                                  chars.shape[2])
+
+
+def replay_batch_kernel(pos: torch.Tensor, dlen: torch.Tensor,
+                        ilen: torch.Tensor, chars: torch.Tensor,
+                        cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Replay [b, n] op sequences (pos/dlen/ilen [b, n], chars [b, n,
+    max_ins], int32 on one device) into empty [b, cap] rows: (docs [b,
+    cap], lens [b]), int32. The counterpart of the JAX package's
+    `replay_batch_pallas` (a scan of one Pallas step per op): ONE K1 launch
+    over the whole sequence with max_ins = chars.shape[2]. K1's contract
+    holds: a row with an op out of contract (dlen or ilen > max_ins, a
+    negative field) comes back with length -1.
+
+    CUDA tensors launch K1 once, counted by `apply_ops_window.launches`;
+    CPU tensors run the plain version."""
+    docs, lens = _empty_rows(pos, chars, cap)
+    return apply_ops_window(docs, lens, pos, dlen, ilen, chars,
+                            chars.shape[2])
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,9 @@ the device checkout, the zone engine and `Branch.merge` use:
 with the tracker transform and its dumps, the full native merge, the entry
 composer (`compose_plan`, `compose_cache_only`, `compose_linear`), the zone
 insert-run table (`zone_ins_runs`) and the collision count of the last
-transform; `content_columns`, `get_native_ctx`, `merge_native` and
-`native_available`. The zone tape packer (`dt_zone_pack`) is bound here
+transform; `content_columns`, `get_native_ctx`, `merge_native`,
+`transform_native`, `native_available` and the engine's event counters
+(`native_counters`, `reset_native_counters`). The zone tape packer (`dt_zone_pack`) is bound here
 too and called from `gpu/zone_kernel.py`. The codec half (slice 10):
 `crc32c_native`, `lz4_compress_native`, the fresh-load decoder
 `decode_file_native` (raising `NativeParseError` on corrupt input), the
@@ -74,6 +75,10 @@ def _configure(lib) -> None:
     lib.dt_release_tracker.argtypes = [vp]
     lib.dt_last_collisions.argtypes = [vp]
     lib.dt_last_collisions.restype = i64
+    lib.dt_get_counters.argtypes = [
+        np.ctypeslib.ndpointer(np.uint64, flags="C"), i64]
+    lib.dt_get_counters.restype = i64
+    lib.dt_reset_counters.argtypes = []
     lib.dt_compose_plan.argtypes = [vp, i64, a64, a64]
     lib.dt_compose_plan.restype = i64
     lib.dt_compose_counts.argtypes = [vp, a64]
@@ -472,6 +477,35 @@ def merge_native(oplog, init: str, from_frontier, merge_frontier):
     at `from_frontier`: (text, frontier)."""
     return get_native_ctx(oplog).merge_to_string(init, from_frontier,
                                                  merge_frontier)
+
+
+def transform_native(oplog, from_frontier, merge_frontier):
+    """The C++ tracker transform of `merge_frontier` from `from_frontier`:
+    (lv, len, kind, fwd, pos arrays, final_frontier)."""
+    return get_native_ctx(oplog).transform(from_frontier, merge_frontier)
+
+
+# Order mirrors dt_core.cpp's EventCounters / dt_get_counters.
+EVENT_COUNTER_NAMES = (
+    "integrate_calls", "integrate_scan_iters", "apply_ins_runs",
+    "apply_del_runs", "advance_calls", "retreat_calls", "walk_steps",
+    "diff_calls")
+
+
+def native_counters() -> Optional[dict]:
+    """Process-global merge-kernel event counters from the C++ engine
+    (always on), or None when the library cannot be built here."""
+    if not native_available():
+        return None
+    buf = np.zeros(len(EVENT_COUNTER_NAMES), dtype=np.uint64)
+    k = _lib.dt_get_counters(buf, len(buf))
+    return {n: int(buf[i])
+            for i, n in enumerate(EVENT_COUNTER_NAMES[:int(k)])}
+
+
+def reset_native_counters() -> None:
+    if native_available():
+        _lib.dt_reset_counters()
 
 
 # ---- the codec --------------------------------------------------------------

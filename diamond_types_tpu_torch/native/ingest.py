@@ -1,0 +1,213 @@
+"""Native local-ingest session — the editor-typing hot path at C speed.
+
+`OpLog.add_insert_at`/`add_delete_at` pay Python-object costs per op
+(~300k ops/s on automerge-paper, BENCH_r04); the reference ingests local
+ops natively (reference: src/list/oplog.rs:203-296). A `LocalSession`
+batches one agent's linear tip edits in a C extension
+(native/dt_ingest.cpp) that RLE-merges runs with the exact
+`can_append_ops`/`append_ops` rules, then `flush()` lands them in the
+oplog in one bulk append: one agent-assignment span, one graph push, one
+arena extend — precisely what the per-op path's own RLE would have
+produced, so the flushed oplog is structurally identical (tests prove
+encode-byte parity).
+
+Scope: local edits only — one agent, every op at the current tip (the
+shape typing has). The session holds PENDING state: the oplog does not
+see the ops until flush(). Use as a context manager; single writer.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import os
+from typing import Optional
+
+from ..text.op import DEL, INS, OpRun
+
+_ext = False  # False = not probed; None = unavailable
+
+
+def _load_ext():
+    global _ext
+    if os.environ.get("DT_TPU_NO_NATIVE"):
+        # the one kill switch every native fast path honors — an oracle
+        # run must be genuinely native-free
+        return None
+    if _ext is False:
+        try:
+            # unconditional: build_ingest no-ops when the .so is fresh,
+            # and rebuilds when dt_ingest.cpp changed (loading a stale
+            # binary would make the parity suite test old code)
+            from .build import build_ingest
+            path = build_ingest()
+            if path:
+                spec = importlib.util.spec_from_file_location("_dtingest",
+                                                              path)
+                mod = importlib.util.module_from_spec(spec)
+                spec.loader.exec_module(mod)
+                _ext = mod
+            else:
+                _ext = None
+        except Exception:  # noqa: BLE001 - any failure means "no native"
+            _ext = None
+    return _ext
+
+
+def native_ingest_available() -> bool:
+    return _load_ext() is not None
+
+
+class PySession:
+    """Pure-Python fallback with LocalSession's API: per-op calls go
+    straight through add_insert_at/add_delete_at (the oracle path), so
+    the kill switch and compiler-less environments keep working."""
+
+    __slots__ = ("oplog", "agent")
+
+    def __init__(self, oplog, agent: int) -> None:
+        self.oplog = oplog
+        self.agent = agent
+
+    def insert(self, pos: int, content: str) -> int:
+        if not content:
+            raise ValueError("empty insert")
+        return self.oplog.add_insert(self.agent, pos, content)
+
+    def delete(self, start: int, end: int,
+               content: Optional[str] = None) -> int:
+        if end <= start:
+            raise ValueError("empty delete")
+        if content is not None and len(content) != end - start:
+            raise ValueError("content length != delete length")
+        return self.oplog.add_delete_at(self.agent, self.oplog.version,
+                                        start, end, content)
+
+    def pending(self) -> int:
+        return 0  # ops land immediately on this path
+
+    def hot(self):
+        def ins(_s, pos, text):
+            return self.insert(pos, text)
+
+        def dele(_s, start, end, content=None):
+            return self.delete(start, end, content)
+
+        return None, ins, dele
+
+    def flush(self) -> None:
+        pass
+
+    def __enter__(self) -> "PySession":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        pass
+
+
+class LocalSession:
+    """Batched linear local edits on one oplog by one agent.
+
+    insert()/delete() return the op's last LV (same contract as
+    add_insert_at/add_delete_at). The edits become visible in the oplog
+    only at flush() — callers that need to read oplog state mid-stream
+    flush first (the context manager flushes on exit).
+    """
+
+    __slots__ = ("oplog", "agent", "_s", "_base_lv", "_frontier", "_ext")
+
+    def __new__(cls, oplog, agent: int):
+        if _load_ext() is None:
+            # DT_TPU_NO_NATIVE / no compiler: same API, per-op Python
+            # path (the oracle) — callers keep working, just slower
+            return PySession(oplog, agent)
+        return super().__new__(cls)
+
+    def __init__(self, oplog, agent: int) -> None:
+        self._ext = _load_ext()
+        self.oplog = oplog
+        self.agent = agent
+        self._begin()
+
+    def _begin(self) -> None:
+        ol = self.oplog
+        self._base_lv = len(ol)
+        self._frontier = list(ol.version)
+        runs = ol.ops.runs
+        if runs:
+            last = runs[-1]
+            self._s = self._ext.new(last.kind, last.start, last.end,
+                                    last.fwd, last.content_pos is not None)
+        else:
+            self._s = self._ext.new()
+
+    def insert(self, pos: int, content: str) -> int:
+        return self._base_lv + self._ext.ins(self._s, pos, content) - 1
+
+    def delete(self, start: int, end: int,
+               content: Optional[str] = None) -> int:
+        return self._base_lv + self._ext.del_(self._s, start, end,
+                                              content) - 1
+
+    def pending(self) -> int:
+        return self._ext.count(self._s)
+
+    def hot(self):
+        """(session, ins, del_) for tight ingest loops: `ins(sess, pos,
+        text)` / `del_(sess, start, end[, content])` skip this wrapper's
+        attribute loads and LV arithmetic (~25% on automerge-paper
+        replay). The handles are valid until the next flush(); LVs can
+        be recovered afterwards as base_lv + running count."""
+        return self._s, self._ext.ins, self._ext.del_
+
+    def flush(self) -> None:
+        """Land the pending edits in the oplog (one bulk append)."""
+        ol = self.oplog
+        if self._ext.count(self._s) == 0:
+            # nothing pending: a no-op flush just re-seeds (the oplog
+            # may legitimately have moved on since the last flush)
+            self._begin()
+            return
+        if len(ol) != self._base_lv:
+            # checked BEFORE drain (drain irreversibly resets the C++
+            # session) and with a real exception (an -O run must not
+            # land runs against a stale base LV silently)
+            raise RuntimeError(
+                f"oplog mutated during local session (base lv "
+                f"{self._base_lv}, now {len(ol)}); pending edits kept")
+        runs, ins_a, del_a, count, seed = self._ext.drain(self._s)
+        if count:
+            ops = ol.ops
+            bases = (ops.arena_len(INS), ops.arena_len(DEL))
+            if ins_a:
+                ops._arenas[INS].push(ins_a)
+            if del_a:
+                ops._arenas[DEL].push(del_a)
+            if seed is not None:
+                # ops merged into the (seeded) predecessor run: apply its
+                # final loc values and extend its content span with the
+                # chars the session prepended to this kind's arena
+                s_start, s_end, s_fwd, appended = seed
+                last = ops.runs[-1]
+                last.start, last.end, last.fwd = s_start, s_end, s_fwd
+                if appended:
+                    cp = last.content_pos
+                    assert cp is not None and cp[1] == bases[last.kind], \
+                        "seed content is not the arena tail"
+                    last.content_pos = (cp[0], cp[1] + appended)
+            for (lv, kind, start, end, fwd, cp0, cp1) in runs:
+                cp = None if cp0 < 0 else (cp0 + bases[kind],
+                                           cp1 + bases[kind])
+                ops.runs.append(OpRun(self._base_lv + lv, kind, start, end,
+                                      fwd, cp))
+            ol.cg.assign_local_op_with_parents(self._frontier, self.agent,
+                                               count)
+        self._begin()
+
+    # --- context manager -------------------------------------------------
+
+    def __enter__(self) -> "LocalSession":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is None:
+            self.flush()

@@ -1,7 +1,8 @@
 """Shape-bucketed admission queues with bounded depth + backpressure.
 
-A verbatim copy of the JAX package's `serve/admission.py`. The port has no
-QoS controller yet, so `qos` stays None and the static trigger runs.
+A verbatim copy of the JAX package's `serve/admission.py`. `qos` is the
+QoS controller that `MergeScheduler.attach_qos` wires in (None: the static
+trigger runs).
 
 The device tier amortizes dispatch overhead only when work of one padded
 shape is flushed together (the zone session's jit cache is keyed on the

@@ -54,9 +54,16 @@ counts a resolve that raises inside a batch as a flush leak), and every
 bank eviction routes the doc to its snapshot. The Hydrator never touches
 the device.
 
+Adaptive admission (`attach_qos`, a `qos.QosController`): the queue's
+deadline trigger reads the controller's published per-(shard, class)
+deadlines, `submit` counts each admit in its class (the controller's
+arrival rates), and `start_pump`/`stop_pump` start and stop the
+controller's thread. The controller takes its telemetry from
+`QosController.attach_obs(holder)`, any object with a `ts` time series.
+
 Left out of the port so far (ROADMAP item 12): the obs layer's spans,
-exemplars and attribution (`attach_obs`), the QoS controller
-(`attach_qos`) and follower-read invalidation.
+exemplars and attribution (`attach_obs`, which would also hand the
+controller its telemetry) and follower-read invalidation.
 """
 
 from __future__ import annotations
@@ -166,6 +173,9 @@ class MergeScheduler:
         # serve.hydrate.Hydrator (attach_hydrator); None = every document
         # stays resident: no prefetch, no flush gate
         self.hydrator = None
+        # qos.QosController (attach_qos); None = the static size-or-
+        # deadline trigger
+        self.qos = None
         # docs the hydration gate requeued (written under self.lock):
         # drain() counts a pump that only deferred as progress
         self._deferred = 0
@@ -204,6 +214,19 @@ class MergeScheduler:
             hydrator.oplog_lock = self._sync_lock
         for bank in self.banks:
             bank.snapshot_hook = hydrator.request_snapshot
+
+    def attach_qos(self, controller) -> None:
+        """Wire a qos.QosController into the admission path: the queue
+        consults its published per-(shard, class) effective deadlines in
+        place of the static trigger, submits bump its per-class counters,
+        and start_pump/stop_pump own its control-loop thread. The
+        controller takes its `qos` witness lock BEFORE this scheduler's
+        global lock (qos(8) -> global(10) in the canonical order) when it
+        reads queue fill each step."""
+        controller.bind(self.queue, queue_lock=self.lock,
+                        n_shards=self.queue.n_shards)
+        self.qos = controller
+        self.queue.qos = controller
 
     # ---- intake ----------------------------------------------------------
 
@@ -255,6 +278,10 @@ class MergeScheduler:
             if already:
                 self.metrics.bump(shard, "coalesced")
             self.metrics.observe_queue(shard, self.queue.depth(shard))
+        if self.qos is not None:
+            # per-class admitted counter: also the controller's
+            # arrival-rate input (the qos.admitted.<cls> series)
+            self.qos.metrics.bump_class(qos_cls, "admitted")
         return {"accepted": True, "shard": shard, "bucket": bucket}
 
     # ---- flush -----------------------------------------------------------
@@ -627,8 +654,9 @@ class MergeScheduler:
 
     def start_pump(self, interval_s: Optional[float] = None) -> None:
         """Pump every `interval_s` (default half the flush deadline) on a
-        background thread. An exception ends the loop and is raised by
-        the next drain()/stop_pump()."""
+        background thread, and start the QoS controller's loop when one is
+        attached. An exception ends the pump loop and is raised by the
+        next drain()/stop_pump()."""
         if self._pump_thread is not None:
             return
         interval = interval_s if interval_s is not None else \
@@ -644,8 +672,14 @@ class MergeScheduler:
 
         self._pump_thread = threading.Thread(target=loop, daemon=True)
         self._pump_thread.start()
+        if self.qos is not None:
+            # the controller's loop lives and dies with the pump: no
+            # pump, no flushes, nothing for the deadlines to steer
+            self.qos.start()
 
     def stop_pump(self, drain: bool = True) -> None:
+        if self.qos is not None:
+            self.qos.stop()
         self._pump_stop.set()
         if self._pump_thread is not None:
             self._pump_thread.join(timeout=2)

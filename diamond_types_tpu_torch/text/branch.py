@@ -59,6 +59,22 @@ class Branch:
         self.version = [lv]
         return lv
 
+    # UTF-16 entry points for JS/Swift-style clients (reference:
+    # branch.rs insert_at_wchar / delete_at_wchar, wchar_conversion feature).
+
+    def insert_at_wchar(self, oplog: OpLog, agent: int, wchar_pos: int,
+                        content: str) -> int:
+        from ..core.unicount import wchars_to_chars
+        return self.insert(oplog, agent,
+                           wchars_to_chars(self.snapshot(), wchar_pos), content)
+
+    def delete_at_wchar(self, oplog: OpLog, agent: int, wchar_start: int,
+                        wchar_end: int) -> int:
+        from ..core.unicount import wchars_to_chars
+        snap = self.snapshot()
+        return self.delete(oplog, agent, wchars_to_chars(snap, wchar_start),
+                           wchars_to_chars(snap, wchar_end))
+
     # --- merge -------------------------------------------------------------
 
     def merge(self, oplog: OpLog, merge_frontier: Sequence[int],

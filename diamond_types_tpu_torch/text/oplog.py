@@ -5,8 +5,9 @@ src/list/oplog.rs): an append-only columnar op table + causal graph + content
 arenas. Every public entry point of the reference's stable list API is here:
 local/remote append paths, checkout, transformed-op iteration, stats.
 
-Checkout, merge and conflict counting run the pure-Python engine; the port
-has no native batched ingest session. The device transform and the device
+Checkout, merge and conflict counting run the pure-Python engine. Linear
+tip edits by one agent can go through `local_session` (the native batched
+ingest of `native/ingest.py`). The device transform and the device
 checkout reach the C++ merge core through `native.core.get_native_ctx`,
 which caches its `NativeContext` on the oplog (`_native_ctx`).
 `oplog_from_columns` rebuilds an oplog from plain columns, so histories
@@ -41,6 +42,15 @@ class OpLog:
     @property
     def version(self) -> List[int]:
         return list(self.cg.version)
+
+    def local_session(self, agent: int):
+        """Native batched ingest for linear tip edits by one agent — the
+        editor-typing hot path at C speed (reference: the native local
+        apply path, src/list/oplog.rs:203-296). Pending edits land at
+        flush()/context exit; see native/ingest.py for scope and parity
+        guarantees."""
+        from ..native.ingest import LocalSession
+        return LocalSession(self, agent)
 
     # --- local append path (reference: src/list/oplog.rs:203-296) ---------
 

@@ -672,3 +672,51 @@ def test_hydrated_scheduler_on_card_at_the_smokes_shape():
     assert out["summary"]["flush_leaks"] == 0
     assert out["summary"]["stale_oplog_rebuilds"] > 0
     assert out["lock_witness"]["acyclic"]
+
+
+def test_qos_scheduler_phase_on_card():
+    """The smoke's scheduler_qos phase at a quarter of its documents and
+    three rounds (free, warning, burning): the controller steps every
+    round, texts equal the host mirror, no sheddable admit while burning,
+    every K1 and K2 call equal to its plain version (all checked inside
+    `run_scheduler_qos`)."""
+    _need_card()
+    import chip_smoke as cs
+    out = cs.run_scheduler_qos(
+        np.random.default_rng([0, 16]), torch.device("cuda"),
+        cs.ServeConfig(n_docs=64), cs.SchedulerConfig(),
+        cs.QosConfig(interactive=32, bulk=20, catchup=12, rounds=3,
+                     warning_round=1, burning_round=2, arrival_s=0.3,
+                     profile_round=-1))
+    assert out["launches"] > 0 and out["k2_launches"] > 0
+    assert out["k1_max_abs_err"] == 0 and out["k2_max_abs_err"] == 0
+    assert out["k1_calls_checked"] == out["launches"]
+    assert all(r["controller_steps"] > 0 for r in out["rounds"])
+    burning = out["rounds"][2]["classes"]
+    assert burning["bulk"]["shed"] == 20 and burning["catchup"]["shed"] == 12
+    assert out["rounds"][1]["classes"]["bulk"]["deferred"] == 20
+    assert out["lock_witness"]["acyclic"]
+
+
+@pytest.mark.parametrize("b,n,cap,mi", [(4, 8, 64, 16), (128, 64, 4096, 16),
+                                        (3, 300, 1024, 4)])
+def test_replay_batch_kernel_matches_plain_on_card(b, n, cap, mi):
+    """`replay_batch_kernel` (one K1 launch from empty rows) against its
+    plain version, rows poisoned by an op out of contract included."""
+    _need_card()
+    rng = np.random.default_rng(b + n + cap)
+    pos = rng.integers(0, cap // 2, (b, n))
+    kind = rng.integers(0, 3, (b, n))
+    dlen = np.where(kind == 1, rng.integers(1, mi + 1, (b, n)), 0)
+    ilen = np.where(kind != 1, rng.integers(1, mi + 1, (b, n)), 0)
+    ilen[0, n // 2] = mi + 1                       # poisons row 0
+    chars = rng.integers(1, 0x10FFFF, (b, n, mi))
+    args = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+            for a in (pos, dlen, ilen, chars)]
+    kernels.apply_ops_window.launches = 0
+    got_d, got_l = kernels.replay_batch_kernel(*args, cap=cap)
+    torch.cuda.synchronize()
+    assert kernels.apply_ops_window.launches == 1
+    want_d, want_l = kernels.replay_batch_plain(*args, cap=cap)
+    assert torch.equal(got_d, want_d) and torch.equal(got_l, want_l)
+    assert int(got_l[0]) == -1

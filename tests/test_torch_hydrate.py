@@ -14,6 +14,9 @@ window: every text must equal JAX's and the tracker's merge of an
 in-memory mirror that never goes through the tier. The scheduler's
 witness locks carry JAX's names, classes and ranks, and the port's
 storage soak returns JAX's crash, compaction-kill and quarantine counts.
+Where the gate defers every document of a flush window, the port's
+`drain()` pumps again and merges them, where JAX's returns with them
+queued (a deliberate divergence).
 """
 
 import os
@@ -626,6 +629,75 @@ def test_hydrated_device_scheduler_matches_jax(tmp_path, mesh_window):
     wit = twitness.witness_snapshot()
     assert wit["acyclic"] and wit["violation_count"] == 0, wit
     assert wit["edge_count"] > 0
+
+
+# ---- drain() when the gate defers a whole window ----------------------------
+
+def _gate_defers_window(pkg, root, bases):
+    """A window scheduler over a tier whose hydration workers are slow
+    (their loads time out), so the first gate visit defers every document
+    of the window; the second visit hydrates synchronously on the pump
+    thread. Submits each document once and drains."""
+    class SlowWorkersOnly(pkg.tier.StorageFaults):
+        def load_delay(self, doc_id):
+            t = threading.current_thread().name
+            return 5.0 if t.startswith("hydrate-worker") else 0.0
+
+    store = pkg.tier.TieredStore(root)
+    for d, text in bases.items():
+        store.save(d, _mk(pkg, [text], agent="w"))
+    store.faults = SlowWorkersOnly(seed=0, slow_rate=0.0)
+    hyd = pkg.Hydrator(store, workers=1, attempt_timeout_s=0.01,
+                       max_attempts=1, gate_wait_s=0.001, sync_wait_s=5.0,
+                       defer_budget_s=30.0)
+    opts = dict(engine="device", fused=True, device_plan=True, flush_docs=4,
+                flush_deadline_s=10.0, flush_workers=False,
+                mesh_window=True)
+    if pkg is JAX:
+        sched = pkg.sched.MergeScheduler(2, resolve=hyd.resolve,
+                                         fused_opts=FUSED, **opts)
+        sched._mesh = jmesh.serve_mesh(1)
+    else:
+        sched = pkg.sched.MergeScheduler(
+            2, resolve=hyd.resolve, fused_opts=dict(FUSED, device="cpu"),
+            **opts)
+    sched.attach_hydrator(hyd)
+    for d in bases:
+        assert sched.submit(d, n_ops=1)["accepted"]
+    return sched, hyd, sched.drain()
+
+
+def test_drain_flushes_a_window_the_gate_deferred(tmp_path):
+    """A deliberate divergence (ROADMAP §3): the JAX `drain()` stops when a
+    pump returns 0, so a window whose every document the hydration gate
+    deferred stays queued after it returns. The port's `drain()` counts
+    the deferral as progress and pumps again: the gate's second visit
+    hydrates the documents and the window merges them."""
+    bases = {f"doc{i}": f"home {i} " * (i + 1) for i in range(6)}
+    out = {}
+    for pkg in PKGS:
+        root = tmp_path / pkg.name
+        root.mkdir()
+        sched, hyd, n = _gate_defers_window(pkg, str(root), bases)
+        try:
+            out[pkg.name] = (sched, hyd, n, sched.queue.total_depth(),
+                             sched.metrics_json(), hyd.counters_snapshot())
+            if pkg is PORT:
+                texts = {d: sched.text(d) for d in bases}
+        finally:
+            sched.stop_pump(drain=False)
+            hyd.stop(checkpoint=False)
+    _s, _h, jn, jdepth, _jm, jc = out["jax"]
+    assert jn == 0 and jdepth == len(bases)         # JAX left them queued
+    assert jc["deferrals"] == len(bases)
+    _s, _h, tn, tdepth, tm, tc = out["port"]
+    assert tn == len(bases) and tdepth == 0
+    assert tc["deferrals"] == tc["defer_escalations"] == len(bases)
+    assert tc["quarantined"] == tc["flush_leaks"] == 0
+    assert tm["totals"]["flushed_docs"] == len(bases)
+    assert tm["totals"]["host_fallbacks"] == 0
+    assert tm["window"]["windows"] >= 2
+    assert texts == bases
 
 
 # ---- the storage soak ------------------------------------------------------

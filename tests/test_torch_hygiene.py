@@ -41,7 +41,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "encoding.lz4", "encoding.decode", "encoding.encode",
               "analysis.witness", "replicate.peers", "storage.store",
               "storage.pages", "storage.tier", "storage.soak",
-              "wire.frames", "wire.snapshot", "serve.hydrate"):
+              "wire.frames", "wire.snapshot", "serve.hydrate",
+              "core.unicount", "causalgraph.stochastic_summary",
+              "causalgraph.subgraph", "listmerge.plan", "text.crdt",
+              "text.ot", "utils.checkers", "utils.stats", "native.ingest",
+              "db", "db.doc", "db.shelf", "obs.timeseries", "qos",
+              "qos.classes", "qos.metrics", "qos.shed", "qos.controller"):
         assert f"diamond_types_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -54,6 +59,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_public_api_imports_from_the_root():
+    from diamond_types_tpu_torch import ListCRDT, load, merge_oplogs, save
+    assert callable(load) and callable(save) and callable(merge_oplogs)
+    assert ListCRDT().snapshot() == ""
 
 
 def test_import_builds_nothing():

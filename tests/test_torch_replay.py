@@ -5,7 +5,10 @@ its window body `make_pallas_replay_body`; the port's counterparts are the
 per-op step `batch._apply_ops_batched` and `kernels.apply_ops_window`
 (which runs `apply_ops_window_plain` on CPU tensors). X1 is the XLA replay in
 `tpu/batch.py` and the fused-rung body `make_replay_body`, whose
-counterpart is `kernels.apply_ops_window_plain` itself. Every
+counterpart is `kernels.apply_ops_window_plain` itself. The whole-trace
+replay `replay_batch_pallas` (a scan of `apply_op_block` from empty rows)
+is held against `kernels.replay_batch_kernel` on in-contract traces, and
+its deliberate divergence on ops out of contract is pinned. Every
 comparison is exact over the full `[b, cap]` buffers, wrap-around slack
 included, and the lengths.
 """
@@ -220,3 +223,83 @@ def test_replay_entry_points_need_cuda_or_explicit_cpu():
     with pytest.raises(RuntimeError, match="CUDA"):
         tbatch.replay_batch(pos[None], dl[None], il[None], chars[None],
                             cap=64)
+
+
+# ---- replay_batch_pallas and its counterpart, replay_batch_kernel ------------
+
+def trace_rows(seed, b, cap, mi, n_txns=12):
+    """In-contract replays, as `tests/test_tpu_kernels.py`'s replay tests
+    build them: per row a random edit trace over a document that starts
+    empty and stays within `cap` (inserts and deletes of up to 3 * mi
+    chars, so `encode_trace_ops` splits them at max_ins), encoded by the
+    JAX package's `encode_trace_ops`; rows padded to one length with
+    no-ops (0, 0, 0). Returns (pos, dlen, ilen, chars) and the texts."""
+    rng = np.random.default_rng(seed)
+    rows, texts = [], []
+    for _ in range(b):
+        doc, txns = "", []
+        for _ in range(n_txns):
+            pos = int(rng.integers(0, len(doc) + 1))
+            nd = int(rng.integers(0, min(3 * mi, len(doc) - pos) + 1)) \
+                if rng.random() < 0.4 else 0
+            room = cap - (len(doc) - nd)
+            k = int(rng.integers(0, min(3 * mi, room) + 1))
+            ins = "".join(chr(int(c)) for c in rng.integers(97, 123, k))
+            txns.append([(pos, nd, ins)])
+            doc = doc[:pos] + ins + doc[pos + nd:]
+        rows.append(jbatch.encode_trace_ops(txns, mi))
+        texts.append(doc)
+    n = max(len(r[0]) for r in rows)
+    out = [np.zeros((b, n), np.int32) for _ in range(3)] \
+        + [np.zeros((b, n, mi), np.int32)]
+    for i, r in enumerate(rows):
+        for a, src in zip(out, r):
+            a[i, :len(src)] = src
+    return out, texts
+
+
+@pytest.mark.parametrize("seed,b,cap,mi", [(0, 4, 64, 16), (1, 3, 256, 4),
+                                           (2, 8, 128, 8)])
+def test_replay_batch_kernel_matches_replay_batch_pallas(seed, b, cap, mi):
+    from diamond_types_tpu.tpu.pallas_kernels import replay_batch_pallas
+    args, texts = trace_rows(seed, b, cap, mi)
+    jd, jl = replay_batch_pallas(*[jnp.asarray(a) for a in args], cap=cap,
+                                 interpret=True)
+    kernels.apply_ops_window.launches = 0
+    td, tl = kernels.replay_batch_kernel(*[_t(a) for a in args], cap=cap)
+    _eq(td, jd)
+    _eq(tl, jl)
+    assert tbatch.docs_to_strings(td.numpy(), tl.numpy()) == texts
+    pd, pl = kernels.replay_batch_plain(*[_t(a) for a in args], cap=cap)
+    assert torch.equal(pd, td) and torch.equal(pl, tl)
+    # CPU tensors ran the plain version: nothing launched
+    assert kernels.apply_ops_window.launches == 0
+
+
+def test_replay_batch_kernel_out_of_contract_diverges_from_jax():
+    """A deliberate divergence (ROADMAP §3): an op with dlen or ilen past
+    the chars width, or a negative field, poisons K1's row to length -1;
+    `replay_batch_pallas` applies it (a delete of any length; an insert
+    whose chars past the width are zeros; lengths by plain arithmetic)."""
+    from diamond_types_tpu.tpu.pallas_kernels import replay_batch_pallas
+    mi, cap = 4, 64
+    args, _texts = trace_rows(7, 5, cap, mi, n_txns=4)
+    pos, dlen, ilen, chars = args
+    n = pos.shape[1]
+    # row: (op, pos, dlen, ilen) of the one op out of contract
+    bad = {1: (0, 0, mi + 2, 0), 2: (n - 1, 0, 0, mi + 3),
+           3: (n - 1, -1, 0, 0), 4: (n - 1, 0, -1, 0)}
+    for row, (k, p, d, i) in bad.items():
+        pos[row, k], dlen[row, k], ilen[row, k] = p, d, i
+    jd, jl = replay_batch_pallas(*[jnp.asarray(a) for a in args], cap=cap,
+                                 interpret=True)
+    td, tl = kernels.replay_batch_kernel(*[_t(a) for a in args], cap=cap)
+    jl, tl = np.asarray(jl), tl.numpy()
+    # in-contract row 0 is equal; every bad row is -1 in the port only
+    _eq(td[0], np.asarray(jd)[0])
+    assert tl[0] == jl[0]
+    for row in bad:
+        assert tl[row] == -1 and jl[row] != -1, row
+    # JAX's length is the arithmetic of every op, the bad one included
+    want = np.where((ilen == 0) & (dlen == 0), 0, ilen - dlen).sum(1)
+    assert (jl[1:] == want[1:]).all()
