@@ -91,7 +91,10 @@ package), in phases, each printing one JSON line:
                 flash modes, and in concurrent mode with the flush window
                 (4 shards, 64 documents, 8 feed rounds and 8 steady
                 rounds, device planning on, every session resident); each
-                must pass its parity gate and launch K1.
+                must pass its parity gate, hold its SLO verdict and launch
+                K1. The bench runs instrumented (1% trace sampling, live
+                telemetry, the journey, the device profiler), as the JAX
+                package's does; each run prints its devprof and slo_ok.
   6. checkout - `merge_kernel.prepare_doc` and `checkout_batch_device`
                 (`fugue_linearize` and one K3 call per checkout: a row
                 scan and a tiled gather, two kernels counted as one
@@ -255,18 +258,48 @@ package), in phases, each printing one JSON line:
                 round, the `QosMetrics` snapshot (per class admitted, shed,
                 deferred and deadline_s; the controller's decisions) and
                 round 1's device busy share.
- 17. replay_batch - `kernels.replay_batch_kernel` (the counterpart of
+ 17. scheduler_obs - the observability bundle on the device scheduler:
+                scheduler_qos's setup (256 documents from this phase's own
+                generator, 128 interactive, 80 bulk, 48 catchup over 4
+                tenants; 4 shards, flush_docs 8, flush workers, device
+                planning, `attach_qos(QosController(interval_s=0.05))`)
+                with `attach_obs(Observability(sample_rate=0.1, seed=<from
+                the generator>, incident_dir=<a temporary directory>))`,
+                the device profiler (`obs.devprof.PROFILER`) reset and
+                enabled for the phase only, and `start_pump()` running; 3
+                free rounds with each round's submits spread over 1 s.
+                Requires every K1 and K2 call equal to its plain version,
+                every text equal to the host mirror's after every round, 0
+                host and plan fallbacks, sampled `serve.admit`,
+                `serve.flush` and `serve.device_sync` spans with every
+                device_sync under a flush span, devprof's fused device
+                calls equal to the scheduler's, devprof's device wait at
+                most its flush wall and transfers under the JAX package's
+                (rung, purpose) tags, every sampled journey adopted, the
+                `serve.flush` p99 over 30 s above 0 after each round,
+                interactive's published deadline never past the static
+                one, the SLO verdict ok, `serve.flush` exemplars carrying
+                sampled trace ids, `obs.snapshot()` JSON-serialisable and
+                rendered by `render_metrics`, and the lock witness acyclic.
+                Prints docs/s and flush p50/p99 a round, devprof's
+                device_fraction (all flushes and fused calls), transfer
+                bytes by rung.purpose, the tracer's stats, the journey,
+                the SLO verdict, the incident count, and round 0's busy
+                share from `torch.profiler` (the card busy) beside
+                devprof's device_fraction for the same round (the flushes
+                waiting on the fence).
+ 18. replay_batch - `kernels.replay_batch_kernel` (the counterpart of
                 `replay_batch_pallas`: one K1 launch over a whole op
                 sequence from empty rows) against its plain version at b
                 128, n 64, cap 4,096, max_ins 16 on in-contract ops; its
                 call_ms, device_ms, plain ms and HBM bound. It is on no
                 serve path.
- 18. kernels  - one line for K1, K2, K3, X8 and `replay_batch_kernel`:
+ 19. kernels  - one line for K1, K2, K3, X8 and `replay_batch_kernel`:
                 launches on the main path (K1
                 and K2 in the serve phase, K3 in the checkout phase; per
                 path in `launches_by_path`, the scheduler's, the flush
-                window's, the hydrated scheduler's and the QoS scheduler's
-                (K1, K2), the history's (K3) and the merge step's (K1)
+                window's, the hydrated scheduler's, the QoS scheduler's
+                and the observed scheduler's (K1, K2), the history's (K3) and the merge step's (K1)
                 too; `replay_batch_kernel`'s from its own check), max
                 error against the plain version (see below), and at the
                 main path's widest call two times: `call_ms` (CUDA events
@@ -1243,7 +1276,10 @@ def run_scheduler(rng: np.random.Generator, device, cfg: ServeConfig,
 def run_serve_benches(device, scfg: SchedulerConfig, seed: int) -> dict:
     """`run_serve_bench` on the card in each mode (device planning on,
     every session resident), and in concurrent mode once more with the
-    flush window: its parity gate must pass. With a CUDA device the bench
+    flush window: its parity gate must pass and its SLO verdict hold. The
+    bench runs instrumented, as the JAX package's does (1% trace sampling,
+    live telemetry, the journey, the device profiler): each run prints its
+    `devprof` and `slo_ok`. With a CUDA device the bench
     takes its default placement (shard i on `cuda:(i % device_count)`)."""
     from diamond_types_tpu_torch.gpu import kernels
     from diamond_types_tpu_torch.serve.driver import run_serve_bench
@@ -1261,6 +1297,7 @@ def run_serve_benches(device, scfg: SchedulerConfig, seed: int) -> dict:
         check(r["parity_ok"], f"serve bench {mode}: parity failed for "
               f"{r['parity_mismatches']}")
         check(k1.launches > 0, f"serve bench {mode}: K1 never launched")
+        check(r["slo_ok"], f"serve bench {mode}: SLO burning: {r['slo']}")
         lat = r["metrics"]["latencies"]["flush"]
         out.append({"mode": mode, "parity_ok": r["parity_ok"],
                     "total_ops": r["total_ops"],
@@ -1276,7 +1313,8 @@ def run_serve_benches(device, scfg: SchedulerConfig, seed: int) -> dict:
                     "flush_ms": {q: 1e3 * lat[q] for q in ("p50", "p99")},
                     "k1_launches": k1.launches, "k2_launches": k2.launches,
                     "transform": r["transform"], "steer": r["steer"],
-                    "config": r["config"]})
+                    "slo_ok": r["slo_ok"], "devprof": r["devprof"],
+                    "obs": r["obs"], "config": r["config"]})
     return {"phase": "serve_bench", "runs": out}
 
 
@@ -3189,6 +3227,342 @@ def run_scheduler_qos(rng: np.random.Generator, device, cfg: ServeConfig,
                                                  "acquires", "edges")}}
 
 
+# the (rung, purpose) transfer tags of the JAX package's device profiler
+TRANSFER_TAGS = {"session.stage", "fused.plan", "pallas.plan", "mesh.plan",
+                 "mesh.stage"}
+
+
+@dataclass
+class ObsConfig:
+    rounds: int = 3                 # free rounds (no forced mesh state)
+    arrival_s: float = 1.0          # a round's submits spread over this
+    sample_rate: float = 0.1        # the tracer's head sampling
+    profile_round: int = 0          # the first round is traced
+
+
+def span_tree_checks(spans: List[dict]) -> dict:
+    """Counts of the sampled spans by name; fails unless there is at least
+    one `serve.admit`, `serve.flush` and `serve.device_sync`, and every
+    device_sync's parent is a flush span of the same trace."""
+    by_id = {s["span"]: s for s in spans}
+    names = collections.Counter(s["name"] for s in spans)
+    for name in ("serve.admit", "serve.flush", "serve.device_sync"):
+        check(names[name] > 0, f"scheduler_obs: no sampled {name} span")
+    for s in spans:
+        if s["name"] == "serve.device_sync":
+            p = by_id.get(s["parent"])
+            check(p is not None and p["name"] == "serve.flush"
+                  and p["trace"] == s["trace"],
+                  f"scheduler_obs: a device_sync span's parent is "
+                  f"{p and p['name']}, not its trace's serve.flush")
+    return dict(sorted(names.items()))
+
+
+def run_scheduler_obs(rng: np.random.Generator, device, cfg: ServeConfig,
+                      scfg: SchedulerConfig, qcfg: QosConfig,
+                      ocfg: ObsConfig) -> dict:
+    """The observability bundle attached to the device scheduler: the
+    scheduler_qos phase's setup (the scheduler phase's kind of 256
+    documents from this phase's own generator, 128 interactive, 80 bulk, 48
+    catchup over 4 tenants; `MergeScheduler(4 shards, fused, device_plan,
+    flush_docs=8, flush_workers)` with `attach_qos(QosController(
+    interval_s=0.05))`) plus `attach_obs(Observability(sample_rate=0.1,
+    seed=<from the generator>, incident_dir=<a temporary directory>))`,
+    which also hands the controller its telemetry, the device profiler
+    (`PROFILER`) reset and enabled for this phase only, and `start_pump()`
+    running. 3 free rounds, each round's submits spread over 1 s as in
+    scheduler_qos. Requires every K1 and K2 call equal to its plain
+    version and every text equal to the host mirror's after every round;
+    0 host and plan fallbacks; sampled `serve.admit`, `serve.flush` and
+    `serve.device_sync` spans, every device_sync's parent a flush span;
+    devprof's fused device calls equal to the scheduler's; devprof's
+    device_sync_s at most its flush_wall_s and transfers under the JAX
+    package's (rung, purpose) tags; every sampled journey `adopted`; the
+    `serve.flush` p99 over 30 s above 0 after round 1 and interactive's
+    published deadline never past the static one; the SLO verdict ok under
+    the default objectives; the `serve.flush` exemplars carrying sampled
+    trace ids; `obs.snapshot()` JSON-serialisable and rendered by
+    `render_metrics` with the scheduler's metrics; the lock witness
+    acyclic."""
+    import tempfile
+
+    from diamond_types_tpu_torch.analysis import witness
+    from diamond_types_tpu_torch.gpu import flush_fuse as ff
+    from diamond_types_tpu_torch.gpu import kernels
+    from diamond_types_tpu_torch.gpu.steer import STEER
+    from diamond_types_tpu_torch.obs import Observability, render_metrics
+    from diamond_types_tpu_torch.obs.devprof import PROFILER
+    from diamond_types_tpu_torch.qos import QosController, tenant_of
+    from diamond_types_tpu_torch.serve import MergeScheduler
+
+    t0 = time.perf_counter()
+    ols = build_docs(rng, cfg)
+    for d, ol in enumerate(ols):
+        ol.doc_id = f"t{d % QOS_TENANTS}-doc{d:03d}"
+    names = (["interactive"] * qcfg.interactive + ["bulk"] * qcfg.bulk
+             + ["catchup"] * qcfg.catchup)
+    check(len(names) == len(ols), "the class counts must cover the docs")
+    classes = {ol.doc_id: str(c)
+               for ol, c in zip(ols, rng.permutation(names))}
+    by_id = {ol.doc_id: ol for ol in ols}
+    tips = [host_branch(ol) for ol in ols]
+    obs_seed = int(rng.integers(1 << 31))
+    STEER.reset(table=True)
+    witness.witness_enable()
+    witness.witness_reset()
+    guard = witness.make_lock("smoke.oplog", "oplog")
+    sched = MergeScheduler(
+        scfg.shards, resolve=by_id.__getitem__, engine="device", fused=True,
+        device_plan=True, flush_docs=scfg.flush_docs, flush_workers=True,
+        max_sessions_per_shard=scfg.max_sessions_per_shard,
+        fused_opts={"max_ins": cfg.max_ins, "headroom": cfg.headroom,
+                    "device": device},
+        sync_lock=guard)
+    ctl = QosController(interval_s=QOS_INTERVAL_S)
+    sched.attach_qos(ctl)
+    incident_dir = tempfile.TemporaryDirectory(prefix="dt-smoke-incidents-")
+    obs = Observability(sample_rate=ocfg.sample_rate, seed=obs_seed,
+                        incident_dir=incident_dir.name)
+    sched.attach_obs(obs)
+    check(ctl.obs is obs, "attach_obs did not hand the controller the "
+          "bundle")
+    static_s = sched.queue.flush_deadline_s
+    published: List[float] = []
+    real_step = ctl.step
+
+    def watched_step(now=None):
+        out = real_step(now)
+        published.extend(v for (_s, c), v in ctl._table.items()
+                         if c == "interactive")
+        return out
+
+    ctl.step = watched_step
+    PROFILER.reset()
+    PROFILER.enabled = True
+    flush_s: List[float] = []      # each flush of a taken batch (rounds)
+    real_flush = sched._flush_items
+
+    def timed_flush(shard, reason, items):
+        t = time.perf_counter()
+        try:
+            return real_flush(shard, reason, items)
+        finally:
+            flush_s.append(time.perf_counter() - t)
+
+    syncs: List[int] = []          # each per-doc sync's replayed ops
+    real_sync = ff.FusedDocSession.sync
+
+    def counted_sync(sess):
+        n = real_sync(sess)
+        syncs.append(n)
+        return n
+
+    k1, k2 = kernels.apply_ops_window, kernels.xform_positions
+    rounds = []
+    edit_s = verify_s = 0.0
+    profile = None
+    devprof_round0 = None
+    flush_p99_s: List[float] = []
+    try:
+        for ol in ols:             # open every document: build sessions
+            check(sched.submit(ol.doc_id, 1, qos=classes[ol.doc_id])
+                  ["accepted"], f"{ol.doc_id} was not admitted at open")
+        sched.drain()
+        setup_s = time.perf_counter() - t0
+        m0 = sched.metrics_json()
+        sched._flush_items = timed_flush
+        ff.FusedDocSession.sync = counted_sync
+        k1.launches = k2.launches = 0
+        sched.start_pump()
+        with Spy(ff, "apply_ops_window", keep=True) as k1_calls, \
+                Spy(kernels, "xform_positions", keep=True) as k2_calls:
+            for r in range(ocfg.rounds):
+                before = sched.metrics_json()
+                n_k1, n_k2, n_fl = (len(k1_calls.seconds),
+                                    len(k2_calls.seconds), len(flush_s))
+                t = time.perf_counter()
+                subs = []
+                for ol, tip in zip(ols, tips):
+                    cls = classes[ol.doc_id]
+                    ok, _retry, _why = ctl.admit(cls, tenant_of(ol.doc_id))
+                    check(ok, f"round {r}: the free gate shed "
+                          f"{ol.doc_id} ({cls})")
+                    subs += [(d, n, cls) for d, n in round_edits(
+                        rng, [ol], [tip], r, cfg)]
+                edit_s += time.perf_counter() - t
+                profiling = r == ocfg.profile_round
+                dp0 = PROFILER.snapshot()
+                gap = ocfg.arrival_s / max(len(subs), 1)
+                with (torch.profiler.profile(activities=PROFILED)
+                      if profiling else contextlib.nullcontext()) as prof:
+                    t = time.perf_counter()
+                    for k, (doc_id, n_ops, cls) in enumerate(subs):
+                        time.sleep(max(0.0, t + k * gap
+                                       - time.perf_counter()))
+                        check(sched.submit(doc_id, n_ops, qos=cls)
+                              ["accepted"],
+                              f"round {r}: {doc_id} was not accepted")
+                    sched.drain()
+                    wall = time.perf_counter() - t
+                if profiling:
+                    profile = device_share(prof, wall, r)
+                    dp1 = PROFILER.snapshot()
+                    fw = dp1["flush_wall_s"] - dp0["flush_wall_s"]
+                    fd = dp1["device_sync_s"] - dp0["device_sync_s"]
+                    devprof_round0 = {
+                        "flush_wall_s": fw, "device_sync_s": fd,
+                        "device_fraction": fd / fw if fw else 0.0}
+                after = sched.metrics_json()
+                # the controller's input: the live serve.flush series
+                p99 = obs.ts.quantile("serve.flush", 0.99, window_s=30.0)
+                flush_p99_s.append(p99)
+                check(p99 > 0, f"round {r}: serve.flush p99 over 30 s is "
+                      f"{p99}")
+                t = time.perf_counter()
+                for ol, tip in zip(ols, tips):
+                    check(sched.text(ol.doc_id) == tip.snapshot(),
+                          f"round {r}: {ol.doc_id} differs from the host "
+                          "mirror's merge")
+                verify_s += time.perf_counter() - t
+                fl = np.asarray(flush_s[n_fl:]) * 1e3
+                flushed = after["totals"]["flushed_docs"] \
+                    - before["totals"]["flushed_docs"]
+                rounds.append({
+                    "round": r, "wall_ms": 1e3 * wall,
+                    "docs_submitted": len(subs), "docs_flushed": flushed,
+                    "docs_per_s": flushed / wall,
+                    "ops": sum(n for _, n, _c in subs),
+                    "flush_ms_p50_p99": ([float(np.percentile(fl, 50)),
+                                          float(np.percentile(fl, 99))]
+                                         if fl.size else None),
+                    "flushes": int(fl.size),
+                    "ts_flush_p99_30s_ms": 1e3 * p99,
+                    "k1_launches": len(k1_calls.seconds) - n_k1,
+                    "k2_launches": len(k2_calls.seconds) - n_k2})
+        sched.stop_pump()
+    finally:
+        PROFILER.enabled = False
+        sched._flush_items = real_flush
+        ff.FusedDocSession.sync = real_sync
+        if sched._pump_thread is not None:     # a round failed: stop the
+            with contextlib.suppress(Exception):   # pump and controller
+                sched.stop_pump(drain=False)
+    launches, k2_launches = k1.launches, k2.launches
+    m = sched.metrics_json()
+    devprof = PROFILER.snapshot()
+    spans = obs.tracer.spans()
+    span_names = span_tree_checks(spans)
+    sampled = {s["trace"] for s in spans}
+    check(m["totals"]["host_fallbacks"] == 0,
+          f"{m['totals']['host_fallbacks']} host fallbacks in scheduler_obs")
+    check(m["transform"]["fallbacks"] == 0,
+          f"{m['transform']['fallbacks']} plan fallbacks in scheduler_obs")
+    check(devprof["fused"]["device_calls"] == m["fused"]["device_calls"],
+          f"devprof counted {devprof['fused']['device_calls']} fused calls, "
+          f"the scheduler {m['fused']['device_calls']}")
+    check(devprof["device_sync_s"] <= devprof["flush_wall_s"],
+          f"devprof's device wait {devprof['device_sync_s']} s exceeds its "
+          f"flush wall {devprof['flush_wall_s']} s")
+    tags = set(devprof["transfer_detail"])
+    check(devprof["transfers"] > 0 and tags and tags <= TRANSFER_TAGS,
+          f"devprof transfers {devprof['transfers']} under {sorted(tags)}")
+    # every sampled journey (one edit per document a round: none
+    # coalesces) is adopted
+    roots = [s["trace"] for s in spans if s["name"] == "serve.admit"]
+    stuck = [tr for tr in roots
+             if "adopted" not in (obs.journey.journey(tr) or
+                                  {"stages": {}})["stages"]]
+    check(roots and not stuck, f"{len(stuck)} of {len(roots)} sampled "
+          "journeys never reached adopted")
+    worst = max(published, default=0.0)
+    check(published and worst <= static_s + 1e-12,
+          f"interactive's published deadline reached {worst} s, past the "
+          f"static {static_s} s")
+    verdict = obs.slo.verdict()
+    check(verdict["slo_ok"], f"SLO verdict under the default objectives: "
+          f"{verdict}")
+    ex = obs.exemplars.snapshot()["families"].get("serve.flush", [])
+    check(ex and all(e["trace"] in sampled for e in ex),
+          f"serve.flush exemplars {ex[:3]} do not carry sampled trace ids")
+    snap = obs.snapshot()
+    snap_json = json.dumps(snap)
+    prom = render_metrics({"serve": m, "qos": ctl.export(), "obs": snap})
+    check("dt_flush_latency_seconds_count" in prom
+          and "dt_devprof_" in prom and "dt_slo_" in prom,
+          "render_metrics left out the serve, devprof or SLO families")
+    wit = witness.witness_snapshot()
+    check(wit["acyclic"] and wit["violation_count"] == 0,
+          f"lock witness: cycles {wit['cycles']}, "
+          f"violations {wit['violations'][:4]}")
+    t = time.perf_counter()
+    k1_err = k1_calls_err(k1_calls.args, cfg.max_ins)
+    check(k1_err == 0, f"K1 differs from its plain version at a "
+          f"scheduler_obs call: max abs err {k1_err}")
+    k2_worst = max((k2_err(nv, ov) for nv, ov in k2_calls.args), default=0)
+    check(k2_worst == 0, f"K2 differs from its plain version at a "
+          f"scheduler_obs resolve: max abs err {k2_worst}")
+    plain_check_s = time.perf_counter() - t
+    fused_calls = m["fused"]["device_calls"] - m0["fused"]["device_calls"]
+    replays = sum(1 for n in syncs if n)
+    batches = m["transform"]["batches"] - m0["transform"]["batches"]
+    check(launches == fused_calls + replays and launches > 0,
+          f"K1 launched {launches} times for {fused_calls} fused calls and "
+          f"{replays} per-doc replays")
+    check(k2_launches == batches and k2_launches > 0,
+          f"K2 launched {k2_launches} times for {batches} resolves")
+    incidents = snap["incidents"]
+    incident_dir.cleanup()
+    summary = {
+        "docs_per_s": [x["docs_per_s"] for x in rounds],
+        "flush_ms_p50_p99": [x["flush_ms_p50_p99"] for x in rounds],
+        "k1_launches": [x["k1_launches"] for x in rounds],
+        "k2_launches": [x["k2_launches"] for x in rounds],
+        "devprof_device_fraction": devprof["device_fraction"],
+        "devprof_fused_device_fraction":
+            devprof["fused"]["device_fraction"],
+        "transfer_bytes": {k: v["bytes"] for k, v
+                           in devprof["transfer_detail"].items()},
+        "slo_ok": verdict["slo_ok"],
+        "incidents": incidents["total"],
+        "host_fallbacks": m["totals"]["host_fallbacks"],
+        "round0_busy_share_profiler": profile["device_busy_share"]
+        if profile else None,
+        "round0_device_fraction_devprof":
+            devprof_round0["device_fraction"] if devprof_round0 else None}
+    return {"phase": "scheduler_obs", "summary": summary,
+            "docs": cfg.n_docs, "shards": scfg.shards,
+            "flush_docs": scfg.flush_docs, "sample_rate": ocfg.sample_rate,
+            "obs_seed": obs_seed, "launches": launches,
+            "k2_launches": k2_launches, "fused_device_calls": fused_calls,
+            "per_doc_replays": replays, "resolves": batches,
+            "rounds": rounds,
+            "busy_share_vs_device_fraction": {
+                "note": "the profiler's share is the time the card was "
+                        "busy with kernels and copies over round 0's wall; "
+                        "devprof's fraction is the time the flushes spent "
+                        "waiting on the fence (the length fetch, and the "
+                        "per-doc syncs' synchronize) over their wall",
+                "profiler": profile, "devprof": devprof_round0},
+            "devprof": devprof, "trace": obs.tracer.stats(),
+            "span_names": span_names, "sampled_traces": len(sampled),
+            "journey": obs.journey.snapshot(),
+            "journey_lag_summary": obs.journey.lag_summary(),
+            "slo": verdict, "incidents": incidents,
+            "exemplars_serve_flush": len(ex),
+            "interactive_published_max_s": worst,
+            "static_deadline_s": static_s,
+            "snapshot_json_bytes": len(snap_json),
+            "prom_lines": prom.count("\n"),
+            "setup_s": setup_s, "edit_s": edit_s, "verify_s": verify_s,
+            "k1_calls_checked": len(k1_calls.args), "k1_max_abs_err": k1_err,
+            "k2_calls_checked": len(k2_calls.args),
+            "k2_max_abs_err": k2_worst, "plain_check_s": plain_check_s,
+            "totals": m["totals"], "transform": m["transform"],
+            "lock_witness": {k: wit[k] for k in ("acyclic", "edge_count",
+                                                 "violation_count",
+                                                 "acquires")}}
+
+
 def replay_batch_inputs(rng: np.random.Generator, b: int, n: int, cap: int,
                         mi: int, device) -> List[torch.Tensor]:
     """In-contract whole-trace replays for `replay_batch_kernel`: per row
@@ -3421,6 +3795,11 @@ def main(argv=None) -> int:
         qsched["seconds"] = time.perf_counter() - t
         emit(qsched)
         t = time.perf_counter()
+        osched = run_scheduler_obs(rng(18), device, cfg, SchedulerConfig(),
+                                   QosConfig(), ObsConfig())
+        osched["seconds"] = time.perf_counter() - t
+        emit(osched)
+        t = time.perf_counter()
         replay = run_replay_batch(rng(17), device)
         replay["seconds"] = time.perf_counter() - t
         emit(replay)
@@ -3436,13 +3815,15 @@ def main(argv=None) -> int:
                                   "window": sched_w["launches"],
                                   "merge_step": step["launches"],
                                   "scheduler_hydrated": hsched["launches"],
-                                  "scheduler_qos": qsched["launches"]},
+                                  "scheduler_qos": qsched["launches"],
+                                  "scheduler_obs": osched["launches"]},
              "max_abs_err": max(kvp["max_abs_err"], timing["max_abs_err"],
                                 sched["k1_max_abs_err"],
                                 sched_w["k1_max_abs_err"],
                                 step["max_abs_err"],
                                 hsched["k1_max_abs_err"],
-                                qsched["k1_max_abs_err"]),
+                                qsched["k1_max_abs_err"],
+                                osched["k1_max_abs_err"]),
              "bound_by": "bytes", "library_ms": None,
              **{k: widest[k] for k in timed if k in widest},
              "shape": {k: widest[k] for k in ("b", "cap", "n")},
@@ -3458,12 +3839,14 @@ def main(argv=None) -> int:
                                   "window": sched_w["k2_launches"],
                                   "scheduler_hydrated":
                                       hsched["k2_launches"],
-                                  "scheduler_qos": qsched["k2_launches"]},
+                                  "scheduler_qos": qsched["k2_launches"],
+                                  "scheduler_obs": osched["k2_launches"]},
              "max_abs_err": max(k2p["max_abs_err"], k2["max_abs_err"],
                                 sched["k2_max_abs_err"],
                                 sched_w["k2_max_abs_err"],
                                 hsched["k2_max_abs_err"],
-                                qsched["k2_max_abs_err"]),
+                                qsched["k2_max_abs_err"],
+                                osched["k2_max_abs_err"]),
              "bound_by": "bytes", **{k: k2[k] for k in timed},
              "shape": k2["shape"],
              "library": {"call": "torch.cumsum(nv, 1)", **k2["library"]}},

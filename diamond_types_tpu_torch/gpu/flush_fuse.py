@@ -37,6 +37,12 @@ returned length matches the host-side projection; the caller serves any
 other document from `oplog.checkout_tip()`, and `FusedDocSession.sync`
 raises `FenceMismatch` for one. That fence is the system's correctness
 semantics, not a kernel fallback: the rung catches no exception.
+
+Every host-to-device copy is counted by `obs.devprof.note_transfer` under
+the JAX package's (rung, purpose) tags: a session's upload as
+`session.stage` (its buffer and its length), each replay's op arrays as
+`pallas.plan` for the kernel rung (the JAX name of the rung K1 ports) and
+`fused.plan` for the per-doc sync.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..obs.devprof import note_transfer
 from ..text.op import INS
 from . import resolve_device
 from .kernels import apply_ops_window
@@ -122,6 +129,8 @@ class FusedDocSession:
         self.docs = torch.from_numpy(buf).to(self.device)
         self.lens = torch.tensor(len(text), dtype=torch.int32,
                                  device=self.device)
+        note_transfer(self.docs.nbytes + self.lens.nbytes,
+                      rung="session", purpose="stage")
         self.doc_len = len(text)
         self.frontier = tuple(int(x) for x in self.oplog.version)
         self.synced_to = len(self.oplog)
@@ -227,6 +236,7 @@ class FusedDocSession:
         `FenceMismatch` on a poisoned or mismatched result (the caller
         evicts the session and serves the doc from the host); any other
         exception is a fault and propagates."""
+        self.fence_s = 0.0
         plan = self.plan_tail()
         if not plan.fits(self.cap):
             self.resync_for(plan)
@@ -315,6 +325,11 @@ def adopt_results(sessions: Sequence[FusedDocSession],
     return ok
 
 
+# the JAX package's transfer tag for each replay rung (its cache names):
+# the port's kernel rung is the counterpart of `pallas_fused_replay`
+_TRANSFER_RUNG = {"kernel": "pallas"}
+
+
 def _replay(sessions: List[FusedDocSession], plans: List[TailPlan],
             cache: str) -> Tuple[List[bool], float]:
     """Pack a bucket, note its steered class warm under `cache`, launch K1
@@ -329,6 +344,8 @@ def _replay(sessions: List[FusedDocSession], plans: List[TailPlan],
         if (s.cap, s.max_ins, s.device) != (s0.cap, s0.max_ins, s0.device):
             raise ValueError("a bucket must share cap, max_ins and device")
     args = pack_bucket(sessions, plans)
+    note_transfer(sum(a.nbytes for a in args[2:]),
+                  rung=_TRANSFER_RUNG.get(cache, cache), purpose="plan")
     mi, cap = s0.max_ins, s0.cap
     bp, n = STEER.snap(cache, args[0].shape[0], args[2].shape[1], mi, cap)
     STEER.note_warm(cache, mi, cap, bp, n)

@@ -44,6 +44,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..obs.devprof import note_transfer
 from ..listmerge.columnar import (UnsupportedTail, agent_key_columns,
                                   arena_offset_columns, export_tail_columns,
                                   old_delete_intervals, visibility_cuts)
@@ -191,6 +192,9 @@ def resolve_positions(extracts: Sequence[TailExtract],
     parent, side, kp, ka, ks, ov, nv = (
         torch.from_numpy(a).to(device)
         for a in (parent, side, kp, ka, ks, ov, nv))
+    # untagged, as in the JAX package: the resolve's seven [bp, n] columns
+    note_transfer(sum(a.nbytes for a in (parent, side, kp, ka, ks, ov,
+                                          nv)))
     perm = fugue_linearize(parent, side, kp, ka, ks)
     pl = perm.long()
     pos, new_len, peak = kernels.xform_positions(nv.gather(1, pl),

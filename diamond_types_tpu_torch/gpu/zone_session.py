@@ -36,6 +36,7 @@ import torch
 
 from ..listmerge.compose import compose_entry
 from ..listmerge.zone_np import prepare_zone
+from ..obs.devprof import note_transfer
 from . import kernels, resolve_device
 from .steer import _pow2
 from .zone_kernel import (BIG32, OP_APPLY, OP_FORK, OP_MAX, ZoneTape,
@@ -137,9 +138,12 @@ class DeviceZoneSession:
         """Continue the resident carry with `tape`, in place: one launch
         for the whole tape. (The JAX session can cut it into slices,
         DT_SESSION_SLICE, for its TPU runtime's per-program time limit; the
-        card has none.)"""
-        kernels.zone_tape_run(self.carry, tape_xs(tape, self.device),
-                              tape.plen)
+        card has none.) The tape's upload is counted by
+        `note_transfer`, untagged as in the JAX package; the port's tape
+        is unpadded, so it moves fewer bytes than JAX's pow2-padded one."""
+        xs = tape_xs(tape, self.device)
+        note_transfer(sum(v.nbytes for v in xs.values()))
+        kernels.zone_tape_run(self.carry, xs, tape.plen)
 
     def _take_row(self, exclude) -> Optional[int]:
         """A free state row, evicting the least-recently-used tracked

@@ -1,18 +1,24 @@
 """Log-bucketed latency histograms with cheap quantile snapshots.
 
-The JAX package's `obs/hist.py` `Histogram`, copied. One `Histogram` is a
-fixed ladder of powers-of-two buckets starting at 1µs (bucket i covers
-(2**(i-1), 2**i] µs), so recording is one log2 and one list index.
-Quantiles are estimated by walking the cumulative counts and interpolating
-inside the winning bucket, which bounds the error to the bucket width (a
-factor of 2 worst case). `snapshot()` includes the raw cumulative buckets.
+One `Histogram` is a fixed ladder of powers-of-two buckets starting at
+1µs (bucket i covers (2**(i-1), 2**i] µs), so recording is one log2 and
+one list index — no allocation, no sorting, safe to call on every HTTP
+request, flush, and probe. Quantiles are estimated by walking the
+cumulative counts and interpolating inside the winning bucket, which
+bounds the error to the bucket width (a factor of 2 worst case — good
+enough to tell a 2ms flush from a 200ms one, which is all the serve
+and replication dashboards need).
+
+`snapshot()` includes the raw cumulative buckets so obs/prom.py can
+render a Prometheus histogram (`*_bucket{le=...}` / `_sum` / `_count`)
+straight from the JSON document without touching live objects.
 """
 
 from __future__ import annotations
 
 import math
 import threading
-from typing import List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 _FIRST_BOUND_S = 1e-6
 _N_BUCKETS = 28          # 1µs .. ~134s; slower than that is overflow
@@ -100,4 +106,36 @@ class Histogram:
             cum += self.counts[i]
             out.append([BOUNDS[i], cum])
         out.append(["+Inf", self.count])
+        return out
+
+
+class HistogramSet:
+    """A family of histograms keyed by (name, labels) — e.g. one
+    `http_request` histogram per endpoint. Label cardinality must be
+    bounded by the caller (endpoint/action names, never doc ids)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._h: Dict[Tuple[str, tuple], Histogram] = {}
+
+    def observe(self, name: str, seconds: float, **labels) -> None:
+        key = (name, tuple(sorted(labels.items())))
+        h = self._h.get(key)
+        if h is None:
+            with self._lock:
+                h = self._h.setdefault(key, Histogram())
+        h.record(seconds)
+
+    def get(self, name: str, **labels) -> Optional[Histogram]:
+        return self._h.get((name, tuple(sorted(labels.items()))))
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            items = list(self._h.items())
+        out: Dict[str, list] = {}
+        for (name, labels), h in sorted(
+                items, key=lambda kv: (kv[0][0], kv[0][1])):
+            entry = {"labels": dict(labels)}
+            entry.update(h.snapshot())
+            out.setdefault(name, []).append(entry)
         return out

@@ -12,7 +12,11 @@ stay on its own card) and K1 is launched once per device slice
 `(cap, max_ins)` class. With no jit there is no program cache:
 `mesh_flush_fn` only notes the steered class warm for steering's
 bookkeeping (cache `"mesh"`), and each slice launches at its pow2 floor, as
-the port's other replay rungs do.
+the port's other replay rungs do. `mesh_fused_replay` counts its
+host-to-device copies with `obs.devprof.note_transfer` under the JAX
+package's tags: the window's op arrays once a call as `mesh.plan`, and the
+rows staged through host numpy (`DEVICE_STAGE` off) as `mesh.stage`. Both
+count the floor's bytes.
 
 Graph half. `sharded_replay` replays `[b, n]` op tapes from empty documents
 with one K1 launch per device slice of the padded rows;
@@ -39,6 +43,7 @@ from ..gpu import flush_fuse as _ff
 from ..gpu import graph_kernels as _gk
 from ..gpu import resolve_device
 from ..gpu.steer import STEER, _pow2
+from ..obs.devprof import note_transfer
 from . import arena as _arena
 
 
@@ -205,17 +210,24 @@ def mesh_fused_replay(mesh: Sequence[torch.device], sessions, plans
         arrs = _ff.pack_plans([plans[i] for i in idx], n, mi, bpd)
         staged += sum(a.nbytes for a in arrs)
         ops.append([torch.from_numpy(a).to(dev) for a in arrs])
+    note_transfer(staged, rung="mesh", purpose="plan")
     reuse = _arena.acquire(mesh, cap, mi, sessions, bp) \
         if _arena.DEVICE_STAGE.enabled else None
     if reuse is not None:
         docs_l, lens_l = reuse
     else:
         docs_l, lens_l = [], []
+        row_bytes = 0
         for (dev, idx), bpd in zip(slices, sizes):
             docs, lens, nbytes = _stage_rows(sessions, idx, bpd, cap, dev)
             docs_l.append(docs)
             lens_l.append(lens)
-            staged += nbytes
+            row_bytes += nbytes
+        if row_bytes:
+            # host staging (DEVICE_STAGE off): every resident row
+            # round-trips through numpy
+            note_transfer(row_bytes, rung="mesh", purpose="stage")
+        staged += row_bytes
     outs = run([(d, ln, *o) for d, ln, o in zip(docs_l, lens_l, ops)])
     # the length fetch is the completion fence
     t_fence = time.perf_counter()

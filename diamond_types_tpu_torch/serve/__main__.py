@@ -1,10 +1,11 @@
 """Serve bench: replay a workload through the merge scheduler and print the
 report as JSON (`run_serve_bench`). Exits 1 when any document's text
-differs from the host merge.
+differs from the host merge, or when an SLO objective is burning.
 
     python -m diamond_types_tpu_torch.serve [--mode trace|concurrent|flash]
         [--shards 4] [--docs 8] [--device-plan] [--mesh-window]
-        [--no-device-stage] [--no-fused] [--device cpu] ...
+        [--no-device-stage] [--no-fused] [--device cpu]
+        [--no-telemetry] [--no-journey] ...
 
 Sessions live on CUDA unless `--device cpu` asks for the CPU.
 """
@@ -65,6 +66,15 @@ def main(argv=None) -> int:
     ap.add_argument("--steady-rounds", type=int, default=0,
                     help="lockstep rounds against resident sessions after "
                     "the continuous feed")
+    ap.add_argument("--telemetry", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="live windowed telemetry + SLO burn-rate engine "
+                    "(--no-telemetry = the overhead-A/B control arm; the "
+                    "SLO verdict then trivially passes)")
+    ap.add_argument("--journey", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="edit-to-visibility journey stamps (obs/journey.py;"
+                    " --no-journey = the overhead-A/B control arm)")
     args = ap.parse_args(argv)
     report = run_serve_bench(
         shards=args.shards, docs=args.docs, txns=args.txns,
@@ -74,9 +84,11 @@ def main(argv=None) -> int:
         seed=args.seed, device=args.device, flush_workers=args.workers,
         warmup=args.warmup, steady_rounds=args.steady_rounds,
         device_plan=args.device_plan, mesh_window=args.mesh_window,
-        device_stage=args.device_stage, fused=args.fused)
+        device_stage=args.device_stage, fused=args.fused,
+        telemetry=args.telemetry, journey=args.journey)
     print(json.dumps(report))
-    return 0 if report["parity_ok"] else 1
+    # a parity pass that burned its latency budget still fails the bench
+    return 0 if report["parity_ok"] and report["slo_ok"] else 1
 
 
 if __name__ == "__main__":

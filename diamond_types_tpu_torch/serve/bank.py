@@ -63,8 +63,16 @@ outside it) and `_plan_fused` (grouping by (cap, max_ins), under it again).
 tail (sync counts, fence failures to the host, the per-doc rung).
 `sync_docs` is `plan_window`, one replay per group, `adopt_window`.
 
-Left out of the port so far: the obs layer's flight recorder, journey
-stamps and device profiler.
+Observability (`MergeScheduler.attach_obs`): the flight recorder takes
+every eviction (`session_evicted`, with its pending ops and whether the
+snapshot path took them) and every fence failure (`host_fallback`); the
+journey stamps each sampled item `planned`, `device_replayed` and
+`adopted`; the process-wide `obs.devprof.PROFILER` takes each fused group
+(`observe_fused`: wall and the length fetch's wait) and each per-doc sync
+(`observe_flush`). While the profiler is enabled, a per-doc sync on a CUDA
+session is followed by a `torch.cuda.synchronize`, timed as its device
+wait (the JAX bank's `block_until_ready`); with the profiler off no sync
+point is added.
 """
 
 from __future__ import annotations
@@ -82,6 +90,7 @@ from ..gpu import flush_fuse, kernels, resolve_device, xform
 from ..gpu.steer import STEER, WARMUP_SHAPE_CLASSES, _pow2, cap_class, \
     warmup_batches
 from ..gpu.zone_session import DeviceZoneSession
+from ..obs.devprof import PROFILER
 from ..parallel.mesh import pad_batch_count
 from .metrics import ServeMetrics
 
@@ -177,6 +186,12 @@ class SessionBank:
         self.mesh_devices = max(int(mesh_devices), 1)
         self.sessions: "OrderedDict[str, object]" = OrderedDict()
         self._resyncs_seen: Dict[str, int] = {}
+        # obs.recorder.FlightRecorder (MergeScheduler.attach_obs);
+        # evictions and fallbacks are rare enough to record each one
+        self.recorder = None
+        # obs.journey.OpJourney (same attach path): planned /
+        # device_replayed / adopted stamps for sampled-trace items
+        self.journey = None
         # residency tier (MergeScheduler.attach_hydrator): called as
         # snapshot_hook(doc_id, pending_ops) at every eviction site so
         # the doc's state is persisted, not dropped. Enqueue-only by
@@ -261,13 +276,22 @@ class SessionBank:
 
     def _drop(self, doc_id: str, sess, why: str) -> None:
         """Shared eviction tail: forget the doc's resync baseline, count
-        the eviction and, with a residency tier attached, route the doc
-        to its snapshot (`why` names the site: capacity, explicit or
-        stale-oplog). The hook only enqueues; what it raises propagates."""
+        the eviction, with a residency tier attached route the doc to its
+        snapshot (`why` names the site: capacity, explicit or
+        stale-oplog), and record the flight-recorder event with the
+        pending-op count. The hook only enqueues; what it raises
+        propagates."""
         self._resyncs_seen.pop(doc_id, None)
         self._bump("evictions")
+        pending = self._pending_ops(sess)
+        snapshotted = False
         if self.snapshot_hook is not None:
-            self.snapshot_hook(doc_id, self._pending_ops(sess))
+            snapshotted = bool(self.snapshot_hook(doc_id, pending))
+        if self.recorder is not None:
+            self.recorder.record("session_evicted",
+                                 shard=self.shard_id, doc=doc_id,
+                                 why=why, pending_ops=pending,
+                                 snapshotted=snapshotted)
 
     def _evict_until_fits(self, keep: Optional[str] = None) -> None:
         def over() -> bool:
@@ -343,8 +367,21 @@ class SessionBank:
         except flush_fuse.FenceMismatch as e:
             self.evict(doc_id)
             self._bump("host_fallbacks")
+            if self.recorder is not None:
+                self.recorder.record(
+                    "host_fallback", shard=self.shard_id, doc=doc_id,
+                    error=f"{e.__class__.__name__}: {e}"[:120])
             return {"engine": "host", "steps": _HostDoc(oplog).sync(),
                     "error": f"{e.__class__.__name__}: {e}"[:200]}
+        # wall vs device attribution: the session's own fence wait, plus
+        # (profiler on, CUDA) the wait for work the sync left queued. The
+        # extra sync point is only paid while profiling.
+        device_s = sess.fence_s
+        if PROFILER.enabled and self.engine == "device" \
+                and self.device.type == "cuda":
+            td = time.perf_counter()
+            torch.cuda.synchronize(self.device)
+            device_s += time.perf_counter() - td
         seen = self._resyncs_seen.get(doc_id)
         if seen is not None and sess.resyncs > seen:
             self._bump("resyncs", sess.resyncs - seen)
@@ -353,7 +390,9 @@ class SessionBank:
             self.metrics.observe_footprint(self.shard_id,
                                            self.footprint_slots())
             self.metrics.observe_device_time(
-                self.shard_id, time.perf_counter() - t0, sess.fence_s)
+                self.shard_id, time.perf_counter() - t0, device_s)
+        PROFILER.observe_flush(self.shard_id, time.perf_counter() - t0,
+                               device_s)
         return {"engine": self.engine, "steps": int(steps)}
 
     def plan_window(self, items, resolve, oplog_lock=None,
@@ -371,6 +410,20 @@ class SessionBank:
         resolve_windows([win])
         self._plan_fused(win, oplog_lock, min_fuse=min_fuse)
         return win
+
+    def _journey_stamp(self, items, stage: str, docs=None) -> None:
+        """Journey stamps for sampled-trace items; `docs` narrows to a
+        doc-id subset. No-op until attach_obs wires `self.journey`."""
+        j = self.journey
+        if j is None or not j.enabled:
+            return
+        for it in items:
+            tr = it.trace
+            if tr is None or not tr.sampled:
+                continue
+            if docs is not None and it.doc_id not in docs:
+                continue
+            j.stamp(tr.trace_id, stage)
 
     def extract_window(self, items, resolve, oplog_lock=None) -> dict:
         """First step of planning: `resolve(doc_id) -> OpLog` for every
@@ -403,7 +456,8 @@ class SessionBank:
         overflowing tail, a session LRU-evicted mid-batch, fewer than
         `min_fuse` fusable documents) lands in `win["serial"]`. The
         per-shard path keeps `min_fuse=2` (a lone document amortizes
-        nothing); the flush window passes 1, since its launch is shared."""
+        nothing); the flush window passes 1, since its launch is shared.
+        Every item of the window is then stamped `planned`."""
         olock = oplog_lock if oplog_lock is not None \
             else contextlib.nullcontext()
         serial = win["serial"]
@@ -429,15 +483,17 @@ class SessionBank:
                     fusable.append((sess, plan, it))
         if len(fusable) < min_fuse:
             serial.extend(it for _s, _p, it in fusable)
-            return
-        by_shape: Dict[tuple, list] = {}
-        for row in fusable:
-            by_shape.setdefault((row[0].cap, row[0].max_ins), []).append(row)
-        win["groups"] = [(
-            [s for s, _p, _it in grp],
-            [p for _s, p, _it in grp],
-            [it.doc_id for _s, _p, it in grp],
-        ) for grp in by_shape.values()]
+        else:
+            by_shape: Dict[tuple, list] = {}
+            for row in fusable:
+                by_shape.setdefault((row[0].cap, row[0].max_ins),
+                                    []).append(row)
+            win["groups"] = [(
+                [s for s, _p, _it in grp],
+                [p for _s, p, _it in grp],
+                [it.doc_id for _s, _p, it in grp],
+            ) for grp in by_shape.values()]
+        self._journey_stamp(win["items"], "planned")
 
     def adopt_window(self, win: dict, failed: List[str], oplog_lock=None,
                      device_lock=None) -> dict:
@@ -446,7 +502,8 @@ class SessionBank:
         fused row (their commits happened at the fence), evict `failed`
         documents (poisoned or length-drift rows, whose device state is
         untrusted) to the host, and run the per-doc rung for the serial
-        items. One code path for both flush forms."""
+        items. One code path for both flush forms. Every item is then
+        stamped `adopted`."""
         dlock = device_lock if device_lock is not None \
             else contextlib.nullcontext()
         olock = oplog_lock if oplog_lock is not None \
@@ -458,6 +515,10 @@ class SessionBank:
                 # serve the doc from the host oracle until its rebuild
                 self.evict(d)
                 self._bump("host_fallbacks")
+                if self.recorder is not None:
+                    self.recorder.record(
+                        "host_fallback", shard=self.shard_id, doc=d,
+                        error="fused_poisoned_or_len_mismatch")
             for it in win["serial"]:
                 with dlock:
                     # the per-doc rung interleaves oplog reads with its
@@ -467,6 +528,9 @@ class SessionBank:
             if self.metrics is not None:
                 self.metrics.observe_footprint(self.shard_id,
                                                self.footprint_slots())
+        # every surviving item is merged once adoption ends: fused rows
+        # committed at the fence, serial and failed rows just now
+        self._journey_stamp(win["items"], "adopted")
         return {"docs": len(win["items"]),
                 "fused_calls": 0,
                 "fused_docs": 0,
@@ -493,11 +557,18 @@ class SessionBank:
             with dlock:
                 ok, device_s = flush_fuse.kernel_fused_replay(sessions,
                                                               plans)
+            wall = time.perf_counter() - t0
             if self.metrics is not None:
                 self.metrics.record_fused(self.shard_id, len(sessions))
-                self.metrics.observe_device_time(
-                    self.shard_id, time.perf_counter() - t0, device_s)
+                self.metrics.observe_device_time(self.shard_id, wall,
+                                                 device_s)
+            PROFILER.observe_fused(self.shard_id, wall, device_s,
+                                   len(sessions))
             failed.extend(d for good, d in zip(ok, doc_ids) if not good)
+        if win["groups"]:
+            fused = {d for _s, _p, ds in win["groups"] for d in ds}
+            self._journey_stamp(items, "device_replayed",
+                                docs=fused.difference(failed))
         out = self.adopt_window(win, failed, oplog_lock=oplog_lock,
                                 device_lock=device_lock)
         out["fused_calls"] = len(win["groups"])

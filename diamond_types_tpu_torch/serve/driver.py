@@ -21,8 +21,19 @@ rows (`FusedDocSession.text()`, or `DeviceZoneSession.text()` with
 (`Branch.merge_reference`, which no engine switch or policy reaches) — two
 independent engines, compared byte for byte per document.
 
-Left out of the report until the obs layer is ported (ROADMAP item 12):
-`slo`, `jit_hit_rate`, `scorecard`, `obs` and `devprof`.
+Observability: the bench runs with the production defaults (1% trace
+sampling, live telemetry and the journey on), so its throughput numbers are
+the instrumented numbers. It enables and resets the process-wide device
+profiler (`obs.devprof.PROFILER`), attaches an `obs.Observability` bundle
+to the scheduler, and reports the SLO verdict (`slo`, `slo_ok`), the
+profiler's snapshot (`devprof`: flush wall vs. device-wait seconds, the
+host-to-device transfers by rung and purpose), the tracer's and journey's
+state (`obs`) and a banded `scorecard`; a parity failure also carries the
+flight recorder's tail (`events_tail`). `jit_hit_rate`,
+`steady_jit_hit_rate` and `steady_jit_lookups` keep the JAX report's keys,
+but the port has no jit cache: nothing notes a lookup, `devprof`'s
+`jit_cache` stays empty, the rates are None and the lookups 0.
+`telemetry=False` / `journey=False` are the overhead control arms.
 """
 
 from __future__ import annotations
@@ -33,6 +44,9 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 from ..gpu.steer import STEER
+from ..obs import Observability
+from ..obs.devprof import PROFILER
+from ..obs.scorecard import build_scorecard
 from ..parallel.arena import DEVICE_STAGE, reset_arenas
 from ..text.branch import Branch
 from ..text.oplog import OpLog
@@ -161,7 +175,10 @@ def run_serve_bench(shards: int = 4, docs: int = 8,
                     device_plan: bool = False,
                     mesh_window: bool = False,
                     device_stage: bool = True,
-                    fused: bool = True) -> dict:
+                    fused: bool = True,
+                    obs_sample_rate: float = 0.01,
+                    telemetry: bool = True,
+                    journey: bool = True) -> dict:
     """Replay the workload through a fresh scheduler; returns a JSON-able
     report with throughput, the metrics snapshot, the steering counters
     and the parity gate. `device` is where the sessions live: None means
@@ -179,7 +196,10 @@ def run_serve_bench(shards: int = 4, docs: int = 8,
     against resident sessions after the continuous feed (the fused
     occupancy measurement). `fused=False` keeps zone sessions
     (`DeviceZoneSession`) and syncs each document on its own; the window
-    and device planning are fused-only."""
+    and device planning are fused-only. `obs_sample_rate` head-samples
+    trace roots; `telemetry=False` turns off the live time series (the SLO
+    verdict then trivially passes) and `journey=False` the journey stamps
+    (module docstring: the report's obs keys)."""
     doc_ids = [f"doc{i:03d}" for i in range(docs)]
     ols: Dict[str, OpLog] = {}
     for d in doc_ids:
@@ -209,8 +229,10 @@ def run_serve_bench(shards: int = 4, docs: int = 8,
     else:
         raise ValueError(f"unknown mode {mode!r}")
 
-    # the steering table, the staging switch and the window arenas are
-    # process-global: fresh state per bench run
+    # the profiler, the steering table, the staging switch and the window
+    # arenas are process-global: fresh state per bench run
+    PROFILER.reset()
+    PROFILER.enabled = True
     STEER.reset(table=True)
     reset_arenas()
     # with flush workers on, worker threads READ oplogs (tail planning)
@@ -228,6 +250,9 @@ def run_serve_bench(shards: int = 4, docs: int = 8,
         session_opts=None if device is None else {"device": device},
         flush_workers=flush_workers, warmup=warmup,
         device_plan=device_plan, mesh_window=mesh_window)
+    obs = Observability(sample_rate=obs_sample_rate, seed=seed,
+                        telemetry=telemetry, journey=journey)
+    sched.attach_obs(obs)
     stage_was = DEVICE_STAGE.enabled
     DEVICE_STAGE.enabled = device_stage
     try:
@@ -236,9 +261,11 @@ def run_serve_bench(shards: int = 4, docs: int = 8,
             sched.banks[0].join_warmup()
         report = _feed(sched, ols, doc_ids, feeders, oplog_lock, mode,
                        seed, steady_rounds)
+        report.update(_obs_report(obs, report, mode, seed, device_stage))
     finally:
         sched.stop_workers()
         DEVICE_STAGE.enabled = stage_was
+        PROFILER.enabled = False
     return {"config": {
         "shards": shards, "docs": docs, "engine": engine, "mode": mode,
         "corpus": corpus, "rounds": n_rounds, "flush_docs": flush_docs,
@@ -250,7 +277,8 @@ def run_serve_bench(shards: int = 4, docs: int = 8,
         "warmup": warmup, "steady_rounds": steady_rounds,
         "device_plan": sched.device_plan,
         "mesh_window": sched.mesh_window,
-        "device_stage": device_stage}, **report}
+        "device_stage": device_stage,
+        "telemetry": telemetry, "journey": journey}, **report}
 
 
 def _feed(sched, ols, doc_ids, feeders, oplog_lock, mode: str, seed: int,
@@ -344,3 +372,53 @@ def _feed(sched, ols, doc_ids, feeders, oplog_lock, mode: str, seed: int,
         "transform": m["transform"],
         "metrics": m,
     }
+
+
+def _obs_report(obs, report: dict, mode: str, seed: int,
+                device_stage: bool) -> dict:
+    """The report's observability keys, after the parity check: the SLO
+    verdict over the run's telemetry (a bench that passes parity but
+    burned its latency budget fails), the profiler's snapshot, the
+    tracer's and journey's state and a banded scorecard."""
+    m = report["metrics"]
+    mismatches = report["parity_mismatches"]
+    obs.slo.evaluate()
+    slo_verdict = obs.slo.verdict()
+    out = {
+        "slo": slo_verdict,
+        "slo_ok": slo_verdict["slo_ok"],
+        # no jit cache in the port: nothing notes a lookup (module
+        # docstring), so the JAX report's hit rates have no value here
+        "jit_hit_rate": None,
+        "steady_jit_hit_rate": None,
+        "steady_jit_lookups": 0,
+        "devprof": PROFILER.snapshot(),
+        "obs": {"trace": obs.tracer.stats(),
+                "ts_recorded": obs.ts.recorded,
+                "journey": obs.journey.snapshot()},
+    }
+    # a banded scorecard so serve-bench A/B arms gate through the same
+    # engine as the JAX package's scenario runs (`diff_scorecards`)
+    out["scorecard"] = build_scorecard(
+        scenario={"name": f"serve-bench-{mode}", "seed": seed,
+                  "steer": STEER.enabled, "device_stage": device_stage},
+        wall_s=report["wall_s"], virtual_s=0.0,
+        totals={"ops": report["total_ops"], "writes": report["total_ops"],
+                "reads": 0, "errors": len(mismatches)},
+        latency_p99_s={"flush": m["latencies"]["flush"]["p99"]},
+        slo={"slo_ok": slo_verdict["slo_ok"],
+             "burning": slo_verdict["burning"],
+             "warning": slo_verdict["warning"]},
+        ok=bool(not mismatches and slo_verdict["slo_ok"]),
+        serve={
+            "jit_cache_hit_rate": None,
+            "staged_bytes_per_window": report["staged_bytes_per_window"],
+            "device_calls_per_window": report["device_calls_per_window"],
+            "steer_compiles": report["steer"]["compiles"],
+        },
+    )
+    if mismatches:
+        # a parity failure report should be diagnosable standalone:
+        # attach the flight recorder's tail (evictions, fallbacks, fencing)
+        out["events_tail"] = obs.recorder.tail(50)
+    return out

@@ -3,10 +3,15 @@
 The JAX package's `serve/metrics.py` `ServeMetrics`, copied for the
 layers the port has: plain host-side counters, so recording a sample never
 touches the device. The residency tier's `hydration` block (the JAX
-package's `HYDRATION_KEYS`, copied) and its cold-start histogram are in.
-Left out until their layers are ported: the follower-read `read` block,
-the Pallas-rung fallback counter, and the obs layer's flight recorder and
-time-series double-writes.
+package's `HYDRATION_KEYS`, copied) and its cold-start histogram are in,
+and so is the obs layer's wiring (`MergeScheduler.attach_obs`): the flight
+recorder (`recorder`, a `queue_bound_violation` event) and the live
+time-series double-writes (`ts`: `serve.<counter>`, `serve.flush`,
+`serve.flushed_ops`, `serve.queue_wait`, `serve.xform_device_docs`,
+`serve.hydration.<event>`, `serve.hydration_cold_start`), which the QoS
+controller and the SLO engine read. Left out until their layers are
+ported: the follower-read `read` block and the Pallas-rung fallback
+counter, so the snapshot's keys are those of schema 3.
 
 Schema (snapshot()):
 
@@ -143,12 +148,21 @@ class ServeMetrics:
         self.queue_wait_latency = Histogram()
         self.flush_wall_s: List[float] = [0.0] * n_shards
         self.device_sync_s: List[float] = [0.0] * n_shards
+        # obs.recorder.FlightRecorder, wired by
+        # MergeScheduler.attach_obs; only rare events touch it
+        self.recorder = None
+        # live-telemetry tier (obs/timeseries.py TimeSeries), wired by
+        # MergeScheduler.attach_obs; None (or disabled) => every
+        # double-write below is a single branch, no allocation
+        self.ts = None
 
     # ---- recording -------------------------------------------------------
 
     def bump(self, shard: int, key: str, n: int = 1) -> None:
         with self._lock:
             self.shard[shard][key] += n
+        if self.ts is not None:
+            self.ts.inc(f"serve.{key}", n)
 
     def record_flush(self, shard: int, n_docs: int, n_ops: int,
                      reason: str, dur_s: float = 0.0) -> None:
@@ -163,6 +177,9 @@ class ServeMetrics:
                 self.flush_size_hist.get(n_docs, 0) + 1
         # histogram carries its own lock; record outside ours
         self.flush_latency.record(dur_s)
+        if self.ts is not None:
+            self.ts.observe("serve.flush", dur_s)
+            self.ts.inc("serve.flushed_ops", n_ops)
 
     def record_fused(self, shard: int, n_docs: int) -> None:
         """One fused bucket replay: `n_docs` documents folded into a
@@ -208,6 +225,8 @@ class ServeMetrics:
             self.xform_host_docs += host_docs
             self.xform_fallbacks += fallbacks
             self.xform_batches += batches
+        if self.ts is not None and device_docs:
+            self.ts.inc("serve.xform_device_docs", device_docs)
 
     def observe_device_time(self, shard: int, wall_s: float,
                             device_s: float) -> None:
@@ -222,10 +241,15 @@ class ServeMetrics:
             self.queue_depth[shard] = depth
             if depth > self.max_depth_seen:
                 self.max_depth_seen = depth
-            if depth > self.max_pending:
+            violated = depth > self.max_pending
+            if violated:
                 # must stay 0: the bounded-queue contract (admission
                 # raises Backpressure before this point)
                 self.queue_bound_violations += 1
+        if violated and self.recorder is not None:
+            self.recorder.record("queue_bound_violation", shard=shard,
+                                 depth=depth,
+                                 max_pending=self.max_pending)
 
     def observe_footprint(self, shard: int, slots: int) -> None:
         with self._lock:
@@ -236,16 +260,22 @@ class ServeMetrics:
         keys are created rather than dropped."""
         with self._lock:
             self.hydration[event] = self.hydration.get(event, 0) + n
+        if self.ts is not None:
+            self.ts.inc(f"serve.hydration.{event}", n)
 
     def observe_cold_start(self, dur_s: float) -> None:
         """Cold-start latency: prefetch enqueue (or resolve miss) to
         warm install. The histogram has its own lock."""
         self.cold_start_latency.record(dur_s)
+        if self.ts is not None:
+            self.ts.observe("serve.hydration_cold_start", dur_s)
 
     def observe_queue_wait(self, dur_s: float) -> None:
         """Admit (or coalesce origin) -> flush-start wait for one queued
         merge."""
         self.queue_wait_latency.record(dur_s)
+        if self.ts is not None:
+            self.ts.observe("serve.queue_wait", dur_s)
 
     # ---- export ----------------------------------------------------------
 

@@ -58,12 +58,25 @@ Adaptive admission (`attach_qos`, a `qos.QosController`): the queue's
 deadline trigger reads the controller's published per-(shard, class)
 deadlines, `submit` counts each admit in its class (the controller's
 arrival rates), and `start_pump`/`stop_pump` start and stop the
-controller's thread. The controller takes its telemetry from
+controller's thread. The controller takes its telemetry from the
+observability bundle (`attach_obs`, in either order), or from
 `QosController.attach_obs(holder)`, any object with a `ts` time series.
 
-Left out of the port so far (ROADMAP item 12): the obs layer's spans,
-exemplars and attribution (`attach_obs`, which would also hand the
-controller its telemetry) and follower-read invalidation.
+Observability (`attach_obs`, an `obs.Observability` bundle): sampled
+spans on the admit → flush → device-sync path (`serve.admit`,
+`serve.ownership_gate`, `serve.flush`, `serve.device_sync`; in the window
+`serve.mesh_window` and one `serve.mesh_dispatch` per class), the
+journey's `queued` stamp at submit (the bank stamps the rest), a flush
+exemplar when the flush rode a sampled trace, per-doc ops and device-time
+attribution, the metrics' time-series double writes (`serve.flush` among
+them, which the QoS controller and the SLO engine read) and the flight
+recorder's rare events (fenced work, docs the hydration gate dropped,
+evictions, fence failures). The window reports each class's replay to
+`obs.devprof.PROFILER.observe_window`. With no bundle attached every
+touchpoint is one attribute check.
+
+Left out of the port so far (ROADMAP item 12): follower-read
+invalidation.
 """
 
 from __future__ import annotations
@@ -77,6 +90,8 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from ..analysis.witness import make_lock
+from ..obs.devprof import PROFILER
+from ..obs.trace import NOOP_SPAN
 from ..parallel.mesh import (mesh_fused_replay, serve_mesh,
                              serve_shard_devices)
 from ..qos.classes import QOS_PRIORITY
@@ -170,6 +185,9 @@ class MergeScheduler:
         # `epoch_of(doc_id) -> int` — the ACTIVE lease epoch this host
         # holds; None = unfenced
         self.epoch_of: Optional[Callable[[str], int]] = None
+        # obs.Observability bundle (attach_obs); None = zero overhead:
+        # every obs touchpoint below is guarded by this one attribute
+        self.obs = None
         # serve.hydrate.Hydrator (attach_hydrator); None = every document
         # stays resident: no prefetch, no flush gate
         self.hydrator = None
@@ -198,6 +216,28 @@ class MergeScheduler:
         self._idle_cv = threading.Condition()
         self._error: Optional[Exception] = None
 
+    def attach_obs(self, obs) -> None:
+        """Wire an obs.Observability bundle into the admit→flush path:
+        spans on submit/flush/device-sync, flush latencies into the
+        metrics' time series, rare events (evictions, fence failures,
+        queue-bound violations, fenced flushes) into the flight recorder,
+        journey stamps through the banks, and the bundle to an attached
+        QoS controller as its telemetry."""
+        self.obs = obs
+        self.metrics.recorder = obs.recorder
+        # live-telemetry tier: counters/latencies double-write into the
+        # windowed TimeSeries (rate()/quantile() "now" queries + SLO
+        # burn rates); per-doc usage feeds the top-K sketch
+        self.metrics.ts = getattr(obs, "ts", None)
+        if self.qos is not None:
+            self.qos.attach_obs(obs)
+        for bank in self.banks:
+            bank.recorder = obs.recorder
+            bank.journey = getattr(obs, "journey", None)
+        if self.hydrator is not None:
+            self.hydrator.recorder = obs.recorder
+            self.hydrator.attrib = getattr(obs, "attrib", None)
+
     def attach_hydrator(self, hydrator) -> None:
         """Wire the residency tier in: `submit` prefetches on a doc's
         first admit (budgeted by the bucket flush deadline), the flush
@@ -212,6 +252,9 @@ class MergeScheduler:
         if hydrator.oplog_lock is None and not isinstance(
                 self._sync_lock, contextlib.nullcontext):
             hydrator.oplog_lock = self._sync_lock
+        if self.obs is not None:
+            hydrator.recorder = self.obs.recorder
+            hydrator.attrib = getattr(self.obs, "attrib", None)
         for bank in self.banks:
             bank.snapshot_hook = hydrator.request_snapshot
 
@@ -225,34 +268,52 @@ class MergeScheduler:
         reads queue fill each step."""
         controller.bind(self.queue, queue_lock=self.lock,
                         n_shards=self.queue.n_shards)
+        if self.obs is not None:
+            controller.attach_obs(self.obs)
         self.qos = controller
         self.queue.qos = controller
 
     # ---- intake ----------------------------------------------------------
 
     def submit(self, doc_id: str, n_ops: int = 1,
-               now: Optional[float] = None,
+               now: Optional[float] = None, trace=None,
                qos: Optional[str] = None) -> dict:
         """Queue pending merge work. Returns {"accepted": True, "shard",
         "bucket"}, {"accepted": False, "retry_after"} on backpressure, or
         {"accepted": False, "reason": "not_owner"} when the ownership gate
         denies, or "quarantined" when the residency tier holds the doc in
         quarantine (never raises — rejects and denials are normal
-        operation).
+        operation). `trace` is an optional obs SpanContext (the
+        originating edit); when its trace is sampled the admit, the
+        ownership gate, and later the flush and device sync all join it.
         `qos` is the ingress-classified class (default interactive);
         unknown classes normalize to interactive."""
         now = time.monotonic() if now is None else now
         qos_cls = qos if qos in QOS_PRIORITY else "interactive"
-        if self.admit is not None and not self.admit(doc_id):
-            # shard_of (not assign): a denied doc must not register a
-            # live assignment this host will never flush
-            shard = self.router.shard_of(doc_id)
-            self.metrics.bump(shard, "denied")
-            return {"accepted": False, "shard": shard,
-                    "reason": "not_owner"}
+        obs = self.obs
+        span = NOOP_SPAN
+        if obs is not None:
+            span = obs.tracer.start("serve.admit", parent=trace,
+                                    attrs={"doc": doc_id,
+                                           "n_ops": n_ops})
+        if self.admit is not None:
+            gate = NOOP_SPAN if not span.sampled else obs.tracer.start(
+                "serve.ownership_gate", parent=span.context(),
+                attrs={"doc": doc_id})
+            admitted = self.admit(doc_id)
+            gate.end(admitted=admitted)
+            if not admitted:
+                # shard_of (not assign): a denied doc must not register
+                # a live assignment this host will never flush
+                shard = self.router.shard_of(doc_id)
+                self.metrics.bump(shard, "denied")
+                span.end(outcome="denied")
+                return {"accepted": False, "shard": shard,
+                        "reason": "not_owner"}
         hyd = self.hydrator
         if hyd is not None:
             if hyd.store.is_quarantined(doc_id) is not None:
+                span.end(outcome="quarantined")
                 return {"accepted": False,
                         "shard": self.router.shard_of(doc_id),
                         "reason": "quarantined"}
@@ -270,9 +331,12 @@ class MergeScheduler:
             already = self.queue.pending_bucket(shard, doc_id) is not None
             try:
                 bucket = self.queue.submit(shard, doc_id, n_ops, now,
-                                           epoch=epoch, qos=qos_cls)
+                                           epoch=epoch,
+                                           trace=span.context(),
+                                           qos=qos_cls)
             except Backpressure as bp:
                 self.metrics.bump(shard, "rejects")
+                span.end(outcome="backpressure")
                 return {"accepted": False, "shard": shard,
                         "retry_after": bp.retry_after, "qos": qos_cls}
             if already:
@@ -282,6 +346,14 @@ class MergeScheduler:
             # per-class admitted counter: also the controller's
             # arrival-rate input (the qos.admitted.<cls> series)
             self.qos.metrics.bump_class(qos_cls, "admitted")
+        span.end(outcome="queued", shard=shard, bucket=bucket)
+        if obs is not None and span.sampled:
+            # journey: open at the scheduler when the edit's ingress did
+            # not — begin() is first-wins, so an ingress-admitted journey
+            # keeps its (agent, seq)
+            j = obs.journey
+            j.begin(None, None, doc=doc_id, trace=span.trace_id)
+            j.stamp(span.trace_id, "queued")
         return {"accepted": True, "shard": shard, "bucket": bucket}
 
     # ---- flush -----------------------------------------------------------
@@ -403,6 +475,11 @@ class MergeScheduler:
             if item.epoch != -1 \
                     and self.epoch_of(item.doc_id) != item.epoch:
                 self.metrics.bump(shard, "fenced")
+                if self.obs is not None:
+                    self.obs.recorder.record("flush_fenced",
+                                             doc=item.doc_id,
+                                             shard=shard,
+                                             admit_epoch=item.epoch)
             else:
                 kept.append(item)
         return kept
@@ -427,7 +504,7 @@ class MergeScheduler:
         hyd = self.hydrator
         if hyd is None:
             return items
-        keep, defer, _dropped = hyd.flush_gate(shard, items)
+        keep, defer, dropped = hyd.flush_gate(shard, items)
         if defer:
             now = time.monotonic()
             with self.lock:
@@ -435,35 +512,70 @@ class MergeScheduler:
                 for it in defer:
                     try:
                         self.queue.submit(shard, it.doc_id, it.n_ops, now,
-                                          epoch=it.epoch)
+                                          epoch=it.epoch, trace=it.trace)
                     except Backpressure:
                         # the queue refilled meanwhile; the doc's ops are
                         # durable, so its merge work drops like a fenced
                         # item's
                         hyd._bump("deferred_drops")
+        if dropped and self.obs is not None:
+            self.obs.recorder.record(
+                "flush_gate_dropped", shard=shard, docs=len(dropped))
         return keep
 
     def _flush_items(self, shard: int, reason: str, items) -> None:
         """Sync one taken batch into its shard's bank, under that shard's
         lock only (items are already off the queue, so a concurrent
         submit for the same doc simply queues fresh work). The lease
-        recheck runs first, the hydration gate second."""
+        recheck runs first, the hydration gate second. A flush whose
+        items carry a sampled trace opens `serve.flush` under the first
+        such trace, with one `serve.device_sync` child around the bank's
+        sync (the whole bucket is at best one K1 launch)."""
+        obs = self.obs
         items = self._fence(shard, items)
         items = self._hydration_gate(shard, items)
         if not items:
             return
+        fspan = NOOP_SPAN
+        if obs is not None:
+            parent = next(
+                (i.trace for i in items if i.trace is not None), None)
+            if parent is not None:
+                fspan = obs.tracer.start(
+                    "serve.flush", parent=parent,
+                    attrs={"shard": shard, "reason": reason,
+                           "docs": len(items)})
         t0 = time.perf_counter()
         with self._shard_locks[shard]:
-            self.banks[shard].sync_docs(
+            dspan = NOOP_SPAN if not fspan.sampled else \
+                obs.tracer.start("serve.device_sync",
+                                 parent=fspan.context(),
+                                 attrs={"docs": len(items)})
+            res = self.banks[shard].sync_docs(
                 items, self._flush_resolve, oplog_lock=self._sync_lock,
                 device_lock=self._device_locks[shard])
+            dspan.end(fused_calls=res["fused_calls"],
+                      fused_docs=res["fused_docs"])
+        dur = time.perf_counter() - t0
+        fspan.end(dur_s=round(dur, 6))
         self.metrics.record_flush(
             shard, len(items), sum(i.n_ops for i in items), reason,
-            dur_s=time.perf_counter() - t0)
+            dur_s=dur)
+        # live telemetry: admit->flush queue wait per merged item, a
+        # flush-latency exemplar when this flush rode a sampled trace,
+        # and per-doc ops/device-time attribution
         now_m = time.monotonic()
         for it in items:
             self.metrics.observe_queue_wait(
                 max(0.0, now_m - it.enqueued_at))
+        if obs is not None:
+            if fspan.sampled:
+                obs.exemplars.note("serve.flush", dur,
+                                   fspan.context().trace_id)
+            dev_share = dur / len(items)
+            for it in items:
+                obs.attrib.note("ops", doc=it.doc_id, n=it.n_ops)
+                obs.attrib.note("device_s", doc=it.doc_id, n=dev_share)
 
     # ---- flush window ----------------------------------------------------
 
@@ -496,7 +608,13 @@ class MergeScheduler:
              serial items take the per-doc rung.
 
         No rung catches a fault: a K1 or resolve error propagates out of
-        `pump()` (from the background pump, out of the next `drain()`).
+        `pump()` (from the background pump, out of the next `drain()`),
+        so the JAX window's fallback events (`mesh_window_fallback`,
+        `pallas_window_fallback`) have no counterpart. With a bundle
+        attached the window opens `serve.mesh_window` under the first
+        sampled trace, one `serve.mesh_dispatch` per class, and stamps
+        each replayed row's journey `device_replayed`; each class's
+        replay goes to `PROFILER.observe_window`.
         Lock order: the shard locks (sorted), the oplog lock inside the
         planning and adoption steps, then the device locks of the
         window's shards (sorted by shard, deduped) around each replay.
@@ -513,9 +631,18 @@ class MergeScheduler:
             self.metrics.record_window(0, 0,
                                        len({s for s, _r, _i in taken}))
             return 0
+        obs = self.obs
         mesh = self._get_mesh()     # takes self.lock: before shard locks
         shards = sorted({s for s, _r, _i in entries})
         n_docs = sum(len(i) for _s, _r, i in entries)
+        fspan = NOOP_SPAN
+        if obs is not None:
+            parent = next((i.trace for _s, _r, its in entries
+                           for i in its if i.trace is not None), None)
+            if parent is not None:
+                fspan = obs.tracer.start(
+                    "serve.mesh_window", parent=parent,
+                    attrs={"shards": len(shards), "docs": n_docs})
         t0 = time.perf_counter()
         with contextlib.ExitStack() as sstack:
             for s in shards:
@@ -540,19 +667,43 @@ class MergeScheduler:
                       and not seen.add(id(lk))]
             dispatches = mesh_docs = padded_rows = staged_bytes = 0
             failed: List[List[str]] = [[] for _ in entries]
-            for _cls, rows in sorted(classes.items()):
+            replayed: List[set] = [set() for _ in entries]
+            for (cap, mi), rows in sorted(classes.items()):
+                t_cls = time.perf_counter()
                 with contextlib.ExitStack() as dstack:
                     for lk in dlocks:
                         dstack.enter_context(lk)
-                    ok, _device_s, bp, staged = mesh_fused_replay(
+                    dspan = NOOP_SPAN if not fspan.sampled else \
+                        obs.tracer.start(
+                            "serve.mesh_dispatch",
+                            parent=fspan.context(),
+                            attrs={"docs": len(rows), "cap": cap,
+                                   "max_ins": mi})
+                    ok, device_s, bp, staged = mesh_fused_replay(
                         mesh, [r[1] for r in rows], [r[2] for r in rows])
+                    dspan.end(padded_b=bp, staged_bytes=staged)
                 dispatches += 1
                 mesh_docs += len(rows)
                 padded_rows += bp
                 staged_bytes += staged
+                PROFILER.observe_window(time.perf_counter() - t_cls,
+                                        device_s, len(rows), len(shards),
+                                        staged_bytes=staged)
                 for good, (ei, _sess, _plan, d) in zip(ok, rows):
-                    if not good:
+                    if good:
+                        replayed[ei].add(d)
+                    else:
                         failed[ei].append(d)
+            # journey: the window runs the device phase itself, so the
+            # device_replayed stamp lives here (planned and adopted ride
+            # the banks' planning and adoption on both paths)
+            if obs is not None:
+                j = obs.journey
+                for ei, (_s, _r, its) in enumerate(entries):
+                    for it in its:
+                        if (it.trace is not None and it.trace.sampled
+                                and it.doc_id in replayed[ei]):
+                            j.stamp(it.trace.trace_id, "device_replayed")
             for ei, (s, reason, items) in enumerate(entries):
                 self.banks[s].adopt_window(
                     wins[ei], failed[ei], oplog_lock=self._sync_lock,
@@ -560,15 +711,27 @@ class MergeScheduler:
                 self.metrics.record_flush(
                     s, len(items), sum(i.n_ops for i in items), reason,
                     dur_s=time.perf_counter() - t0)
+        dur = time.perf_counter() - t0
+        fspan.end(dur_s=round(dur, 6), dispatches=dispatches)
         self.metrics.record_window(dispatches, n_docs, len(shards),
                                    mesh_docs=mesh_docs,
                                    padded_rows=padded_rows,
                                    staged_bytes=staged_bytes)
+        # live telemetry (mirrors _flush_items): queue waits, a flush
+        # exemplar off the window span, per-doc attribution
         now_m = time.monotonic()
+        dev_share = dur / max(n_docs, 1)
         for _s, _r, its in entries:
             for it in its:
                 self.metrics.observe_queue_wait(
                     max(0.0, now_m - it.enqueued_at))
+                if obs is not None:
+                    obs.attrib.note("ops", doc=it.doc_id, n=it.n_ops)
+                    obs.attrib.note("device_s", doc=it.doc_id,
+                                    n=dev_share)
+        if obs is not None and fspan.sampled:
+            obs.exemplars.note("serve.flush", dur,
+                               fspan.context().trace_id)
         return n_docs
 
     def drain(self) -> int:

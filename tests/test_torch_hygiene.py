@@ -46,7 +46,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "causalgraph.subgraph", "listmerge.plan", "text.crdt",
               "text.ot", "utils.checkers", "utils.stats", "native.ingest",
               "db", "db.doc", "db.shelf", "obs.timeseries", "qos",
-              "qos.classes", "qos.metrics", "qos.shed", "qos.controller"):
+              "qos.classes", "qos.metrics", "qos.shed", "qos.controller",
+              "obs", "obs.recorder", "obs.trace", "obs.devprof",
+              "obs.exemplars", "obs.attrib", "obs.journey", "obs.slo",
+              "obs.incident", "obs.scorecard", "obs.assemble", "obs.prom",
+              "read", "read.metrics"):
         assert f"diamond_types_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -248,3 +248,72 @@ def zone_history(oplog_types: Sequence, seed: int, n_edits: int = 40,
                 branches[bi] = (version, content)
         out.append(ol)
     return out
+
+
+# ---- observability ----------------------------------------------------------
+
+class FakeClock:
+    """A settable monotonic clock."""
+
+    def __init__(self, t: float = 100.0) -> None:
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, dt: float) -> float:
+        self.t += dt
+        return self.t
+
+
+class FakeTime:
+    """Stands in for the `time` module inside a module under test: its
+    monotonic, perf_counter and wall-clock reads are all `clock`'s, so
+    two packages on clocks advanced alike stamp alike. Span ids still
+    draw from the real nanosecond clock (they only need to be unique)."""
+
+    def __init__(self, clock: FakeClock) -> None:
+        self._clock = clock
+
+    def monotonic(self) -> float:
+        return self._clock()
+
+    perf_counter = monotonic
+    time = monotonic
+
+    @staticmethod
+    def monotonic_ns() -> int:
+        import time
+        return time.monotonic_ns()
+
+
+# the obs modules that read the clock (each as `time.<fn>`)
+OBS_CLOCKED = ("obs.trace", "obs.recorder", "obs.timeseries",
+               "obs.journey", "obs.exemplars", "obs.incident")
+
+
+def clock_modules(monkeypatch, root: str, clock: FakeClock,
+                  names: Sequence[str] = OBS_CLOCKED) -> None:
+    """Point `root.<name>.time` at a FakeTime over `clock` for each of
+    `names` (before the objects that cache a clock are built)."""
+    import importlib
+    for name in names:
+        mod = importlib.import_module(f"{root}.{name}")
+        monkeypatch.setattr(mod, "time", FakeTime(clock))
+
+
+def span_forest(spans: List[dict], drop: Sequence[str] = ()) -> list:
+    """Finished spans as comparable rows with their random ids replaced by
+    order of appearance: (trace #, name, parent's name or None, parent in
+    the ring, attrs without `drop`, t0, dur_s)."""
+    traces: Dict[str, int] = {}
+    by_id = {s["span"]: s for s in spans}
+    rows = []
+    for s in spans:
+        t = traces.setdefault(s["trace"], len(traces))
+        p = by_id.get(s["parent"])
+        rows.append((t, s["name"], p["name"] if p else None,
+                     s["parent"] is not None,
+                     {k: v for k, v in s["attrs"].items() if k not in drop},
+                     s["t0"], s["dur_s"]))
+    return rows
