@@ -356,7 +356,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -2912,6 +2912,8 @@ def run_scheduler_hydrated(rng: np.random.Generator, device,
 QOS_TENANTS = 4                     # documents named t{k}-doc{nnn}
 QOS_INTERVAL_S = 0.05               # the controller's step interval
 QOS_TS_WINDOW_S = 1.0               # the time series' window width
+OBS_SAMPLE_RATE = 0.1               # scheduler_obs's head sampling
+OBS_ROUNDS = 3                      # scheduler_obs's free rounds
 
 
 @dataclass
@@ -2920,48 +2922,54 @@ class QosConfig:
     bulk: int = 80
     catchup: int = 48
     rounds: int = 5
-    warning_round: int = 3          # rounds counted from 0
-    burning_round: int = 4
+    warning_round: Optional[int] = 3    # rounds counted from 0; None:
+    burning_round: Optional[int] = 4    # no round is forced
     arrival_s: float = 1.0          # a round's submits spread over this
     profile_round: int = 0          # the first round is traced
 
 
-def run_scheduler_qos(rng: np.random.Generator, device, cfg: ServeConfig,
-                      scfg: SchedulerConfig, qcfg: QosConfig) -> dict:
-    """The QoS controller steering the device scheduler: the scheduler
-    phase's kind of 256 documents (this phase's own generator), named
-    `t{k}-doc{nnn}` over 4 tenants, each with a class fixed by the
-    generator (128 interactive, 80 bulk, 48 catchup), served by
-    `MergeScheduler(4 shards, fused, device_plan, flush_docs=8,
-    flush_workers)` with `attach_qos(QosController(interval_s=0.05))`; the
-    controller reads a `TimeSeries` (1 s windows) through `attach_obs`.
-    `start_pump()` runs, so the pump's and the controller's own threads
-    run as in a server. Each round every document's edit passes the
-    ingress gate first (`controller.admit(cls, tenant_of(doc))`): a shed
-    edit is never applied to the oplog nor to the host mirror (the merged
-    tip branch); an admitted one is applied, then submitted with its
-    class, the submits spread evenly over `arrival_s` (a synthetic arrival
-    process, one edit per admitted document a round: the pump flushes the
-    buckets whose size or published deadline fires, and the controller
-    sees arrival rates), and the round ends with `drain()`. Flush times
-    and queue waits are the rounds' own, not the open pass's. Rounds 1-3
-    run free, round 4
-    under `force_mesh_state("warning")` (sheddable admits count as
-    deferred, their deadlines pinned to the ceilings), round 5 under
-    `force_mesh_state("burning")` (bulk and catchup shed). Requires every
-    K1 and K2 call equal to its plain version, the controller's `steps`
-    growing in every round, every text equal to the host mirror's after
-    every round, 0 host and plan fallbacks, interactive's published
-    deadline at most the static deadline at every controller step, no
-    bulk or catchup admit in round 5, and the lock witness acyclic."""
-    import threading
+def drive_qos_rounds(phase: str, rng: np.random.Generator, device,
+                     cfg: ServeConfig, scfg: SchedulerConfig,
+                     qcfg: QosConfig, attach: Callable,
+                     before_round: Optional[Callable] = None,
+                     after_drain: Optional[Callable] = None):
+    """The device scheduler under the QoS controller, shared by
+    scheduler_qos and scheduler_obs: the scheduler phase's kind of 256
+    documents (the phase's own generator), named `t{k}-doc{nnn}` over 4
+    tenants, each with a class fixed by the generator (128 interactive, 80
+    bulk, 48 catchup), served by `MergeScheduler(4 shards, fused,
+    device_plan, flush_docs=8, flush_workers)` with
+    `attach_qos(QosController(interval_s=0.05))`; `attach(sched, ctl)`
+    then hands the controller its telemetry. Every document is opened,
+    `start_pump()` runs (the pump's and the controller's own threads run
+    as in a server), and `qcfg.rounds` rounds follow. Each round every
+    document's edit passes the ingress gate first (`controller.admit(cls,
+    tenant_of(doc))`): a shed edit is never applied to the oplog nor to
+    the host mirror (the merged tip branch); an admitted one is applied,
+    then submitted with its class, the submits spread evenly over
+    `arrival_s` (a synthetic arrival process, one edit per admitted
+    document a round: the pump flushes the buckets whose size or
+    published deadline fires, and the controller sees arrival rates), and
+    the round ends with `drain()`. Round `warning_round` runs under
+    `force_mesh_state("warning")`, round `burning_round` under
+    `force_mesh_state("burning")`, and no bulk or catchup edit may be
+    admitted then. `before_round(r)` runs just before a round's submits,
+    `after_drain(r, gate)` just after its drain (`gate` counts the
+    round's (class, "admitted" | "shed") decisions), and the dict it
+    returns joins the round's record. Flush times and queue waits are
+    the rounds' own, not the open pass's. Requires every K1 and K2 call
+    equal to its plain version, the controller's `steps` growing in every
+    round, every text equal to the host mirror's after every round, 0
+    host and plan fallbacks, interactive's published deadline at most the
+    static deadline at every controller step, the launch counts equal to
+    the calls the scheduler made, and the lock witness acyclic. Returns
+    the run's scheduler, controller, records and checked counts."""
     from types import SimpleNamespace
 
     from diamond_types_tpu_torch.analysis import witness
     from diamond_types_tpu_torch.gpu import flush_fuse as ff
     from diamond_types_tpu_torch.gpu import kernels
     from diamond_types_tpu_torch.gpu.steer import STEER
-    from diamond_types_tpu_torch.obs.timeseries import TimeSeries
     from diamond_types_tpu_torch.qos import QosController, tenant_of
     from diamond_types_tpu_torch.serve import MergeScheduler
 
@@ -2989,8 +2997,7 @@ def run_scheduler_qos(rng: np.random.Generator, device, cfg: ServeConfig,
         sync_lock=guard)
     ctl = QosController(interval_s=QOS_INTERVAL_S)
     sched.attach_qos(ctl)
-    ctl.attach_obs(SimpleNamespace(ts=TimeSeries(window_s=QOS_TS_WINDOW_S,
-                                                  n_windows=600)))
+    attach(sched, ctl)
     static_s = sched.queue.flush_deadline_s
     # every controller step's published interactive deadlines (the
     # controller's thread calls self.step())
@@ -3075,6 +3082,8 @@ def run_scheduler_qos(rng: np.random.Generator, device, cfg: ServeConfig,
                 edit_s += time.perf_counter() - t
                 profiling = r == qcfg.profile_round
                 gap = qcfg.arrival_s / max(len(subs), 1)
+                if before_round is not None:
+                    before_round(r)
                 with (torch.profiler.profile(activities=PROFILED)
                       if profiling else contextlib.nullcontext()) as prof:
                     t = time.perf_counter()
@@ -3092,6 +3101,7 @@ def run_scheduler_qos(rng: np.random.Generator, device, cfg: ServeConfig,
                     drain_ms = 1e3 * (time.perf_counter() - t_drain)
                 if profiling:
                     profile = device_share(prof, wall, r)
+                extra = after_drain(r, gate) if after_drain else {}
                 after = sched.metrics_json()
                 t = time.perf_counter()
                 for ol, tip in zip(ols, tips):
@@ -3138,7 +3148,7 @@ def run_scheduler_qos(rng: np.random.Generator, device, cfg: ServeConfig,
                     "flush_reasons": {
                         k: after["flush_reasons"].get(k, 0)
                         - before["flush_reasons"].get(k, 0)
-                        for k in after["flush_reasons"]}})
+                        for k in after["flush_reasons"]}, **extra})
         sched.stop_pump()
     finally:
         ff.FusedDocSession.sync = real_sync
@@ -3154,9 +3164,9 @@ def run_scheduler_qos(rng: np.random.Generator, device, cfg: ServeConfig,
           f"lock witness: cycles {wit['cycles']}, "
           f"violations {wit['violations'][:4]}")
     check(m["totals"]["host_fallbacks"] == 0,
-          f"{m['totals']['host_fallbacks']} host fallbacks in scheduler_qos")
+          f"{m['totals']['host_fallbacks']} host fallbacks in {phase}")
     check(m["transform"]["fallbacks"] == 0,
-          f"{m['transform']['fallbacks']} plan fallbacks in scheduler_qos")
+          f"{m['transform']['fallbacks']} plan fallbacks in {phase}")
     worst = max(published, default=0.0)
     check(published and worst <= static_s + 1e-12,
           f"interactive's published deadline reached {worst} s, past the "
@@ -3164,10 +3174,10 @@ def run_scheduler_qos(rng: np.random.Generator, device, cfg: ServeConfig,
     t = time.perf_counter()
     k1_err = k1_calls_err(k1_calls.args, cfg.max_ins)
     check(k1_err == 0, f"K1 differs from its plain version at a "
-          f"scheduler_qos call: max abs err {k1_err}")
+          f"{phase} call: max abs err {k1_err}")
     k2_worst = max((k2_err(nv, ov) for nv, ov in k2_calls.args), default=0)
     check(k2_worst == 0, f"K2 differs from its plain version at a "
-          f"scheduler_qos resolve: max abs err {k2_worst}")
+          f"{phase} resolve: max abs err {k2_worst}")
     plain_check_s = time.perf_counter() - t
     fused_calls = m["fused"]["device_calls"] - m0["fused"]["device_calls"]
     replays = sum(1 for n in syncs if n)
@@ -3177,9 +3187,42 @@ def run_scheduler_qos(rng: np.random.Generator, device, cfg: ServeConfig,
           f"{replays} per-doc replays")
     check(k2_launches == batches and k2_launches > 0,
           f"K2 launched {k2_launches} times for {batches} resolves")
-    snap = ctl.metrics.snapshot()
-    fl_all = np.asarray(flush_s) * 1e3           # the rounds' flushes only
-    qw_all = np.asarray(waits_s) * 1e3           # and queued edits' waits
+    return SimpleNamespace(
+        sched=sched, ctl=ctl, m=m, snap0=snap0, rounds=rounds,
+        published=published, worst=worst, static_s=static_s,
+        flush_s=flush_s, waits_s=waits_s, profile=profile, setup_s=setup_s,
+        edit_s=edit_s, verify_s=verify_s, launches=launches,
+        k2_launches=k2_launches, fused_calls=fused_calls, replays=replays,
+        batches=batches, k1_err=k1_err, k2_worst=k2_worst,
+        k1_checked=len(k1_calls.args), k2_checked=len(k2_calls.args),
+        plain_check_s=plain_check_s,
+        lock_witness={k: wit[k] for k in ("acyclic", "edge_count",
+                                          "violation_count", "acquires",
+                                          "edges")})
+
+
+def run_scheduler_qos(rng: np.random.Generator, device, cfg: ServeConfig,
+                      scfg: SchedulerConfig, qcfg: QosConfig) -> dict:
+    """The QoS controller steering the device scheduler
+    (`drive_qos_rounds`): the controller reads a `TimeSeries` (1 s
+    windows) through `attach_obs`. Rounds 1-3 run free, round 4 under
+    `force_mesh_state("warning")` (sheddable admits count as deferred,
+    their deadlines pinned to the ceilings), round 5 under
+    `force_mesh_state("burning")` (bulk and catchup shed)."""
+    from types import SimpleNamespace
+
+    from diamond_types_tpu_torch.obs.timeseries import TimeSeries
+
+    def attach(_sched, ctl):
+        ctl.attach_obs(SimpleNamespace(ts=TimeSeries(
+            window_s=QOS_TS_WINDOW_S, n_windows=600)))
+
+    run = drive_qos_rounds("scheduler_qos", rng, device, cfg, scfg, qcfg,
+                           attach)
+    rounds, m, profile = run.rounds, run.m, run.profile
+    snap = run.ctl.metrics.snapshot()
+    fl_all = np.asarray(run.flush_s) * 1e3       # the rounds' flushes only
+    qw_all = np.asarray(run.waits_s) * 1e3       # and queued edits' waits
     summary = {
         "docs_per_s": [x["docs_per_s"] for x in rounds],
         "round_wall_ms": [x["wall_ms"] for x in rounds],
@@ -3189,7 +3232,7 @@ def run_scheduler_qos(rng: np.random.Generator, device, cfg: ServeConfig,
         "k1_launches": [x["k1_launches"] for x in rounds],
         "k2_launches": [x["k2_launches"] for x in rounds],
         "controller_steps": [x["controller_steps"] for x in rounds],
-        "interactive_published_max_s": worst,
+        "interactive_published_max_s": run.worst,
         "host_fallbacks": m["totals"]["host_fallbacks"],
         "device_busy_share": profile["device_busy_share"]
         if profile else None}
@@ -3198,22 +3241,25 @@ def run_scheduler_qos(rng: np.random.Generator, device, cfg: ServeConfig,
             "flush_docs": scfg.flush_docs,
             "class_docs": {"interactive": qcfg.interactive,
                            "bulk": qcfg.bulk, "catchup": qcfg.catchup},
-            "tenants": QOS_TENANTS, "static_deadline_s": static_s,
-            "interval_s": QOS_INTERVAL_S, "launches": launches,
-            "k2_launches": k2_launches, "fused_device_calls": fused_calls,
-            "per_doc_replays": replays, "resolves": batches,
+            "tenants": QOS_TENANTS, "static_deadline_s": run.static_s,
+            "interval_s": QOS_INTERVAL_S, "launches": run.launches,
+            "k2_launches": run.k2_launches,
+            "fused_device_calls": run.fused_calls,
+            "per_doc_replays": run.replays, "resolves": run.batches,
             "rounds": rounds, "qos": snap,
             "qos_since_open": {
-                c: {k: snap["classes"][c][k] - snap0["classes"][c][k]
+                c: {k: snap["classes"][c][k] - run.snap0["classes"][c][k]
                     for k in ("admitted", "shed", "deferred")}
                 for c in snap["classes"]},
-            "controller": ctl.export()["controller"],
-            "published_interactive_steps": len(published),
-            "profile": profile, "setup_s": setup_s, "edit_s": edit_s,
-            "verify_s": verify_s, "k1_calls_checked": len(k1_calls.args),
-            "k1_max_abs_err": k1_err,
-            "k2_calls_checked": len(k2_calls.args),
-            "k2_max_abs_err": k2_worst, "plain_check_s": plain_check_s,
+            "controller": run.ctl.export()["controller"],
+            "published_interactive_steps": len(run.published),
+            "profile": profile, "setup_s": run.setup_s,
+            "edit_s": run.edit_s, "verify_s": run.verify_s,
+            "k1_calls_checked": run.k1_checked,
+            "k1_max_abs_err": run.k1_err,
+            "k2_calls_checked": run.k2_checked,
+            "k2_max_abs_err": run.k2_worst,
+            "plain_check_s": run.plain_check_s,
             "flush_ms": {f"p{q}": float(np.percentile(fl_all, q))
                          for q in (50, 90, 99, 100)} if fl_all.size
             else None,
@@ -3221,10 +3267,7 @@ def run_scheduler_qos(rng: np.random.Generator, device, cfg: ServeConfig,
                               for q in (50, 90, 99, 100)} if qw_all.size
             else None,
             "flush_reasons": m["flush_reasons"], "totals": m["totals"],
-            "transform": m["transform"],
-            "lock_witness": {k: wit[k] for k in ("acyclic", "edge_count",
-                                                 "violation_count",
-                                                 "acquires", "edges")}}
+            "transform": m["transform"], "lock_witness": run.lock_witness}
 
 
 # the (rung, purpose) transfer tags of the JAX package's device profiler
@@ -3234,9 +3277,7 @@ TRANSFER_TAGS = {"session.stage", "fused.plan", "pallas.plan", "mesh.plan",
 
 @dataclass
 class ObsConfig:
-    rounds: int = 3                 # free rounds (no forced mesh state)
     arrival_s: float = 1.0          # a round's submits spread over this
-    sample_rate: float = 0.1        # the tracer's head sampling
     profile_round: int = 0          # the first round is traced
 
 
@@ -3261,257 +3302,113 @@ def span_tree_checks(spans: List[dict]) -> dict:
 def run_scheduler_obs(rng: np.random.Generator, device, cfg: ServeConfig,
                       scfg: SchedulerConfig, qcfg: QosConfig,
                       ocfg: ObsConfig) -> dict:
-    """The observability bundle attached to the device scheduler: the
-    scheduler_qos phase's setup (the scheduler phase's kind of 256
-    documents from this phase's own generator, 128 interactive, 80 bulk, 48
-    catchup over 4 tenants; `MergeScheduler(4 shards, fused, device_plan,
-    flush_docs=8, flush_workers)` with `attach_qos(QosController(
-    interval_s=0.05))`) plus `attach_obs(Observability(sample_rate=0.1,
+    """The observability bundle attached to the device scheduler:
+    scheduler_qos's setup and rounds (`drive_qos_rounds`, with qcfg's
+    class counts) with `attach_obs(Observability(sample_rate=0.1,
     seed=<from the generator>, incident_dir=<a temporary directory>))`,
-    which also hands the controller its telemetry, the device profiler
-    (`PROFILER`) reset and enabled for this phase only, and `start_pump()`
-    running. 3 free rounds, each round's submits spread over 1 s as in
-    scheduler_qos. Requires every K1 and K2 call equal to its plain
-    version and every text equal to the host mirror's after every round;
-    0 host and plan fallbacks; sampled `serve.admit`, `serve.flush` and
-    `serve.device_sync` spans, every device_sync's parent a flush span;
-    devprof's fused device calls equal to the scheduler's; devprof's
-    device_sync_s at most its flush_wall_s and transfers under the JAX
-    package's (rung, purpose) tags; every sampled journey `adopted`; the
-    `serve.flush` p99 over 30 s above 0 after round 1 and interactive's
-    published deadline never past the static one; the SLO verdict ok under
-    the default objectives; the `serve.flush` exemplars carrying sampled
-    trace ids; `obs.snapshot()` JSON-serialisable and rendered by
-    `render_metrics` with the scheduler's metrics; the lock witness
-    acyclic."""
+    which also hands the controller its telemetry, and the device
+    profiler (`PROFILER`) reset and enabled for this phase only. 3 free
+    rounds, each round's submits spread over `ocfg.arrival_s`. Requires,
+    beyond `drive_qos_rounds`' checks: no edit shed by the free gate;
+    sampled `serve.admit`, `serve.flush` and `serve.device_sync` spans,
+    every device_sync's parent a flush span; devprof's fused device calls
+    equal to the scheduler's; devprof's device_sync_s at most its
+    flush_wall_s and transfers under the JAX package's (rung, purpose)
+    tags; every sampled journey `adopted`; the `serve.flush` p99 over
+    30 s above 0 after every round; the SLO verdict ok under the default
+    objectives; the `serve.flush` exemplars carrying sampled trace ids;
+    `obs.snapshot()` JSON-serialisable and rendered by `render_metrics`
+    with the scheduler's metrics."""
+    import dataclasses
     import tempfile
 
-    from diamond_types_tpu_torch.analysis import witness
-    from diamond_types_tpu_torch.gpu import flush_fuse as ff
-    from diamond_types_tpu_torch.gpu import kernels
-    from diamond_types_tpu_torch.gpu.steer import STEER
     from diamond_types_tpu_torch.obs import Observability, render_metrics
     from diamond_types_tpu_torch.obs.devprof import PROFILER
-    from diamond_types_tpu_torch.qos import QosController, tenant_of
-    from diamond_types_tpu_torch.serve import MergeScheduler
 
-    t0 = time.perf_counter()
-    ols = build_docs(rng, cfg)
-    for d, ol in enumerate(ols):
-        ol.doc_id = f"t{d % QOS_TENANTS}-doc{d:03d}"
-    names = (["interactive"] * qcfg.interactive + ["bulk"] * qcfg.bulk
-             + ["catchup"] * qcfg.catchup)
-    check(len(names) == len(ols), "the class counts must cover the docs")
-    classes = {ol.doc_id: str(c)
-               for ol, c in zip(ols, rng.permutation(names))}
-    by_id = {ol.doc_id: ol for ol in ols}
-    tips = [host_branch(ol) for ol in ols]
-    obs_seed = int(rng.integers(1 << 31))
-    STEER.reset(table=True)
-    witness.witness_enable()
-    witness.witness_reset()
-    guard = witness.make_lock("smoke.oplog", "oplog")
-    sched = MergeScheduler(
-        scfg.shards, resolve=by_id.__getitem__, engine="device", fused=True,
-        device_plan=True, flush_docs=scfg.flush_docs, flush_workers=True,
-        max_sessions_per_shard=scfg.max_sessions_per_shard,
-        fused_opts={"max_ins": cfg.max_ins, "headroom": cfg.headroom,
-                    "device": device},
-        sync_lock=guard)
-    ctl = QosController(interval_s=QOS_INTERVAL_S)
-    sched.attach_qos(ctl)
-    incident_dir = tempfile.TemporaryDirectory(prefix="dt-smoke-incidents-")
-    obs = Observability(sample_rate=ocfg.sample_rate, seed=obs_seed,
-                        incident_dir=incident_dir.name)
-    sched.attach_obs(obs)
-    check(ctl.obs is obs, "attach_obs did not hand the controller the "
-          "bundle")
-    static_s = sched.queue.flush_deadline_s
-    published: List[float] = []
-    real_step = ctl.step
-
-    def watched_step(now=None):
-        out = real_step(now)
-        published.extend(v for (_s, c), v in ctl._table.items()
-                         if c == "interactive")
-        return out
-
-    ctl.step = watched_step
-    PROFILER.reset()
-    PROFILER.enabled = True
-    flush_s: List[float] = []      # each flush of a taken batch (rounds)
-    real_flush = sched._flush_items
-
-    def timed_flush(shard, reason, items):
-        t = time.perf_counter()
-        try:
-            return real_flush(shard, reason, items)
-        finally:
-            flush_s.append(time.perf_counter() - t)
-
-    syncs: List[int] = []          # each per-doc sync's replayed ops
-    real_sync = ff.FusedDocSession.sync
-
-    def counted_sync(sess):
-        n = real_sync(sess)
-        syncs.append(n)
-        return n
-
-    k1, k2 = kernels.apply_ops_window, kernels.xform_positions
-    rounds = []
-    edit_s = verify_s = 0.0
-    profile = None
-    devprof_round0 = None
+    bundle = {}
     flush_p99_s: List[float] = []
-    try:
-        for ol in ols:             # open every document: build sessions
-            check(sched.submit(ol.doc_id, 1, qos=classes[ol.doc_id])
-                  ["accepted"], f"{ol.doc_id} was not admitted at open")
-        sched.drain()
-        setup_s = time.perf_counter() - t0
-        m0 = sched.metrics_json()
-        sched._flush_items = timed_flush
-        ff.FusedDocSession.sync = counted_sync
-        k1.launches = k2.launches = 0
-        sched.start_pump()
-        with Spy(ff, "apply_ops_window", keep=True) as k1_calls, \
-                Spy(kernels, "xform_positions", keep=True) as k2_calls:
-            for r in range(ocfg.rounds):
-                before = sched.metrics_json()
-                n_k1, n_k2, n_fl = (len(k1_calls.seconds),
-                                    len(k2_calls.seconds), len(flush_s))
-                t = time.perf_counter()
-                subs = []
-                for ol, tip in zip(ols, tips):
-                    cls = classes[ol.doc_id]
-                    ok, _retry, _why = ctl.admit(cls, tenant_of(ol.doc_id))
-                    check(ok, f"round {r}: the free gate shed "
-                          f"{ol.doc_id} ({cls})")
-                    subs += [(d, n, cls) for d, n in round_edits(
-                        rng, [ol], [tip], r, cfg)]
-                edit_s += time.perf_counter() - t
-                profiling = r == ocfg.profile_round
-                dp0 = PROFILER.snapshot()
-                gap = ocfg.arrival_s / max(len(subs), 1)
-                with (torch.profiler.profile(activities=PROFILED)
-                      if profiling else contextlib.nullcontext()) as prof:
-                    t = time.perf_counter()
-                    for k, (doc_id, n_ops, cls) in enumerate(subs):
-                        time.sleep(max(0.0, t + k * gap
-                                       - time.perf_counter()))
-                        check(sched.submit(doc_id, n_ops, qos=cls)
-                              ["accepted"],
-                              f"round {r}: {doc_id} was not accepted")
-                    sched.drain()
-                    wall = time.perf_counter() - t
-                if profiling:
-                    profile = device_share(prof, wall, r)
-                    dp1 = PROFILER.snapshot()
-                    fw = dp1["flush_wall_s"] - dp0["flush_wall_s"]
-                    fd = dp1["device_sync_s"] - dp0["device_sync_s"]
-                    devprof_round0 = {
-                        "flush_wall_s": fw, "device_sync_s": fd,
-                        "device_fraction": fd / fw if fw else 0.0}
-                after = sched.metrics_json()
-                # the controller's input: the live serve.flush series
-                p99 = obs.ts.quantile("serve.flush", 0.99, window_s=30.0)
-                flush_p99_s.append(p99)
-                check(p99 > 0, f"round {r}: serve.flush p99 over 30 s is "
-                      f"{p99}")
-                t = time.perf_counter()
-                for ol, tip in zip(ols, tips):
-                    check(sched.text(ol.doc_id) == tip.snapshot(),
-                          f"round {r}: {ol.doc_id} differs from the host "
-                          "mirror's merge")
-                verify_s += time.perf_counter() - t
-                fl = np.asarray(flush_s[n_fl:]) * 1e3
-                flushed = after["totals"]["flushed_docs"] \
-                    - before["totals"]["flushed_docs"]
-                rounds.append({
-                    "round": r, "wall_ms": 1e3 * wall,
-                    "docs_submitted": len(subs), "docs_flushed": flushed,
-                    "docs_per_s": flushed / wall,
-                    "ops": sum(n for _, n, _c in subs),
-                    "flush_ms_p50_p99": ([float(np.percentile(fl, 50)),
-                                          float(np.percentile(fl, 99))]
-                                         if fl.size else None),
-                    "flushes": int(fl.size),
-                    "ts_flush_p99_30s_ms": 1e3 * p99,
-                    "k1_launches": len(k1_calls.seconds) - n_k1,
-                    "k2_launches": len(k2_calls.seconds) - n_k2})
-        sched.stop_pump()
-    finally:
-        PROFILER.enabled = False
-        sched._flush_items = real_flush
-        ff.FusedDocSession.sync = real_sync
-        if sched._pump_thread is not None:     # a round failed: stop the
-            with contextlib.suppress(Exception):   # pump and controller
-                sched.stop_pump(drain=False)
-    launches, k2_launches = k1.launches, k2.launches
-    m = sched.metrics_json()
-    devprof = PROFILER.snapshot()
-    spans = obs.tracer.spans()
-    span_names = span_tree_checks(spans)
-    sampled = {s["trace"] for s in spans}
-    check(m["totals"]["host_fallbacks"] == 0,
-          f"{m['totals']['host_fallbacks']} host fallbacks in scheduler_obs")
-    check(m["transform"]["fallbacks"] == 0,
-          f"{m['transform']['fallbacks']} plan fallbacks in scheduler_obs")
-    check(devprof["fused"]["device_calls"] == m["fused"]["device_calls"],
-          f"devprof counted {devprof['fused']['device_calls']} fused calls, "
-          f"the scheduler {m['fused']['device_calls']}")
-    check(devprof["device_sync_s"] <= devprof["flush_wall_s"],
-          f"devprof's device wait {devprof['device_sync_s']} s exceeds its "
-          f"flush wall {devprof['flush_wall_s']} s")
-    tags = set(devprof["transfer_detail"])
-    check(devprof["transfers"] > 0 and tags and tags <= TRANSFER_TAGS,
-          f"devprof transfers {devprof['transfers']} under {sorted(tags)}")
-    # every sampled journey (one edit per document a round: none
-    # coalesces) is adopted
-    roots = [s["trace"] for s in spans if s["name"] == "serve.admit"]
-    stuck = [tr for tr in roots
-             if "adopted" not in (obs.journey.journey(tr) or
-                                  {"stages": {}})["stages"]]
-    check(roots and not stuck, f"{len(stuck)} of {len(roots)} sampled "
-          "journeys never reached adopted")
-    worst = max(published, default=0.0)
-    check(published and worst <= static_s + 1e-12,
-          f"interactive's published deadline reached {worst} s, past the "
-          f"static {static_s} s")
-    verdict = obs.slo.verdict()
-    check(verdict["slo_ok"], f"SLO verdict under the default objectives: "
-          f"{verdict}")
-    ex = obs.exemplars.snapshot()["families"].get("serve.flush", [])
-    check(ex and all(e["trace"] in sampled for e in ex),
-          f"serve.flush exemplars {ex[:3]} do not carry sampled trace ids")
-    snap = obs.snapshot()
-    snap_json = json.dumps(snap)
-    prom = render_metrics({"serve": m, "qos": ctl.export(), "obs": snap})
-    check("dt_flush_latency_seconds_count" in prom
-          and "dt_devprof_" in prom and "dt_slo_" in prom,
-          "render_metrics left out the serve, devprof or SLO families")
-    wit = witness.witness_snapshot()
-    check(wit["acyclic"] and wit["violation_count"] == 0,
-          f"lock witness: cycles {wit['cycles']}, "
-          f"violations {wit['violations'][:4]}")
-    t = time.perf_counter()
-    k1_err = k1_calls_err(k1_calls.args, cfg.max_ins)
-    check(k1_err == 0, f"K1 differs from its plain version at a "
-          f"scheduler_obs call: max abs err {k1_err}")
-    k2_worst = max((k2_err(nv, ov) for nv, ov in k2_calls.args), default=0)
-    check(k2_worst == 0, f"K2 differs from its plain version at a "
-          f"scheduler_obs resolve: max abs err {k2_worst}")
-    plain_check_s = time.perf_counter() - t
-    fused_calls = m["fused"]["device_calls"] - m0["fused"]["device_calls"]
-    replays = sum(1 for n in syncs if n)
-    batches = m["transform"]["batches"] - m0["transform"]["batches"]
-    check(launches == fused_calls + replays and launches > 0,
-          f"K1 launched {launches} times for {fused_calls} fused calls and "
-          f"{replays} per-doc replays")
-    check(k2_launches == batches and k2_launches > 0,
-          f"K2 launched {k2_launches} times for {batches} resolves")
-    incidents = snap["incidents"]
-    incident_dir.cleanup()
+    dp0: Dict[str, dict] = {}
+    devprof_round0 = None
+
+    def attach(sched, ctl):
+        seed = bundle["seed"] = int(rng.integers(1 << 31))
+        obs = bundle["obs"] = Observability(
+            sample_rate=OBS_SAMPLE_RATE, seed=seed,
+            incident_dir=incident_dir)
+        sched.attach_obs(obs)
+        check(ctl.obs is obs, "attach_obs did not hand the controller the "
+              "bundle")
+        PROFILER.reset()
+        PROFILER.enabled = True
+
+    def before_round(r):
+        if r == ocfg.profile_round:
+            dp0["snap"] = PROFILER.snapshot()
+
+    def after_drain(r, gate):
+        nonlocal devprof_round0
+        shed = {c: n for (c, what), n in gate.items() if what == "shed"}
+        check(not shed, f"round {r}: the free gate shed {shed}")
+        if r == ocfg.profile_round:
+            dp1 = PROFILER.snapshot()
+            fw = dp1["flush_wall_s"] - dp0["snap"]["flush_wall_s"]
+            fd = dp1["device_sync_s"] - dp0["snap"]["device_sync_s"]
+            devprof_round0 = {"flush_wall_s": fw, "device_sync_s": fd,
+                              "device_fraction": fd / fw if fw else 0.0}
+        # the controller's input: the live serve.flush series
+        p99 = bundle["obs"].ts.quantile("serve.flush", 0.99, window_s=30.0)
+        flush_p99_s.append(p99)
+        check(p99 > 0, f"round {r}: serve.flush p99 over 30 s is {p99}")
+        return {"ts_flush_p99_30s_ms": 1e3 * p99}
+
+    free = dataclasses.replace(
+        qcfg, rounds=OBS_ROUNDS, warning_round=None, burning_round=None,
+        arrival_s=ocfg.arrival_s, profile_round=ocfg.profile_round)
+    with tempfile.TemporaryDirectory(prefix="dt-smoke-incidents-") \
+            as incident_dir:
+        try:
+            run = drive_qos_rounds("scheduler_obs", rng, device, cfg, scfg,
+                                   free, attach, before_round, after_drain)
+        finally:
+            PROFILER.enabled = False
+        obs, m, rounds = bundle["obs"], run.m, run.rounds
+        devprof = PROFILER.snapshot()
+        spans = obs.tracer.spans()
+        span_names = span_tree_checks(spans)
+        sampled = {s["trace"] for s in spans}
+        check(devprof["fused"]["device_calls"] == m["fused"]["device_calls"],
+              f"devprof counted {devprof['fused']['device_calls']} fused "
+              f"calls, the scheduler {m['fused']['device_calls']}")
+        check(devprof["device_sync_s"] <= devprof["flush_wall_s"],
+              f"devprof's device wait {devprof['device_sync_s']} s exceeds "
+              f"its flush wall {devprof['flush_wall_s']} s")
+        tags = set(devprof["transfer_detail"])
+        check(devprof["transfers"] > 0 and tags and tags <= TRANSFER_TAGS,
+              f"devprof transfers {devprof['transfers']} under "
+              f"{sorted(tags)}")
+        # every sampled journey (one edit per document a round: none
+        # coalesces) is adopted
+        roots = [s["trace"] for s in spans if s["name"] == "serve.admit"]
+        stuck = [tr for tr in roots
+                 if "adopted" not in (obs.journey.journey(tr) or
+                                      {"stages": {}})["stages"]]
+        check(roots and not stuck, f"{len(stuck)} of {len(roots)} sampled "
+              "journeys never reached adopted")
+        verdict = obs.slo.verdict()
+        check(verdict["slo_ok"], f"SLO verdict under the default "
+              f"objectives: {verdict}")
+        ex = obs.exemplars.snapshot()["families"].get("serve.flush", [])
+        check(ex and all(e["trace"] in sampled for e in ex),
+              f"serve.flush exemplars {ex[:3]} do not carry sampled trace "
+              "ids")
+        snap = obs.snapshot()
+        snap_json = json.dumps(snap)
+        prom = render_metrics({"serve": m, "qos": run.ctl.export(),
+                               "obs": snap})
+        check("dt_flush_latency_seconds_count" in prom
+              and "dt_devprof_" in prom and "dt_slo_" in prom,
+              "render_metrics left out the serve, devprof or SLO families")
+    profile = run.profile
     summary = {
         "docs_per_s": [x["docs_per_s"] for x in rounds],
         "flush_ms_p50_p99": [x["flush_ms_p50_p99"] for x in rounds],
@@ -3523,7 +3420,7 @@ def run_scheduler_obs(rng: np.random.Generator, device, cfg: ServeConfig,
         "transfer_bytes": {k: v["bytes"] for k, v
                            in devprof["transfer_detail"].items()},
         "slo_ok": verdict["slo_ok"],
-        "incidents": incidents["total"],
+        "incidents": snap["incidents"]["total"],
         "host_fallbacks": m["totals"]["host_fallbacks"],
         "round0_busy_share_profiler": profile["device_busy_share"]
         if profile else None,
@@ -3531,10 +3428,11 @@ def run_scheduler_obs(rng: np.random.Generator, device, cfg: ServeConfig,
             devprof_round0["device_fraction"] if devprof_round0 else None}
     return {"phase": "scheduler_obs", "summary": summary,
             "docs": cfg.n_docs, "shards": scfg.shards,
-            "flush_docs": scfg.flush_docs, "sample_rate": ocfg.sample_rate,
-            "obs_seed": obs_seed, "launches": launches,
-            "k2_launches": k2_launches, "fused_device_calls": fused_calls,
-            "per_doc_replays": replays, "resolves": batches,
+            "flush_docs": scfg.flush_docs, "sample_rate": OBS_SAMPLE_RATE,
+            "obs_seed": bundle["seed"], "launches": run.launches,
+            "k2_launches": run.k2_launches,
+            "fused_device_calls": run.fused_calls,
+            "per_doc_replays": run.replays, "resolves": run.batches,
             "rounds": rounds,
             "busy_share_vs_device_fraction": {
                 "note": "the profiler's share is the time the card was "
@@ -3547,20 +3445,19 @@ def run_scheduler_obs(rng: np.random.Generator, device, cfg: ServeConfig,
             "span_names": span_names, "sampled_traces": len(sampled),
             "journey": obs.journey.snapshot(),
             "journey_lag_summary": obs.journey.lag_summary(),
-            "slo": verdict, "incidents": incidents,
+            "slo": verdict, "incidents": snap["incidents"],
             "exemplars_serve_flush": len(ex),
-            "interactive_published_max_s": worst,
-            "static_deadline_s": static_s,
+            "interactive_published_max_s": run.worst,
+            "static_deadline_s": run.static_s,
             "snapshot_json_bytes": len(snap_json),
             "prom_lines": prom.count("\n"),
-            "setup_s": setup_s, "edit_s": edit_s, "verify_s": verify_s,
-            "k1_calls_checked": len(k1_calls.args), "k1_max_abs_err": k1_err,
-            "k2_calls_checked": len(k2_calls.args),
-            "k2_max_abs_err": k2_worst, "plain_check_s": plain_check_s,
-            "totals": m["totals"], "transform": m["transform"],
-            "lock_witness": {k: wit[k] for k in ("acyclic", "edge_count",
-                                                 "violation_count",
-                                                 "acquires")}}
+            "setup_s": run.setup_s, "edit_s": run.edit_s,
+            "verify_s": run.verify_s, "k1_calls_checked": run.k1_checked,
+            "k1_max_abs_err": run.k1_err,
+            "k2_calls_checked": run.k2_checked,
+            "k2_max_abs_err": run.k2_worst,
+            "plain_check_s": run.plain_check_s, "totals": m["totals"],
+            "transform": m["transform"], "lock_witness": run.lock_witness}
 
 
 def replay_batch_inputs(rng: np.random.Generator, b: int, n: int, cap: int,

@@ -24,6 +24,8 @@ from types import SimpleNamespace
 
 import pytest
 
+import diamond_types_tpu.analysis.explore.engine as jexplore
+import diamond_types_tpu.analysis.lint as jlint
 import diamond_types_tpu.obs as jobs
 import diamond_types_tpu.obs.prom as jprom
 import diamond_types_tpu.obs.scorecard as jscore
@@ -229,10 +231,21 @@ def test_journey_lag_summary_matches_jax(twins):
     assert t.obs.journey.snapshot() == j.obs.journey.snapshot()
 
 
-def test_snapshots_match_jax(twins):
+def test_snapshots_match_jax(twins, monkeypatch):
+    """In a process where no dt-lint, dt-explore or scenario run has
+    published a report (other tests in this worker may have: the reports
+    are module globals), both snapshots have the same keys; once a lint
+    report is published, JAX's gains `lint` and the port's does not (the
+    lookups wait for 12f)."""
+    for mod, name in ((jlint, "_LAST_REPORT"), (jexplore, "_last_report"),
+                      (jscore, "_LAST_SCENARIO"),
+                      (tscore, "_LAST_SCENARIO")):
+        monkeypatch.setattr(mod, name, None)
     j, t = twins
     js, ts = j.obs.snapshot(), t.obs.snapshot()
     assert sorted(ts) == sorted(js)
+    monkeypatch.setattr(jlint, "_LAST_REPORT", {"ok": True})
+    assert set(j.obs.snapshot()) - set(t.obs.snapshot()) == {"lint"}
     for key in ("recorder", "http", "timeseries", "slo", "hot", "journey",
                 "incidents"):
         assert ts[key] == js[key], key

@@ -28,7 +28,15 @@ where JAX pads to the steered class (ROADMAP §3, "K1 and the window"), and
 X8's tape unpadded where JAX pads it to a power of two. There the test
 states the port's bytes from the tensors it really moved. A session's
 upload also moves its 4-byte length tensor, which JAX leaves uncounted.
+
+A host-engine scheduler behind a residency tier takes the bundle and the
+hydrator in either attach order: the hydrator's recorder events (among
+them the gate's `flush_gate_dropped`) and its cache-miss attribution must
+be JAX's.
 """
+
+import os
+import time
 
 import numpy as np
 import pytest
@@ -38,8 +46,10 @@ from diamond_types_tpu import qos as jqos
 from diamond_types_tpu.obs.devprof import PROFILER as JAX_PROFILER
 from diamond_types_tpu.parallel import arena as jarena
 from diamond_types_tpu.parallel import mesh as jmesh
+from diamond_types_tpu.serve import hydrate as jhydrate
 from diamond_types_tpu.serve.driver import run_serve_bench as jax_bench
 from diamond_types_tpu.serve.scheduler import MergeScheduler as JaxScheduler
+from diamond_types_tpu.storage import tier as jtier
 from diamond_types_tpu.text.oplog import OpLog as JaxOpLog
 from diamond_types_tpu.tpu.steer import STEER as JAX_STEER
 from diamond_types_tpu_torch import OpLog
@@ -53,6 +63,8 @@ from diamond_types_tpu_torch.parallel import arena as tarena
 from diamond_types_tpu_torch.serve import MergeScheduler
 from diamond_types_tpu_torch.serve.__main__ import main as serve_main
 from diamond_types_tpu_torch.serve.driver import run_serve_bench
+from diamond_types_tpu_torch.serve.hydrate import Hydrator
+from diamond_types_tpu_torch.storage import tier as ttier
 
 from torch_parity import (OBS_CLOCKED, FakeClock, clock_modules, serve_docs,
                           serve_round, span_forest)
@@ -377,6 +389,81 @@ def test_profiler_off_counts_nothing():
     assert snap["transfers"] == 0 and snap["fused"]["device_calls"] == 0
     assert snap["per_shard"] == {}
     assert s.obs is None and s.metrics.ts is None
+
+
+# ---- the residency tier ---------------------------------------------------------
+
+def _hydrated_events(OpLogCls, tier, hydrator_cls, sched_cls, obs, root,
+                     obs_first):
+    """`tests/test_torch_hydrate.py`'s quarantine script (a corrupt home
+    dropped at the flush gate, two warm documents edited) behind a warm
+    tier of one slot, so the second sync hydration evicts the first, with
+    the bundle and the hydrator attached in the given order. Returns the
+    recorder's events without their sequence numbers and times, and the
+    per-document cache-miss counts."""
+    store = tier.TieredStore(root)
+    for d in ("a", "b", "bad"):
+        ol = OpLogCls()
+        ol.add_insert(ol.get_or_create_agent_id("w"), 0, f"[{d}] ")
+        store.save(d, ol)
+    with open(store.path("bad"), "r+b") as f:
+        f.write(b"\xff" * os.path.getsize(store.path("bad")))
+    hyd = hydrator_cls(store, workers=1, sync_wait_s=5.0, warm_max=1,
+                       evict_grace_s=0.0)
+    sched = sched_cls(2, hyd.resolve, engine="host", flush_deadline_s=0.01)
+    bundle = obs.Observability(sample_rate=1.0, seed=3)
+    if obs_first:
+        sched.attach_obs(bundle)
+        sched.attach_hydrator(hyd)
+    else:
+        sched.attach_hydrator(hyd)
+        sched.attach_obs(bundle)
+    assert hyd.recorder is bundle.recorder and hyd.attrib is bundle.attrib
+    try:
+        assert sched.submit("bad")["accepted"]
+        sched.drain()
+        assert sched.submit("bad")["reason"] == "quarantined"
+        for d in ("a", "b"):
+            ol = hyd.resolve(d)
+            ol.add_insert(ol.get_or_create_agent_id("ed"),
+                          len(ol.checkout_tip().snapshot()), "edited")
+            assert sched.submit(d)["accepted"]
+        sched.drain()
+        # the eviction's snapshot is saved on the hydrator's worker
+        deadline = time.monotonic() + 10.0
+        while time.monotonic() < deadline and not any(
+                e["kind"] == "evicted_to_snapshot"
+                for e in bundle.recorder.dump()):
+            time.sleep(0.01)
+        events = [{k: v for k, v in e.items() if k not in ("seq", "t")}
+                  for e in bundle.recorder.dump()]
+        return events, bundle.attrib.top("doc", "cache_misses")
+    finally:
+        sched.stop_pump(drain=False)
+        hyd.stop(checkpoint=False)
+
+
+@pytest.mark.parametrize("obs_first", [False, True])
+def test_hydrator_with_obs_matches_jax(tmp_path, obs_first):
+    """`attach_obs` and `attach_hydrator` in either order hand the
+    hydrator the bundle's recorder and attribution: the quarantine, the
+    gate's drop (`flush_gate_dropped`), the eviction and the sync
+    hydrations' cache misses are JAX's."""
+    out = {}
+    for name, args in (
+            ("jax", (JaxOpLog, jtier, jhydrate.Hydrator, JaxScheduler, jobs)),
+            ("port", (OpLog, ttier, Hydrator, MergeScheduler, tobs))):
+        root = tmp_path / name
+        root.mkdir()
+        out[name] = _hydrated_events(*args, str(root), obs_first)
+    assert out["port"] == out["jax"]
+    events, misses = out["port"]
+    assert [e["kind"] for e in events] == [
+        "doc_quarantined", "quarantined_drop", "flush_gate_dropped",
+        "evicted_to_snapshot"]
+    assert events[2] == {"kind": "flush_gate_dropped", "shard": events[1][
+        "shard"], "docs": 1}
+    assert misses == [("a", 1.0, 0.0), ("b", 1.0, 0.0)]
 
 
 # ---- the serve driver ----------------------------------------------------------
