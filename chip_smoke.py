@@ -288,19 +288,65 @@ package), in phases, each printing one JSON line:
                 share from `torch.profiler` (the card busy) beside
                 devprof's device_fraction for the same round (the flushes
                 waiting on the fence).
- 18. replay_batch - `kernels.replay_batch_kernel` (the counterpart of
+ 18. replicated - the replication mesh and its server on the card: three
+                port servers in this process (`tools.server.serve(port=0,
+                data_dir=<a temporary directory each>, serve_shards=2,
+                device=<the card>)`: each merges with its fused device
+                scheduler, device plan on), wired into one mesh by
+                `attach_replication` (the admit gate `node.owns`, the
+                lease-epoch fence `node.active_epoch`; lease TTL 30 s, a
+                shared seeded `FaultInjector`), the control plane stepped
+                inline (probe, maintain, anti-entropy). 96 documents of
+                the scheduler phase's kind, created through `SyncClient`
+                at their rendezvous owner, each with two clients on two
+                different nodes; 4 rounds in which every client makes 1-4
+                edits (pull, edit, sync; 8 client threads), so about two
+                thirds of the pushes are proxied to the owner. Round 2
+                stops the pumps, runs its traffic and hands 8 queued
+                documents to another node with a placement override (the
+                handoff's drain fences their queued merges), then restarts
+                the pumps; round 3 partitions one node from both others
+                for its traffic, then heals. After each round, with a
+                deadline: every node holds every document at the mirror's
+                version (the union of the clients' oplogs); then every
+                node's text equals the mirror's C++ tracker checkout
+                (`Branch.merge_reference`), exactly one node holds each
+                document's ACTIVE lease, and its scheduler's text equals
+                the mirror. Then, with DT_SERVER_DEVICE set, POST
+                /doc/{id}/history on 4 documents' owners: one K3 launch per
+                strip, each equal to its plain version, each strip's texts
+                equal to the host's checkout at the same LV. Requires every
+                K1 and K2 call equal to its plain version, K1 launches ==
+                fused calls + per-doc replays and K2 launches == resolves
+                over the three schedulers, every X8 launch (where
+                `Branch.merge`'s engine policy picks the zone engine for a
+                client's or a server's merge, as it may once the zone
+                phases have run) equal to its plain version on a copy of
+                its carry, 0 host and plan fallbacks (the
+                length fence never failed), epoch-fenced work in round 2,
+                proxied writes and the lock witness acyclic. Prints per
+                round the wall, traffic and convergence seconds, per node
+                docs/s, submits, denials, fenced work, builds and
+                evictions, pushes, proxied and locally accepted writes and
+                K1/K2 launches; per node flush p50/p99, queue wait p99,
+                the proxy, handoff, anti-entropy, merge-gate and wire
+                counters; the handoffs' ms, the seconds to converge after
+                the heal, the history strips' ms, the `dt_wire_*` families
+                and round 1's device busy share.
+ 19. replay_batch - `kernels.replay_batch_kernel` (the counterpart of
                 `replay_batch_pallas`: one K1 launch over a whole op
                 sequence from empty rows) against its plain version at b
                 128, n 64, cap 4,096, max_ins 16 on in-contract ops; its
                 call_ms, device_ms, plain ms and HBM bound. It is on no
                 serve path.
- 19. kernels  - one line for K1, K2, K3, X8 and `replay_batch_kernel`:
+ 20. kernels  - one line for K1, K2, K3, X8 and `replay_batch_kernel`:
                 launches on the main path (K1
                 and K2 in the serve phase, K3 in the checkout phase; per
                 path in `launches_by_path`, the scheduler's, the flush
-                window's, the hydrated scheduler's, the QoS scheduler's
-                and the observed scheduler's (K1, K2), the history's (K3) and the merge step's (K1)
-                too; `replay_batch_kernel`'s from its own check), max
+                window's, the hydrated scheduler's, the QoS scheduler's,
+                the observed scheduler's and the replicated mesh's (K1,
+                K2), the history's and the replicated mesh's (K3) and the
+                merge step's (K1) too; `replay_batch_kernel`'s from its own check), max
                 error against the plain version (see below), and at the
                 main path's widest call two times: `call_ms` (CUDA events
                 around back-to-back wrapper calls: host and device) and
@@ -313,17 +359,18 @@ package), in phases, each printing one JSON line:
                 them the HBM bound and the library yardstick's call_ms and
                 device_ms (`torch.cumsum` for K2); then the card's name and
                 power limit. max_abs_err covers the kernel phases, the serve
-                phase's captured calls, the three scheduler runs' calls, the
-                history's K3 calls and the merge step's K1 call; K3's line
+                phase's captured calls, the scheduler runs' calls, the
+                history's and the history strips' K3 calls and the merge
+                step's K1 call; K3's line
                 has its numbers at the history's shape under "history",
                 K1's at the merge step's under "merge_step". The
                 serve line carries K1's call_ms and
                 device_ms at every captured bucket, and K1's CTAs per
                 launch as derived from the launcher's grid rule
                 (b * ceil(cap / 512)), not observed. X8's entry has its
-                launches per path (zone, zone_batch, scheduler_zone), its
-                max error over the zone_kernel, zone and scheduler_zone
-                launches, its times at the zone phase's shape and its
+                launches per path (zone, zone_batch, scheduler_zone,
+                replicated), its max error over the zone_kernel, zone,
+                scheduler_zone and replicated launches, its times at the zone phase's shape and its
                 bounds there: `bound_ms`, the sum over steps of each
                 step's inputs read once and outputs written once, at HBM
                 rate; `whole_tape_ms`, the tape once and the carry in and
@@ -794,6 +841,24 @@ class Stamp(Spy):
         if self.sync:
             torch.cuda.synchronize()
         self.marks.append((t, time.perf_counter(), *ev))
+        return out
+
+
+class KeptRuns(Spy):
+    """A Spy on `kernels.zone_tape_run` that keeps each launch's tape and
+    clones of its carry before and after (X8 updates the carry in place),
+    for the plain version after the phase."""
+
+    def __init__(self, owner, name: str) -> None:
+        super().__init__(owner, name)
+        self.runs: List[tuple] = []
+
+    def __call__(self, carry, xs, plen, cluster=None):
+        from diamond_types_tpu_torch.gpu.zone_kernel import ZoneCarry
+        before = ZoneCarry(*(t.clone() for t in carry))
+        out = super().__call__(carry, xs, plen, cluster=cluster)
+        self.runs.append((xs, plen, before,
+                          ZoneCarry(*(t.clone() for t in out))))
         return out
 
 
@@ -3460,6 +3525,493 @@ def run_scheduler_obs(rng: np.random.Generator, device, cfg: ServeConfig,
             "transform": m["transform"], "lock_witness": run.lock_witness}
 
 
+# ---- phase 19: the replication mesh on the card -----------------------------
+
+REPL_NODES = 3                      # the standard quorum of three
+REPL_SHARDS = 2                     # each server's scheduler
+REPL_ROUNDS = 4                     # rounds counted from 0:
+REPL_HANDOFF_ROUND = 1              # round 2 hands queued documents off,
+REPL_PARTITION_ROUND = 2            # round 3 partitions one node
+REPL_EDITS = (1, 4)                 # per client, document and round
+REPL_HISTORY_DOCS = 4               # history strips through the endpoint
+REPL_HISTORY_N = 16                 # each strip's snapshots at most
+REPL_LEASE_TTL_S = 30.0             # no takeover inside the phase
+REPL_CLIENT_THREADS = 8
+REPL_CONVERGE_S = 60.0              # each convergence's deadline
+
+
+@dataclass
+class ReplicatedConfig:
+    n_docs: int = 96
+    handoffs: int = 8
+    profile_round: int = 0          # the first round is traced
+
+
+def client_edits(rng, client, k: int, cfg: ServeConfig) -> int:
+    """`k` random edits on a `SyncClient`'s branch (inserts of 1..ins_max
+    chars, deletes of 1..del_max); returns `k`."""
+    for _ in range(k):
+        cur = len(client.branch)
+        if cur and rng.random() < 0.4:
+            p = int(rng.integers(0, cur))
+            client.delete(p, min(cur, p + int(rng.integers(1, cfg.del_max
+                                                            + 1))))
+        else:
+            client.insert(int(rng.integers(0, cur + 1)), rand_text(
+                rng, int(rng.integers(1, cfg.ins_max + 1))))
+    return k
+
+
+def fold_into(mirror, ol) -> None:
+    """Merge every op of `ol` into `mirror` (a binary patch from their
+    common version), as a sync client's push does."""
+    from diamond_types_tpu_torch.causalgraph.summary import (
+        intersect_with_summary, summarize_versions)
+    from diamond_types_tpu_torch.encoding.decode import decode_into
+    from diamond_types_tpu_torch.encoding.encode import (ENCODE_PATCH,
+                                                         encode_oplog)
+    common, _ = intersect_with_summary(ol.cg, summarize_versions(mirror.cg))
+    decode_into(mirror, encode_oplog(ol, ENCODE_PATCH, from_version=common))
+
+
+def remote_version(ol) -> list:
+    return sorted(map(tuple, ol.cg.local_to_remote_frontier(ol.version)))
+
+
+def run_replicated(rng: np.random.Generator, device, cfg: ServeConfig,
+                   rcfg: ReplicatedConfig) -> dict:
+    """Three port servers (`tools.server.serve(port=0, data_dir=<its own
+    temporary directory>, serve_shards=2, device=<the card>)`), each with
+    its fused device scheduler (device plan: K2, then K1) and its
+    observability bundle, wired into one mesh by `attach_replication`
+    (lease TTL 30 s, a shared seeded `FaultInjector`), so the admit gate,
+    the lease-epoch fence and the Hydrator hook are the code under test's.
+    The control plane is stepped inline (probe, maintain, anti-entropy).
+    96 documents of the scheduler phase's kind (2,048-12,288 chars by one
+    agent) are created through `SyncClient` at their rendezvous owner;
+    each then has two clients on two different nodes. 4 rounds: every
+    document gets 1-4 edits from each client (pull, edit, sync; 8 client
+    threads), so about two thirds of the pushes land on a non-owner and
+    are proxied. Round 2 stops the pumps, runs its traffic, hands 8
+    queued documents to another node with a placement override (the
+    handoff's drain fences the queued merges) and restarts the pumps;
+    round 3 partitions one node from both others for its traffic, heals,
+    and anti-entropy reconciles. After each round: converge with a
+    deadline (every node's version of every document equal to the
+    mirror's, the union of the clients' oplogs), every node's text equal
+    to the mirror's C++ tracker checkout (`Branch.merge_reference`),
+    exactly one ACTIVE lease holder per document, and that owner's
+    scheduler text equal to the mirror. Then, with DT_SERVER_DEVICE set,
+    POST /doc/{id}/history for 4 documents: K3 launched once per strip,
+    each call equal to its plain version, and each strip's texts equal
+    to the host's checkout at the same LV. Requires every K1 and K2 call
+    equal to its plain version, the launch counts equal to the calls the
+    schedulers made, every X8 launch (a merge the engine policy gave the
+    zone engine) equal to its plain version, 0 host and plan fallbacks
+    (the length fence never failed), epoch-fenced work in round 2,
+    proxied writes, and the lock witness acyclic."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    from diamond_types_tpu_torch import OpLog
+    from diamond_types_tpu_torch.analysis import witness
+    from diamond_types_tpu_torch.gpu import flush_fuse as ff
+    from diamond_types_tpu_torch.gpu import kernels
+    from diamond_types_tpu_torch.gpu import plan_kernels as pk
+    from diamond_types_tpu_torch.gpu import zone_kernel as zk
+    from diamond_types_tpu_torch.replicate import (FaultInjector,
+                                                   attach_replication)
+    from diamond_types_tpu_torch.tools.server import SyncClient, serve
+
+    t0 = time.perf_counter()
+    witness.witness_enable()
+    witness.witness_reset()
+    root = tempfile.mkdtemp(prefix="dt_replicated_")
+    faults = FaultInjector(seed=int(rng.integers(1 << 31)))
+    httpds: list = []
+    k1, k2, k3, x8 = (kernels.apply_ops_window, kernels.xform_positions,
+                      kernels.materialize_runs, kernels.zone_tape_run)
+    syncs: List[int] = []
+    real_sync = ff.FusedDocSession.sync
+
+    def counted_sync(sess):
+        n = real_sync(sess)
+        syncs.append(n)
+        return n
+
+    def get(addr: str, path: str) -> bytes:
+        with urllib.request.urlopen(f"http://{addr}{path}",
+                                    timeout=30) as r:
+            return r.read()
+
+    try:
+        for i in range(REPL_NODES):
+            httpds.append(serve(port=0, data_dir=os.path.join(root, f"n{i}"),
+                                serve_shards=REPL_SHARDS, device=device))
+        addrs = [f"127.0.0.1:{h.server_address[1]}" for h in httpds]
+        nodes = [attach_replication(
+            h, addrs[i], [a for a in addrs if a != addrs[i]],
+            faults=faults, lease_ttl_s=REPL_LEASE_TTL_S,
+            backoff_base_s=0.01, backoff_cap_s=0.05,
+            journal_prefix=os.path.join(root, f"n{i}", "_replica"))
+            for i, h in enumerate(httpds)]
+        for h in httpds:
+            threading.Thread(target=h.serve_forever, daemon=True).start()
+        scheds = [h.store.scheduler for h in httpds]
+        for n, s in zip(nodes, scheds):
+            check(s.admit == n.owns and s.epoch_of == n.active_epoch,
+                  "replicated: attach_replication did not wire the gate")
+
+        def step() -> None:
+            for n in nodes:
+                n.table.probe_once()
+                n.maintain()
+            for n in nodes:
+                n.antientropy.run_round()
+
+        # the documents, each typed by one agent at its rendezvous owner
+        docs = [f"rdoc{d:03d}" for d in range(rcfg.n_docs)]
+        owner0 = {d: addrs.index(nodes[0].desired_owner(d)) for d in docs}
+        mirrors = {d: OpLog() for d in docs}
+        clients: Dict[str, list] = {}
+        for d in docs:
+            c = SyncClient(f"http://{addrs[owner0[d]]}", d, "typist")
+            n_chars = int(rng.integers(cfg.base_min, cfg.base_max + 1))
+            done = 0
+            while done < n_chars:
+                k = min(n_chars - done, int(rng.integers(1, 65)))
+                c.insert(done, rand_text(rng, k))
+                done += k
+            c.sync()
+            fold_into(mirrors[d], c.oplog)
+            a, b = rng.choice(REPL_NODES, 2, replace=False)
+            clients[d] = [SyncClient(f"http://{addrs[int(i)]}", d,
+                                     f"client{j}")
+                          for j, i in enumerate((a, b))]
+        for s in scheds:
+            s.drain()
+        setup_s = time.perf_counter() - t0
+
+        def converge() -> float:
+            """Step the control plane until every node holds every
+            document at the mirror's version; returns the seconds."""
+            want = {d: remote_version(m) for d, m in mirrors.items()}
+            t = time.perf_counter()
+            while True:
+                step()
+                behind = 0
+                for h in httpds:
+                    with h.store.lock:
+                        behind += sum(
+                            1 for d in docs if h.store.docs.get(d) is None
+                            or remote_version(h.store.docs[d]) != want[d])
+                if not behind:
+                    return time.perf_counter() - t
+                check(time.perf_counter() - t < REPL_CONVERGE_S,
+                      f"replicated: {behind} (node, document) pairs still "
+                      f"behind the mirror after {REPL_CONVERGE_S} s")
+                time.sleep(0.02)
+
+        def verify(r: int) -> dict:
+            """Every node's text, the single lease holder and its
+            scheduler's text against the mirror; returns the counts."""
+            served = 0
+            for s in scheds:
+                s.drain()
+            for d in docs:
+                want = host_branch(mirrors[d]).snapshot()
+                for a in addrs:
+                    check(get(a, f"/doc/{d}").decode("utf8") == want,
+                          f"round {r}: {d} at {a} differs from the mirror")
+                holders = [i for i, n in enumerate(nodes)
+                           if n.leases.active_epoch(d)]
+                check(len(holders) == 1, f"round {r}: {d} has ACTIVE "
+                      f"leases on nodes {holders}")
+                h = httpds[holders[0]]
+                check(scheds[holders[0]].text(d) == want,
+                      f"round {r}: the owner scheduler's text of {d} "
+                      "differs from the mirror")
+                shard = scheds[holders[0]].router.shard_of(d)
+                sess = scheds[holders[0]].banks[shard].sessions.get(d)
+                with h.store.lock:
+                    served += int(sess is not None and sess.synced_to
+                                  == len(h.store.docs[d]))
+            return {"owner_session_served": served}
+
+        def doc_traffic(d: str, seed) -> tuple:
+            g = np.random.default_rng(seed)
+            n_ops = 0
+            for c in clients[d]:
+                c.pull()
+            for c in clients[d]:
+                n_ops += client_edits(g, c, int(g.integers(
+                    REPL_EDITS[0], REPL_EDITS[1] + 1)), cfg)
+            for c in clients[d]:
+                c.sync()
+            return n_ops
+
+        t_ph = time.perf_counter()
+        ff.FusedDocSession.sync = counted_sync
+        k1.launches = k2.launches = x8.launches = 0
+        m0 = [s.metrics_json() for s in scheds]
+        rounds = []
+        handoff_ms: List[float] = []
+        heal_s = None
+        profile = None
+        with Spy(ff, "apply_ops_window", keep=True) as k1_calls, \
+                Spy(kernels, "xform_positions", keep=True) as k2_calls, \
+                KeptRuns(kernels, "zone_tape_run") as x8_calls, \
+                ThreadPoolExecutor(REPL_CLIENT_THREADS) as pool:
+            for r in range(REPL_ROUNDS):
+                n_k1, n_k2 = len(k1_calls.args), len(k2_calls.args)
+                before = [s.metrics_json()["totals"] for s in scheds]
+                proxy0 = [n.metrics_json()["proxy"] for n in nodes]
+                seeds = [[int(x) for x in rng.integers(1 << 31, size=2)]
+                         for _ in docs]
+                handoff = r == REPL_HANDOFF_ROUND
+                partitioned = None
+                if handoff:
+                    for s in scheds:          # merges stay queued
+                        s.stop_pump()
+                if r == REPL_PARTITION_ROUND:
+                    partitioned = int(rng.integers(REPL_NODES))
+                    for i in range(REPL_NODES):
+                        if i != partitioned:
+                            faults.partition(addrs[partitioned], addrs[i])
+                profiling = r == rcfg.profile_round
+                with (torch.profiler.profile(activities=PROFILED)
+                      if profiling else contextlib.nullcontext()) as prof:
+                    t = time.perf_counter()
+                    ops = sum(pool.map(doc_traffic, docs, seeds))
+                    traffic_s = time.perf_counter() - t
+                    moved = []
+                    if handoff:
+                        picks = rng.choice(len(docs), rcfg.handoffs,
+                                           replace=False)
+                        for p in picks:
+                            d = docs[int(p)]
+                            src = next(n for n in nodes
+                                       if n.leases.active_epoch(d))
+                            dst = nodes[(nodes.index(src) + 1
+                                         + int(rng.integers(2)))
+                                        % REPL_NODES]
+                            ver = src.overrides.set(d, dst.self_id)
+                            th = time.perf_counter()
+                            check(src.handoff(d, dst.self_id,
+                                              override_version=ver),
+                                  f"round {r}: the handoff of {d} failed")
+                            handoff_ms.append(1e3 * (time.perf_counter()
+                                                     - th))
+                            moved.append(d)
+                        for s in scheds:
+                            s.start_pump()
+                    for c in (clients[d][j] for d in docs for j in (0, 1)):
+                        fold_into(mirrors[c.doc_id], c.oplog)
+                    if partitioned is not None:
+                        faults.heal()
+                        heal_s = converge()
+                        conv_s = heal_s
+                    else:
+                        conv_s = converge()
+                    for s in scheds:
+                        s.drain()
+                    wall = time.perf_counter() - t
+                if profiling:
+                    profile = device_share(prof, wall, r)
+                ver = verify(r)
+                after = [s.metrics_json()["totals"] for s in scheds]
+                delta = [{k: a[k] - b[k] for k in (
+                    "submits", "denied", "fenced", "flushed_docs", "builds",
+                    "evictions")} for a, b in zip(after, before)]
+                fenced = sum(x["fenced"] for x in delta)
+                if handoff:
+                    check(fenced > 0, f"round {r}: the handoffs fenced no "
+                          "queued merge")
+                rounds.append({
+                    "round": r,
+                    "kind": ("handoff" if handoff else "partition"
+                             if partitioned is not None else "free"),
+                    "partitioned_node": partitioned,
+                    "handed_off": len(moved),
+                    "wall_ms": 1e3 * wall, "traffic_ms": 1e3 * traffic_s,
+                    "converge_s": conv_s, "ops": ops,
+                    "docs_per_s_per_node": [x["flushed_docs"] / wall
+                                            for x in delta],
+                    "per_node": delta,
+                    # each client's sync pushes once; a push on a
+                    # non-owner is proxied, or accepted there when the
+                    # owner cannot be reached (fallback_local)
+                    "pushes": 2 * len(docs),
+                    **{k: sum(n.metrics_json()["proxy"][k] - p0[k]
+                              for n, p0 in zip(nodes, proxy0))
+                       for k in ("proxied", "fallback_local")},
+                    "k1_launches": len(k1_calls.args) - n_k1,
+                    "k2_launches": len(k2_calls.args) - n_k2, **ver})
+        ff.FusedDocSession.sync = real_sync
+        launches, k2_launches, x8_launches = (k1.launches, k2.launches,
+                                              x8.launches)
+        traffic_phase_s = time.perf_counter() - t_ph
+
+        # the history strip through the endpoint, on the card
+        hdocs = [docs[int(p)] for p in rng.choice(len(docs),
+                                                  REPL_HISTORY_DOCS,
+                                                  replace=False)]
+        k3.launches = 0
+        strips = {}
+        os.environ["DT_SERVER_DEVICE"] = "1"
+        try:
+            with Spy(kernels, "materialize_runs", keep=True) as k3_calls:
+                for d in hdocs:
+                    i = next(i for i, n in enumerate(nodes)
+                             if n.leases.active_epoch(d))
+                    req = urllib.request.Request(
+                        f"http://{addrs[i]}/doc/{d}/history",
+                        data=json.dumps({"n": REPL_HISTORY_N})
+                        .encode("utf8"))
+                    t = time.perf_counter()
+                    with urllib.request.urlopen(req, timeout=120) as resp:
+                        strips[d] = (i, json.loads(resp.read())["snapshots"],
+                                     1e3 * (time.perf_counter() - t))
+        finally:
+            os.environ.pop("DT_SERVER_DEVICE", None)
+        k3_launches = k3.launches
+        check(k3_launches == len(hdocs) == len(k3_calls.args),
+              f"replicated: K3 launched {k3_launches} times for "
+              f"{len(hdocs)} history strips ({len(k3_calls.args)} calls)")
+        k3_worst = max(k3_err(list(a[:4]), a[4]) for a in k3_calls.args)
+        check(k3_worst == 0, f"replicated: K3 differs from its plain "
+              f"version in a history strip: max abs err {k3_worst}")
+        checked = 0
+        for d, (i, snaps, _ms) in strips.items():
+            ol = httpds[i].store.get(d)
+            with httpds[i].store.lock:
+                plan = pk.compile_plan2(ol.cg.graph, [], list(ol.version))
+                check(len(plan.entries) > 0 and len(snaps) > 1,
+                      f"replicated: {d}'s strip took the host path")
+                for s in snaps[:-1]:
+                    f = ol.cg.graph.find_dominators([s["lv"]])
+                    check(s["text"] == host_branch(ol, f).snapshot(),
+                          f"replicated: {d}'s strip at lv {s['lv']} "
+                          "differs from the host's checkout")
+                    checked += 1
+            check(snaps[-1]["text"] == host_branch(mirrors[d]).snapshot(),
+                  f"replicated: {d}'s strip does not end at the mirror")
+
+        # every K1 and K2 call against its plain version
+        t = time.perf_counter()
+        k1_err = k1_calls_err(k1_calls.args, cfg.max_ins)
+        check(k1_err == 0, f"K1 differs from its plain version at a "
+              f"replicated call: max abs err {k1_err}")
+        k2_worst = max((k2_err(nv, ov) for nv, ov in k2_calls.args),
+                       default=0)
+        check(k2_worst == 0, f"K2 differs from its plain version at a "
+              f"replicated resolve: max abs err {k2_worst}")
+        # X8 runs where `Branch.merge`'s engine policy picks the zone
+        # engine for a merge (a client's pull, a server's checkout): held
+        # against its plain version, on the host, from a copy of the carry
+        check(x8_launches == len(x8_calls.runs),
+              f"replicated: X8 launched {x8_launches} times for "
+              f"{len(x8_calls.runs)} zone_tape_run calls")
+        x8_worst = max((zone_err(after, zk.run_zone_plain(
+            zk.ZoneCarry(*(t.cpu() for t in before)),
+            {k: v.cpu() for k, v in xs.items()}, plen))
+            for xs, plen, before, after in x8_calls.runs), default=0)
+        check(x8_worst == 0, f"X8 differs from its plain version at a "
+              f"replicated merge: max abs err {x8_worst}")
+        plain_check_s = time.perf_counter() - t
+        ms = [s.metrics_json() for s in scheds]
+        fused_calls = sum(m["fused"]["device_calls"] - a["fused"]
+                          ["device_calls"] for m, a in zip(ms, m0))
+        batches = sum(m["transform"]["batches"] - a["transform"]["batches"]
+                      for m, a in zip(ms, m0))
+        replays = sum(1 for n in syncs if n)
+        check(launches == fused_calls + replays and launches > 0,
+              f"replicated: K1 launched {launches} times for {fused_calls} "
+              f"fused calls and {replays} per-doc replays")
+        check(k2_launches == batches and k2_launches > 0,
+              f"replicated: K2 launched {k2_launches} times for {batches} "
+              "resolves")
+        host_fallbacks = sum(m["totals"]["host_fallbacks"] for m in ms)
+        check(host_fallbacks == 0, f"replicated: {host_fallbacks} host "
+              "fallbacks (length-fence failures)")
+        plan_fallbacks = sum(m["transform"]["fallbacks"] for m in ms)
+        check(plan_fallbacks == 0, f"replicated: {plan_fallbacks} plan "
+              "fallbacks")
+        repl = [n.metrics_json() for n in nodes]
+        proxied = sum(m["proxy"]["proxied"] for m in repl)
+        check(proxied > 0, "replicated: no write was proxied")
+        prom = get(addrs[0], "/metrics?format=prom").decode("utf8")
+        wit = witness.witness_snapshot()
+        check(wit["acyclic"] and wit["violation_count"] == 0,
+              f"lock witness: cycles {wit['cycles']}, "
+              f"violations {wit['violations'][:4]}")
+        per_node = []
+        for i, (m, rm) in enumerate(zip(ms, repl)):
+            lat = m["latencies"]
+            per_node.append({
+                "node": i, "owned_at_start": sum(1 for d in docs
+                                                  if owner0[d] == i),
+                "docs_per_s": (m["totals"]["flushed_docs"]
+                               - m0[i]["totals"]["flushed_docs"])
+                / traffic_phase_s,
+                "flush_ms_p50_p99": [1e3 * lat["flush"]["p50"],
+                                     1e3 * lat["flush"]["p99"]],
+                "queue_wait_ms_p99": 1e3 * lat["queue_wait"]["p99"],
+                "totals": {k: m["totals"][k] for k in (
+                    "submits", "denied", "fenced", "flushes",
+                    "flushed_docs", "builds", "evictions",
+                    "host_fallbacks")},
+                "proxy": rm["proxy"], "handoffs": rm["handoffs"],
+                "antientropy": {k: rm["antientropy"][k] for k in (
+                    "rounds", "docs_pulled", "docs_pushed")},
+                "merge_gate": rm["merge_gate"], "wire": rm["wire"]})
+        return {
+            "phase": "replicated", "nodes": REPL_NODES,
+            "shards_per_node": REPL_SHARDS, "docs": len(docs),
+            "rounds": rounds, "per_node": per_node,
+            "setup_s": setup_s, "traffic_phase_s": traffic_phase_s,
+            "converge_s_per_round": [x["converge_s"] for x in rounds],
+            "converge_s_after_heal": heal_s,
+            "handoff_ms": handoff_ms,
+            "proxied": proxied,
+            "fenced": sum(m["totals"]["fenced"] for m in ms),
+            "denied": sum(m["totals"]["denied"] for m in ms),
+            "fence_failures": host_fallbacks,
+            "launches": launches, "k2_launches": k2_launches,
+            "k3_launches": k3_launches, "x8_launches": x8_launches,
+            "x8_max_abs_err": x8_worst,
+            "fused_calls": fused_calls, "per_doc_replays": replays,
+            "resolves": batches,
+            "k1_checked": len(k1_calls.args),
+            "k2_checked": len(k2_calls.args),
+            "k1_max_abs_err": k1_err, "k2_max_abs_err": k2_worst,
+            "k3_max_abs_err": k3_worst, "plain_check_s": plain_check_s,
+            "history": {"docs": len(strips),
+                        "snapshots_checked": checked,
+                        "call_ms": [ms_ for _i, _s, ms_ in
+                                    strips.values()]},
+            "dt_wire_families": sorted({ln.split()[2] for ln in
+                                        prom.splitlines()
+                                        if ln.startswith("# TYPE dt_wire")}),
+            "device_share_round0": profile,
+            "lock_witness": {k: wit[k] for k in ("acyclic", "edge_count",
+                                                 "violation_count",
+                                                 "acquires", "edges")}}
+    finally:
+        ff.FusedDocSession.sync = real_sync
+        faults.heal()
+        for h in httpds:
+            with contextlib.suppress(Exception):
+                h.shutdown()
+            with contextlib.suppress(Exception):
+                h.server_close()
+        witness.witness_disable()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def replay_batch_inputs(rng: np.random.Generator, b: int, n: int, cap: int,
                         mi: int, device) -> List[torch.Tensor]:
     """In-contract whole-trace replays for `replay_batch_kernel`: per row
@@ -3697,6 +4249,10 @@ def main(argv=None) -> int:
         osched["seconds"] = time.perf_counter() - t
         emit(osched)
         t = time.perf_counter()
+        rsched = run_replicated(rng(19), device, cfg, ReplicatedConfig())
+        rsched["seconds"] = time.perf_counter() - t
+        emit(rsched)
+        t = time.perf_counter()
         replay = run_replay_batch(rng(17), device)
         replay["seconds"] = time.perf_counter() - t
         emit(replay)
@@ -3713,14 +4269,16 @@ def main(argv=None) -> int:
                                   "merge_step": step["launches"],
                                   "scheduler_hydrated": hsched["launches"],
                                   "scheduler_qos": qsched["launches"],
-                                  "scheduler_obs": osched["launches"]},
+                                  "scheduler_obs": osched["launches"],
+                                  "replicated": rsched["launches"]},
              "max_abs_err": max(kvp["max_abs_err"], timing["max_abs_err"],
                                 sched["k1_max_abs_err"],
                                 sched_w["k1_max_abs_err"],
                                 step["max_abs_err"],
                                 hsched["k1_max_abs_err"],
                                 qsched["k1_max_abs_err"],
-                                osched["k1_max_abs_err"]),
+                                osched["k1_max_abs_err"],
+                                rsched["k1_max_abs_err"]),
              "bound_by": "bytes", "library_ms": None,
              **{k: widest[k] for k in timed if k in widest},
              "shape": {k: widest[k] for k in ("b", "cap", "n")},
@@ -3737,13 +4295,15 @@ def main(argv=None) -> int:
                                   "scheduler_hydrated":
                                       hsched["k2_launches"],
                                   "scheduler_qos": qsched["k2_launches"],
-                                  "scheduler_obs": osched["k2_launches"]},
+                                  "scheduler_obs": osched["k2_launches"],
+                                  "replicated": rsched["k2_launches"]},
              "max_abs_err": max(k2p["max_abs_err"], k2["max_abs_err"],
                                 sched["k2_max_abs_err"],
                                 sched_w["k2_max_abs_err"],
                                 hsched["k2_max_abs_err"],
                                 qsched["k2_max_abs_err"],
-                                osched["k2_max_abs_err"]),
+                                osched["k2_max_abs_err"],
+                                rsched["k2_max_abs_err"]),
              "bound_by": "bytes", **{k: k2[k] for k in timed},
              "shape": k2["shape"],
              "library": {"call": "torch.cumsum(nv, 1)", **k2["library"]}},
@@ -3752,9 +4312,11 @@ def main(argv=None) -> int:
              "replaces": "diamond_types_tpu/tpu/pallas_kernels.py:211",
              "launches": checkout["launches"],
              "launches_by_path": {"checkout": checkout["launches"],
-                                  "history": history["launches"]},
+                                  "history": history["launches"],
+                                  "replicated": rsched["k3_launches"]},
              "max_abs_err": max(k3p["max_abs_err"], k3["max_abs_err"],
-                                history["max_abs_err"]),
+                                history["max_abs_err"],
+                                rsched["k3_max_abs_err"]),
              "bound_by": "bytes", **{k: k3[k] for k in timed},
              "device_ms_cold_l2": k3["device_ms_cold_l2"],
              "shape": k3["shape"],
@@ -3768,9 +4330,11 @@ def main(argv=None) -> int:
              "launches": zone["launches"],
              "launches_by_path": {"zone": zone["launches"],
                                   "zone_batch": zbatch["launches"],
-                                  "scheduler_zone": zsched["launches"]},
+                                  "scheduler_zone": zsched["launches"],
+                                  "replicated": rsched["x8_launches"]},
              "max_abs_err": max(zkern["max_abs_err"], zone["max_abs_err"],
-                                zsched["max_abs_err"]),
+                                zsched["max_abs_err"],
+                                rsched["x8_max_abs_err"]),
              **{k: zone["x8"][k] for k in timed},
              "bound_by": "bytes",
              **{k: zone["x8"][k] for k in ("bound_step_bytes",

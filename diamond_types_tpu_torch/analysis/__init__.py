@@ -2,13 +2,16 @@
 
 The JAX package's `analysis/witness.py`, copied whole. The scheduler's
 global, shard and device locks, the bank's first-touch lock, the
-hydrator's warm-map lock and the tiered store's locks are witness locks
-(`make_lock`) under the JAX package's names, order classes and ranks, so
-`witness_enable()` records the same lock-order graph there and the
-storage soak's acyclicity gate covers the scheduler. The canonical order:
-scheduler global → sorted shard locks → io → oplog guard → sorted
-per-device locks → leaf. The static lint (`analysis/lint.py` and its
-rules) is not ported yet.
+hydrator's warm-map lock, the tiered store's locks, the sync server's
+`store.io` and `store.oplog`, the wire channel's `wire.frames` and the
+replication mesh's `repl.*` locks are witness locks (`make_lock`) under
+the JAX package's names, order classes and ranks, so `witness_enable()`
+records the same lock-order graph there and the soaks' acyclicity gates
+cover the scheduler and the mesh. The canonical order: replicate
+maintenance → leases → membership/peers → scheduler global → sorted shard
+locks → io → oplog guard → sorted per-device locks → leaf (the replica
+journal among them). The static lint (`analysis/lint.py` and its rules)
+is not ported yet.
 """
 
 from __future__ import annotations

@@ -29,7 +29,9 @@ flushes on time.
 The JAX package's `serve/hydrate.py`, copied whole. The Hydrator never
 touches the device: its retry, timeout, quarantine and defer ladder is the
 tier's contract, so the catch-alls that keep its workers alive cannot hide
-a kernel fault. `remote_fetch` stays unwired until replication is ported.
+a kernel fault. `replicate.attach_replication` wires `remote_fetch` to the
+node's `fetch_remote_snapshot` when a Hydrator is attached to the server's
+scheduler (`tools/server.serve` attaches none).
 
 Locking: `hydrate.warm` (io rung) guards the warm map / defer table /
 eviction marks and is NEVER held across disk IO or sleeps — loads and

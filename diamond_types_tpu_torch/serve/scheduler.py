@@ -75,8 +75,14 @@ evictions, fence failures). The window reports each class's replay to
 `obs.devprof.PROFILER.observe_window`. With no bundle attached every
 touchpoint is one attribute check.
 
+Replication (`replicate.attach_replication`, as `tools/server.serve`
+wires it): `admit` is the node's lease gate (`ReplicaNode.owns`) and
+`epoch_of` its `active_epoch`, so a server merges only the documents whose
+lease it holds, on the card, and drops work whose lease moved before the
+flush.
+
 Left out of the port so far (ROADMAP item 12): follower-read
-invalidation.
+invalidation (`read/`, item 12e).
 """
 
 from __future__ import annotations

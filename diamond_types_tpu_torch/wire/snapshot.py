@@ -18,8 +18,8 @@ snapshot is applied exactly like a patch — double delivery merges to
 the same bytes.
 
 The JAX package's `wire/snapshot.py`, copied. The Hydrator's remote fill
-imports `apply_snapshot`; nothing wires a `remote_fetch` until replication
-is ported.
+imports `apply_snapshot`; `replicate.attach_replication` wires its
+`remote_fetch` to the node's `fetch_remote_snapshot`.
 """
 
 from __future__ import annotations

@@ -50,7 +50,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "obs", "obs.recorder", "obs.trace", "obs.devprof",
               "obs.exemplars", "obs.attrib", "obs.journey", "obs.slo",
               "obs.incident", "obs.scorecard", "obs.assemble", "obs.prom",
-              "read", "read.metrics"):
+              "read", "read.metrics", "wire.channel", "replicate",
+              "replicate.faults", "replicate.metrics",
+              "replicate.membership", "replicate.ownership",
+              "replicate.quorum", "replicate.writergroup",
+              "replicate.rebalance", "replicate.antientropy",
+              "replicate.node", "tools", "tools.server",
+              "tools.web_assets", "tools.py2js", "tools.crdt_replay_src"):
         assert f"diamond_types_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
