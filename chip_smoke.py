@@ -312,8 +312,11 @@ package), in phases, each printing one JSON line:
                 node's text equals the mirror's C++ tracker checkout
                 (`Branch.merge_reference`), exactly one node holds each
                 document's ACTIVE lease, and its scheduler's text equals
-                the mirror. Then, with DT_SERVER_DEVICE set, POST
-                /doc/{id}/history on 4 documents' owners: one K3 launch per
+                the mirror; each owner's device session that is caught
+                up with its oplog is read on the card and equals the
+                mirror too, at least 8 documents a node. Then, with
+                DT_SERVER_DEVICE set, POST /doc/{id}/history on 4
+                documents' owners: one K3 launch per
                 strip, each equal to its plain version, each strip's texts
                 equal to the host's checkout at the same LV. Requires every
                 K1 and K2 call equal to its plain version, K1 launches ==
@@ -3525,26 +3528,24 @@ def run_scheduler_obs(rng: np.random.Generator, device, cfg: ServeConfig,
             "transform": m["transform"], "lock_witness": run.lock_witness}
 
 
-# ---- phase 19: the replication mesh on the card -----------------------------
+# ---- phase 18: the replication mesh on the card -----------------------------
 
 REPL_NODES = 3                      # the standard quorum of three
+REPL_DOCS = 96
 REPL_SHARDS = 2                     # each server's scheduler
 REPL_ROUNDS = 4                     # rounds counted from 0:
 REPL_HANDOFF_ROUND = 1              # round 2 hands queued documents off,
+REPL_HANDOFFS = 8
 REPL_PARTITION_ROUND = 2            # round 3 partitions one node
+REPL_PROFILE_ROUND = 0              # the first round is traced
 REPL_EDITS = (1, 4)                 # per client, document and round
 REPL_HISTORY_DOCS = 4               # history strips through the endpoint
 REPL_HISTORY_N = 16                 # each strip's snapshots at most
 REPL_LEASE_TTL_S = 30.0             # no takeover inside the phase
 REPL_CLIENT_THREADS = 8
 REPL_CONVERGE_S = 60.0              # each convergence's deadline
-
-
-@dataclass
-class ReplicatedConfig:
-    n_docs: int = 96
-    handoffs: int = 8
-    profile_round: int = 0          # the first round is traced
+REPL_MIN_SESSION_DOCS = 8           # per node and round, read on the card:
+                                    # half a server's 16 session slots
 
 
 def client_edits(rng, client, k: int, cfg: ServeConfig) -> int:
@@ -3578,8 +3579,8 @@ def remote_version(ol) -> list:
     return sorted(map(tuple, ol.cg.local_to_remote_frontier(ol.version)))
 
 
-def run_replicated(rng: np.random.Generator, device, cfg: ServeConfig,
-                   rcfg: ReplicatedConfig) -> dict:
+def run_replicated(rng: np.random.Generator, device,
+                   cfg: ServeConfig) -> dict:
     """Three port servers (`tools.server.serve(port=0, data_dir=<its own
     temporary directory>, serve_shards=2, device=<the card>)`), each with
     its fused device scheduler (device plan: K2, then K1) and its
@@ -3600,8 +3601,10 @@ def run_replicated(rng: np.random.Generator, device, cfg: ServeConfig,
     deadline (every node's version of every document equal to the
     mirror's, the union of the clients' oplogs), every node's text equal
     to the mirror's C++ tracker checkout (`Branch.merge_reference`),
-    exactly one ACTIVE lease holder per document, and that owner's
-    scheduler text equal to the mirror. Then, with DT_SERVER_DEVICE set,
+    exactly one ACTIVE lease holder per document, that owner's scheduler
+    text equal to the mirror, and each owner session caught up with its
+    oplog read on the card (its rows) equal to the mirror, at least
+    REPL_MIN_SESSION_DOCS a node. Then, with DT_SERVER_DEVICE set,
     POST /doc/{id}/history for 4 documents: K3 launched once per strip,
     each call equal to its plain version, and each strip's texts equal
     to the host's checkout at the same LV. Requires every K1 and K2 call
@@ -3673,7 +3676,7 @@ def run_replicated(rng: np.random.Generator, device, cfg: ServeConfig,
                 n.antientropy.run_round()
 
         # the documents, each typed by one agent at its rendezvous owner
-        docs = [f"rdoc{d:03d}" for d in range(rcfg.n_docs)]
+        docs = [f"rdoc{d:03d}" for d in range(REPL_DOCS)]
         owner0 = {d: addrs.index(nodes[0].desired_owner(d)) for d in docs}
         mirrors = {d: OpLog() for d in docs}
         clients: Dict[str, list] = {}
@@ -3717,8 +3720,12 @@ def run_replicated(rng: np.random.Generator, device, cfg: ServeConfig,
 
         def verify(r: int) -> dict:
             """Every node's text, the single lease holder and its
-            scheduler's text against the mirror; returns the counts."""
-            served = 0
+            scheduler's text against the mirror; each owner's resident
+            session that is caught up with its oplog is read on the card
+            (`sess.text()`, the device rows) and held against the mirror
+            too, and every node must have at least
+            REPL_MIN_SESSION_DOCS such documents. Returns the counts."""
+            served = [0] * REPL_NODES
             for s in scheds:
                 s.drain()
             for d in docs:
@@ -3730,15 +3737,22 @@ def run_replicated(rng: np.random.Generator, device, cfg: ServeConfig,
                            if n.leases.active_epoch(d)]
                 check(len(holders) == 1, f"round {r}: {d} has ACTIVE "
                       f"leases on nodes {holders}")
-                h = httpds[holders[0]]
-                check(scheds[holders[0]].text(d) == want,
+                o = holders[0]
+                check(scheds[o].text(d) == want,
                       f"round {r}: the owner scheduler's text of {d} "
                       "differs from the mirror")
-                shard = scheds[holders[0]].router.shard_of(d)
-                sess = scheds[holders[0]].banks[shard].sessions.get(d)
-                with h.store.lock:
-                    served += int(sess is not None and sess.synced_to
-                                  == len(h.store.docs[d]))
+                shard = scheds[o].router.shard_of(d)
+                sess = scheds[o].banks[shard].sessions.get(d)
+                with httpds[o].store.lock:
+                    synced = (sess is not None and sess.synced_to
+                              == len(httpds[o].store.docs[d]))
+                if synced:
+                    check(sess.text() == want, f"round {r}: the owner's "
+                          f"device session of {d} differs from the mirror")
+                    served[o] += 1
+            check(min(served) >= REPL_MIN_SESSION_DOCS,
+                  f"round {r}: owners read {served} documents from their "
+                  f"device sessions, under {REPL_MIN_SESSION_DOCS} a node")
             return {"owner_session_served": served}
 
         def doc_traffic(d: str, seed) -> tuple:
@@ -3781,7 +3795,7 @@ def run_replicated(rng: np.random.Generator, device, cfg: ServeConfig,
                     for i in range(REPL_NODES):
                         if i != partitioned:
                             faults.partition(addrs[partitioned], addrs[i])
-                profiling = r == rcfg.profile_round
+                profiling = r == REPL_PROFILE_ROUND
                 with (torch.profiler.profile(activities=PROFILED)
                       if profiling else contextlib.nullcontext()) as prof:
                     t = time.perf_counter()
@@ -3789,7 +3803,7 @@ def run_replicated(rng: np.random.Generator, device, cfg: ServeConfig,
                     traffic_s = time.perf_counter() - t
                     moved = []
                     if handoff:
-                        picks = rng.choice(len(docs), rcfg.handoffs,
+                        picks = rng.choice(len(docs), REPL_HANDOFFS,
                                            replace=False)
                         for p in picks:
                             d = docs[int(p)]
@@ -4249,7 +4263,7 @@ def main(argv=None) -> int:
         osched["seconds"] = time.perf_counter() - t
         emit(osched)
         t = time.perf_counter()
-        rsched = run_replicated(rng(19), device, cfg, ReplicatedConfig())
+        rsched = run_replicated(rng(19), device, cfg)
         rsched["seconds"] = time.perf_counter() - t
         emit(rsched)
         t = time.perf_counter()

@@ -1111,6 +1111,16 @@ class ReplicaNode:
                         rb.tick()
                 except Exception:   # pragma: no cover - keep running
                     pass
+                if getattr(getattr(self.store, "scheduler", None),
+                           "fault", None) is not None:
+                    # fail-stop: a fault under a flush (K1/K2) is kept
+                    # by the scheduler whoever caught its raise (the
+                    # catch-all above, handoff's own except); the node
+                    # stops renewing, handing off and reconciling, so
+                    # its leases lapse to peers while the server 503s
+                    self.antientropy.stop()
+                    self.table.stop_probe_loop()
+                    return
 
         self._thread = threading.Thread(target=loop, daemon=True)
         self._thread.start()

@@ -26,7 +26,11 @@ Faults are not swallowed: an exception in a flush (a kernel error, a
 failed session build) propagates out of `pump()` inline; from a worker
 thread or the background pump it is stored, and the next `drain()`,
 `stop_workers()` or `stop_pump()` raises the first one stored. Only the
-length fence sends a document to the host (`SessionBank`).
+length fence sends a document to the host (`SessionBank`). Whoever
+catches that raise, the scheduler keeps the first exception that escaped
+a flush in `fault`, which is never cleared: the port's server answers
+every request with 503 once it is set, and its replica node stops
+(fail-stop), so a catch-all above a flush cannot hide a kernel fault.
 
 Ownership gate: `admit(doc_id) -> bool` (cross-host replication) refuses
 merge work for docs whose lease this host does not hold; with `epoch_of`
@@ -221,6 +225,9 @@ class MergeScheduler:
         self._inflight = 0
         self._idle_cv = threading.Condition()
         self._error: Optional[Exception] = None
+        # the first exception that escaped a flush on any path (inline,
+        # worker, pump, read); unlike _error it is never consumed
+        self.fault: Optional[Exception] = None
 
     def attach_obs(self, obs) -> None:
         """Wire an obs.Observability bundle into the admit→flush path:
@@ -379,20 +386,24 @@ class MergeScheduler:
                 if items:
                     taken.append((shard, reason, items))
         synced = 0
-        if taken and self.mesh_window:
-            # every due bucket of every shard in ONE window
-            synced = self._flush_window(taken)
-        else:
-            for shard, reason, items in taken:
-                if self._flush_workers:
-                    self._dispatch(shard, reason, items)
-                else:
-                    self._flush_items(shard, reason, items)
-                synced += len(items)
-            if taken:
-                # one handoff (>= one device call) per taken bucket
-                self.metrics.record_window(len(taken), synced,
-                                           len({s for s, _r, _i in taken}))
+        try:
+            if taken and self.mesh_window:
+                # every due bucket of every shard in ONE window
+                synced = self._flush_window(taken)
+            else:
+                for shard, reason, items in taken:
+                    if self._flush_workers:
+                        self._dispatch(shard, reason, items)
+                    else:
+                        self._flush_items(shard, reason, items)
+                    synced += len(items)
+        except Exception as e:
+            self._note_fault(e)
+            raise
+        if taken and not self.mesh_window:
+            # one handoff (>= one device call) per taken bucket
+            self.metrics.record_window(len(taken), synced,
+                                       len({s for s, _r, _i in taken}))
         if taken:
             with self.lock:
                 for shard in {s for s, _r, _i in taken}:
@@ -414,7 +425,13 @@ class MergeScheduler:
             t.start()
         self._work_qs[shard].put((reason, items))
 
+    def _note_fault(self, e: Exception) -> None:
+        with self._idle_cv:
+            if self.fault is None:
+                self.fault = e
+
     def _store_error(self, e: Exception) -> None:
+        self._note_fault(e)
         with self._idle_cv:
             if self._error is None:
                 self._error = e
@@ -782,7 +799,11 @@ class MergeScheduler:
                 items = self.queue.take(shard, bucket,
                                         limit=self.queue.max_pending)
         if items:
-            self._flush_items(shard, "read", items)
+            try:
+                self._flush_items(shard, "read", items)
+            except Exception as e:
+                self._note_fault(e)
+                raise
             with self.lock:
                 self.metrics.observe_queue(shard,
                                            self.queue.depth(shard))

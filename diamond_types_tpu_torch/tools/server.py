@@ -5,7 +5,9 @@ The JAX package's `tools/server.py`, ported. Two places reach the card:
 device plan (K2, then K1 for every flush), and with DT_SERVER_DEVICE set
 the history strip is one `gpu/plan_kernels.texts_at_versions` call (K3).
 Both take the server's `device` (`serve(device=...)`): None means CUDA,
-which must exist, so neither ever falls back to the host engine.
+which must exist, so neither ever falls back to the host engine. A fault
+under a flush is fail-stop: once the scheduler holds one, every request
+answers 503 and the replica node's loop ends.
 
 Capability mirror of the reference's wiki demo app (reference:
 wiki/server/server.ts:1-60 — an HTTP server holding an OpLog per document,
@@ -693,7 +695,27 @@ class SyncHandler(BaseHTTPRequestHandler):
             return span.context()
         return None
 
+    def _refused_for_fault(self) -> bool:
+        """Fail-stop: once the merge scheduler holds a fault (a K1/K2
+        launch that raised under a flush, on whatever path caught it),
+        every request answers 503 with the fault. Peers' probes of
+        /replicate/ping fail with it, so they route around this node."""
+        sched = self.store.scheduler
+        fault = sched.fault if sched is not None else None
+        if fault is None:
+            return False
+        # read the body off first: closing over unread bytes resets the
+        # connection before the client reads the answer
+        self.rfile.read(int(self.headers.get("Content-Length") or 0))
+        self._send(503, json.dumps(
+            {"error": "scheduler_fault",
+             "fault": f"{fault.__class__.__name__}: {fault}"[:200]})
+            .encode("utf8"))
+        return True
+
     def do_GET(self):
+        if self._refused_for_fault():
+            return
         obs = self.store.obs
         t0 = time.monotonic()
         try:
@@ -1032,6 +1054,8 @@ class SyncHandler(BaseHTTPRequestHandler):
         # browser endpoint — and corrupt binary patches on /push
         # (ParseError) — are client errors, not handler-thread crashes.
         from ..encoding.decode import ParseError
+        if self._refused_for_fault():
+            return
         obs = self.store.obs
         t0 = time.monotonic()
         if obs is not None:

@@ -30,6 +30,7 @@ the other (the same script writes byte-identical files), and a JAX server
 protocol, as a rolling upgrade from the reference to the port would run.
 """
 
+import difflib
 import importlib
 import json
 import re
@@ -49,7 +50,7 @@ COPIED = ("replicate/faults.py", "replicate/metrics.py",
           "replicate/peers.py", "replicate/membership.py",
           "replicate/ownership.py", "replicate/quorum.py",
           "replicate/writergroup.py", "replicate/rebalance.py",
-          "replicate/antientropy.py", "replicate/node.py")
+          "replicate/antientropy.py")
 # serve-block keys of JAX's /metrics the port does not have (12e's read
 # block; the Pallas rung's fallback counter)
 SERVE_ONLY_IN_JAX = {"serve.read", "serve.totals.pallas_fallbacks"}
@@ -94,6 +95,25 @@ def witnessed():
 @pytest.mark.parametrize("rel", COPIED)
 def test_module_is_a_byte_identical_copy(rel):
     assert (REPO / PORT / rel).read_bytes() == (REPO / JAX / rel).read_bytes()
+
+
+def test_node_is_the_jax_node_plus_the_fail_stop():
+    """The port's `replicate/node.py` is JAX's with lines added, and only
+    inside the probe loop: the fail-stop on a scheduler fault."""
+    jax = (REPO / JAX / "replicate/node.py").read_text().splitlines()
+    port = (REPO / PORT / "replicate/node.py").read_text().splitlines()
+    ops = [op for op in difflib.SequenceMatcher(
+        a=jax, b=port, autojunk=False).get_opcodes() if op[0] != "equal"]
+    assert [op[0] for op in ops] == ["insert"]
+    _tag, i1, _i2, j1, j2 = ops[0]
+    assert jax[i1 - 2:i1] == ["                except Exception:   "
+                              "# pragma: no cover - keep running",
+                              "                    pass"]
+    added = port[j1:j2]
+    assert '"fault", None) is not None:' in added[1]
+    assert added[-3:] == ["                    self.antientropy.stop()",
+                          "                    self.table.stop_probe_loop()",
+                          "                    return"]
 
 
 def test_package_exports_match():
@@ -1527,3 +1547,74 @@ def test_remote_fill_pulls_the_owners_snapshot(tmp_path):
     got = _both(_remote_fill, tmp_path)
     assert got == {"wired": True, "text": "owned elsewhere, fetched cold",
                    "fills": 1, "errors": 0, "hydrate_frames": 1}
+
+
+# ---- fail-stop on a kernel fault -----------------------------------------
+
+@pytest.mark.parametrize("exc", [RuntimeError, ValueError])
+def test_kernel_fault_under_a_probe_loop_handoff_stops_the_node(
+        monkeypatch, exc):
+    """A K1 fault met by the drain of a handoff that the probe loop's
+    `maintain` started: the drain flushes the queued edit of a document
+    that stays (the moving document's own work is fenced). A RuntimeError
+    passes through the handoff to the loop's catch-all, a ValueError is
+    caught by the handoff's own except; either way the scheduler keeps the
+    fault, the node's loop ends, and the server answers every request with
+    503 naming the fault."""
+    server = _mod(PORT, "tools.server")
+    tff = _mod(PORT, "gpu.flush_fuse")
+    owner_of = _mod(PORT, "replicate.ownership").owner_of
+    opts = dict(probe_interval_s=0.05, backoff_base_s=0.01,
+                backoff_cap_s=0.05)
+    httpds = []
+    try:
+        for _ in range(2):
+            h = _serve(PORT, port=0, serve_shards=2, peers=[],
+                       replicate_opts=dict(opts))
+            httpds.append(h)
+            threading.Thread(target=h.serve_forever, daemon=True).start()
+        src, dst = (h.store.replica for h in httpds)
+        # docs src owns alone; once dst joins, `move`'s owner is dst and
+        # `stay`'s is still src
+        owners = {f"fs-{k}": owner_of(f"fs-{k}", [src.self_id, dst.self_id])
+                  for k in range(64)}
+        move = next(d for d, o in owners.items() if o == dst.self_id)
+        stay = next(d for d, o in owners.items() if o == src.self_id)
+        clients = [server.SyncClient(f"http://{src.self_id}", d, "writer")
+                   for d in (move, stay)]
+        for c in clients:
+            c.insert(0, "merged before the fault")
+            c.sync()
+        sched = src.store.scheduler
+        sched.stop_pump()       # from here only the handoff drains
+        assert src.owns(move) and src.owns(stay) and sched.fault is None
+
+        def boom(*a, **k):
+            raise exc("injected K1 fault")
+        monkeypatch.setattr(tff, "apply_ops_window", boom)
+        for c in clients:
+            c.insert(0, "queued: ")
+            c.sync()
+        assert sched.queue.total_depth() == 2
+        assert dst.join_mesh(src.self_id)
+        deadline = time.monotonic() + 20
+        while src._thread.is_alive() and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert not src._thread.is_alive()
+        assert isinstance(sched.fault, exc)
+        assert str(sched.fault) == "injected K1 fault"
+        assert src.metrics_json()["handoffs"]["started"] >= 1
+        assert src.metrics_json()["handoffs"]["completed"] == 0
+        for path, data in (("/replicate/ping", None),
+                           (f"/doc/{stay}/edit", b"{}")):
+            with pytest.raises(urllib.error.HTTPError) as ei:
+                urllib.request.urlopen(f"http://{src.self_id}{path}",
+                                       data=data, timeout=5)
+            assert ei.value.code == 503
+            assert json.loads(ei.value.read()) == {
+                "error": "scheduler_fault",
+                "fault": f"{exc.__name__}: injected K1 fault"}
+        assert dst.store.scheduler.fault is None
+    finally:
+        monkeypatch.undo()
+        _teardown(httpds)

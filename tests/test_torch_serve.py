@@ -271,6 +271,8 @@ def test_kernel_or_build_fault_propagates_out_of_drain(monkeypatch, fault,
     m = sched.metrics_json()["totals"]
     assert m["host_fallbacks"] == 0
     sched.stop_workers()          # raised once; nothing left to raise
+    # the fault itself stays for the server and the replica node to read
+    assert str(sched.fault) == f"injected {fault} fault"
     for w in sched._workers:
         assert w is None
 

@@ -855,7 +855,9 @@ def test_device_history_strip_equals_host_strip_on_cuda(monkeypatch):
 def test_two_node_port_mesh_converges_on_cuda():
     """Two port servers merging on the card behind the admit gate: writes
     at either node converge, each doc merged on its owner only, whose
-    scheduler serves the converged text from its device session."""
+    scheduler serves the converged text from its device session: the
+    session is resident and caught up with the oplog, its rows read on
+    the card equal the text, and K1 replayed the second round's tails."""
     _needs_cuda()
     from diamond_types_tpu_torch.gpu import kernels
     from diamond_types_tpu_torch.replicate import attach_replication
@@ -871,12 +873,17 @@ def test_two_node_port_mesh_converges_on_cuda():
             threading.Thread(target=h.serve_forever, daemon=True).start()
         kernels.apply_ops_window.launches = 0
         docs = [f"cuda-{k}" for k in range(6)]
-        for k, d in enumerate(docs):
-            for i in range(2):
-                c = srv.SyncClient(f"http://{addrs[i]}", d, f"w{i}")
-                c.pull()
-                c.insert(len(c.text()), f"[{i}:{k}]" * 20)
-                c.sync()
+        # two rounds: the first builds each owner's session, the second's
+        # tails replay on it (K1)
+        for rnd in range(2):
+            for k, d in enumerate(docs):
+                for i in range(2):
+                    c = srv.SyncClient(f"http://{addrs[i]}", d, f"w{i}")
+                    c.pull()
+                    c.insert(len(c.text()), f"[{rnd}:{i}:{k}]" * 20)
+                    c.sync()
+            for h in httpds:
+                h.store.scheduler.drain()
         for _ in range(20):
             for n in nodes:
                 n.table.probe_once()
@@ -894,7 +901,14 @@ def test_two_node_port_mesh_converges_on_cuda():
                 [owner.self_id]
             sched = owner.store.scheduler
             sched.drain()
-            assert sched.text(d) == t.pop()
+            want = t.pop()
+            sess = sched.banks[sched.router.shard_of(d)].sessions.get(d)
+            with owner.store.lock:
+                assert sess is not None
+                assert sess.synced_to == len(owner.store.docs[d])
+            assert sess.text() == want
+            assert sched.text(d) == want
+        assert kernels.apply_ops_window.launches > 0
         assert all(h.store.scheduler.metrics_json()["totals"]
                    ["host_fallbacks"] == 0 for h in httpds)
         assert sum(h.store.scheduler.metrics_json()["totals"]["denied"]
