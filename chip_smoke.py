@@ -336,20 +336,65 @@ package), in phases, each printing one JSON line:
                 counters; the handoffs' ms, the seconds to converge after
                 the heal, the history strips' ms, the `dt_wire_*` families
                 and round 1's device busy share.
- 19. replay_batch - `kernels.replay_batch_kernel` (the counterpart of
+ 19. scenario - the scenario harness over three replicas' device
+                schedulers: `workload.run_scenario(get_scenario(
+                "flash-crowd"), qos=True, device=<the card>)`, the scenario
+                registered unchanged (3 servers, serve_shards 2, follower
+                reads on every server, 2 tenants x 8 documents, 20 virtual
+                seconds at ticks of 0.5 s; bursty arrivals at 12/s with x8
+                bursts of 1.5 s every 6 s; a hot set of 2 documents at
+                weight 0.85 rotating every 5 s; 20 reads per write; session
+                churn every 4 s: ~600-800 writes and ~12,000-16,000 reads
+                over real HTTP), the QoS controller on every server. Every
+                server the run boots is kept (`Served`: a wrapper on
+                `tools.server.serve`), every `ReadPath.read` recorded, and
+                tick 24 traced by `torch.profiler` for the card's busy
+                share. Requires byte-identical convergence after the
+                reconcile and the scorecard ok, no read served locally
+                past a `max_staleness` budget it carried, every K1, K2, X8
+                (and K3) call of the run equal to its plain version, K1
+                launches == fused calls + per-doc replays and K2 launches
+                == resolves over the three schedulers, 0 host and plan
+                fallbacks and no scheduler fault. Prints the scorecard's
+                top-level numbers, writes and reads attempted, succeeded
+                and refused, the read path's counters (local, waited,
+                proxied, refused, cache), staleness and read latency
+                p50/p99, per-node flush p50/p99 and docs/s, burn-minutes,
+                launches and the traced tick's device busy share.
+ 20. follower_reads - `read.bench.run_read_bench` at its defaults (2
+                servers, 3 documents of 16 KiB, 6 readers x 120 Zipf-1.2
+                reads a phase, a min-version token every 4th read) with
+                serve_shards 2 on the card: the control phase (every
+                follower read proxied to the owner) against follower reads
+                under a 2 s budget, every response checked client-side for
+                its staleness and token. Requires the bench's pass and the
+                same kernel checks; prints local against proxied read
+                latency, the bench's speedup and verdict.
+ 21. replicate_soak - `replicate.soak.run_replicate_soak(servers=3,
+                rounds=8, crash=True, asym=True, churn=True,
+                serve_shards=2, device=<the card>)`: drops, one-way
+                partitions, two crash-restarts on their journals, a join
+                and a leave, with the device schedulers under the crash.
+                Requires the soak's verdict (converged, zero split-brain),
+                the lock witness acyclic and the same kernel checks over
+                every server incarnation's scheduler.
+ 22. replay_batch - `kernels.replay_batch_kernel` (the counterpart of
                 `replay_batch_pallas`: one K1 launch over a whole op
                 sequence from empty rows) against its plain version at b
                 128, n 64, cap 4,096, max_ins 16 on in-contract ops; its
                 call_ms, device_ms, plain ms and HBM bound. It is on no
                 serve path.
- 20. kernels  - one line for K1, K2, K3, X8 and `replay_batch_kernel`:
+ 23. kernels  - one line for K1, K2, K3, X8 and `replay_batch_kernel`:
                 launches on the main path (K1
                 and K2 in the serve phase, K3 in the checkout phase; per
                 path in `launches_by_path`, the scheduler's, the flush
                 window's, the hydrated scheduler's, the QoS scheduler's,
-                the observed scheduler's and the replicated mesh's (K1,
-                K2), the history's and the replicated mesh's (K3) and the
-                merge step's (K1) too; `replay_batch_kernel`'s from its own check), max
+                the observed scheduler's, the replicated mesh's, the
+                scenario's, the follower reads' and the soak's (K1, K2, and
+                X8 where the engine policy gives a merge to the zone
+                engine), the history's and the replicated mesh's (K3, and
+                a later phase's where one launches it) and the merge
+                step's (K1) too; `replay_batch_kernel`'s from its own check), max
                 error against the plain version (see below), and at the
                 main path's widest call two times: `call_ms` (CUDA events
                 around back-to-back wrapper calls: host and device) and
@@ -363,17 +408,19 @@ package), in phases, each printing one JSON line:
                 device_ms (`torch.cumsum` for K2); then the card's name and
                 power limit. max_abs_err covers the kernel phases, the serve
                 phase's captured calls, the scheduler runs' calls, the
-                history's and the history strips' K3 calls and the merge
-                step's K1 call; K3's line
+                served phases' calls (replicated, scenario, follower_reads,
+                replicate_soak), the history's and the history strips' K3
+                calls and the merge step's K1 call; K3's line
                 has its numbers at the history's shape under "history",
                 K1's at the merge step's under "merge_step". The
                 serve line carries K1's call_ms and
                 device_ms at every captured bucket, and K1's CTAs per
                 launch as derived from the launcher's grid rule
                 (b * ceil(cap / 512)), not observed. X8's entry has its
-                launches per path (zone, zone_batch, scheduler_zone,
-                replicated), its max error over the zone_kernel, zone,
-                scheduler_zone and replicated launches, its times at the zone phase's shape and its
+                launches per path (zone, zone_batch, scheduler_zone and
+                the four served phases), its max error over the
+                zone_kernel, zone, scheduler_zone and served phases'
+                launches, its times at the zone phase's shape and its
                 bounds there: `bound_ms`, the sum over steps of each
                 step's inputs read once and outputs written once, at HBM
                 rate; `whole_tape_ms`, the tape once and the carry in and
@@ -4026,6 +4073,356 @@ def run_replicated(rng: np.random.Generator, device,
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---- phases 19-21: the layer above the server --------------------------------
+
+SCENARIO = "flash-crowd"            # workload/spec.py, registered unchanged
+SCENARIO_PROFILE_TICK = 24          # the traced tick: 12.0-12.5 s, in the
+                                    # third burst (12-13.5 s)
+FOLLOWER_SHARDS = 2                 # each server's scheduler, in both the
+SOAK_SHARDS = 2                     # read bench and the soak
+SOAK_ROUNDS = 8                     # the soak's documented drill settings
+
+
+class Served:
+    """The kernels under the servers an entry point boots: every server
+    it makes through `tools.server.serve` is kept (its scheduler with its
+    metrics), per-doc replays are counted on `FusedDocSession.sync`, and
+    K1, K2, X8 and K3 run under spies that keep each call's inputs, their
+    launch counts set to 0 on entry and read on exit. `verify` then holds
+    every call against its plain version and the launch counts against
+    the calls the schedulers made."""
+
+    def __init__(self, phase: str, need_k2: bool = True) -> None:
+        self.phase, self.need_k2 = phase, need_k2
+        self.httpds: list = []
+        self.syncs: List[int] = []
+
+    def __enter__(self) -> "Served":
+        from diamond_types_tpu_torch.gpu import flush_fuse as ff
+        from diamond_types_tpu_torch.gpu import kernels
+        from diamond_types_tpu_torch.tools import server
+        self.ff, self.kernels, self.server = ff, kernels, server
+        self.real_serve, self.real_sync = server.serve, ff.FusedDocSession.sync
+
+        def serve(*args, **kw):
+            httpd = self.real_serve(*args, **kw)
+            self.httpds.append(httpd)
+            return httpd
+
+        def counted_sync(sess):
+            n = self.real_sync(sess)
+            self.syncs.append(n)
+            return n
+
+        server.serve = serve
+        ff.FusedDocSession.sync = counted_sync
+        self.stack = contextlib.ExitStack()
+        self.k1 = self.stack.enter_context(
+            Spy(ff, "apply_ops_window", keep=True))
+        self.k2 = self.stack.enter_context(
+            Spy(kernels, "xform_positions", keep=True))
+        self.x8 = self.stack.enter_context(KeptRuns(kernels, "zone_tape_run"))
+        self.k3 = self.stack.enter_context(
+            Spy(kernels, "materialize_runs", keep=True))
+        for k in (kernels.apply_ops_window, kernels.xform_positions,
+                  kernels.zone_tape_run, kernels.materialize_runs):
+            k.launches = 0
+        return self
+
+    def __exit__(self, *exc) -> None:
+        k = self.kernels
+        self.launches = {"k1": k.apply_ops_window.launches,
+                         "k2": k.xform_positions.launches,
+                         "x8": k.zone_tape_run.launches,
+                         "k3": k.materialize_runs.launches}
+        self.stack.close()
+        self.server.serve = self.real_serve
+        self.ff.FusedDocSession.sync = self.real_sync
+
+    def scheds(self) -> list:
+        return [h.store.scheduler for h in self.httpds
+                if h.store.scheduler is not None]
+
+    def verify(self) -> dict:
+        """Every K1, K2, X8 and K3 call of the run against its plain
+        version; K1 launches == fused calls + per-doc replays, K2 ==
+        resolves, X8 and K3 == their calls, over every scheduler the run
+        booted (crashed and rebooted ones too); 0 host fallbacks (the
+        length fence never failed), 0 plan fallbacks, no scheduler fault."""
+        from diamond_types_tpu_torch.gpu import zone_kernel as zk
+        phase, n = self.phase, self.launches
+        ms = [s.metrics_json() for s in self.scheds()]
+        faults = [repr(s.fault) for s in self.scheds() if s.fault is not None]
+        check(not faults, f"{phase}: scheduler faults {faults}")
+        fused = sum(m["fused"]["device_calls"] for m in ms)
+        resolves = sum(m["transform"]["batches"] for m in ms)
+        planned = {k: sum(m["transform"][k] for m in ms)
+                   for k in ("device_docs", "host_docs")}
+        replays = sum(1 for k in self.syncs if k)
+        check(n["k1"] == fused + replays == len(self.k1.args)
+              and n["k1"] > 0,
+              f"{phase}: K1 launched {n['k1']} times for {fused} fused "
+              f"calls and {replays} per-doc replays "
+              f"({len(self.k1.args)} calls)")
+        check(n["k2"] == resolves == len(self.k2.args)
+              and (n["k2"] > 0 or not self.need_k2),
+              f"{phase}: K2 launched {n['k2']} times for {resolves} "
+              f"resolves ({len(self.k2.args)} calls)")
+        check(n["x8"] == len(self.x8.runs),
+              f"{phase}: X8 launched {n['x8']} times for "
+              f"{len(self.x8.runs)} zone_tape_run calls")
+        check(n["k3"] == len(self.k3.args),
+              f"{phase}: K3 launched {n['k3']} times for "
+              f"{len(self.k3.args)} calls")
+        host = sum(m["totals"]["host_fallbacks"] for m in ms)
+        plan = sum(m["transform"]["fallbacks"] for m in ms)
+        check(host == 0 and plan == 0, f"{phase}: {host} host fallbacks "
+              f"(length-fence failures), {plan} plan fallbacks")
+        t = time.perf_counter()
+        by_mi: Dict[int, list] = {}
+        for a in self.k1.args:          # (docs, lens, pos, dlen, ilen,
+            by_mi.setdefault(int(a[6]), []).append(a)   # chars, max_ins)
+        k1_err = max((k1_calls_err(calls, mi)
+                      for mi, calls in by_mi.items()), default=0)
+        k2_worst = max((k2_err(nv, ov) for nv, ov in self.k2.args),
+                       default=0)
+        x8_worst = max((zone_err(after, zk.run_zone_plain(
+            zk.ZoneCarry(*(t_.cpu() for t_ in before)),
+            {k: v.cpu() for k, v in xs.items()}, plen))
+            for xs, plen, before, after in self.x8.runs), default=0)
+        k3_worst = max((k3_err(list(a[:4]), a[4]) for a in self.k3.args),
+                       default=0)
+        for name, err in (("K1", k1_err), ("K2", k2_worst),
+                          ("X8", x8_worst), ("K3", k3_worst)):
+            check(err == 0, f"{name} differs from its plain version at a "
+                  f"{phase} call: max abs err {err}")
+        return {"launches": n["k1"], "k2_launches": n["k2"],
+                "x8_launches": n["x8"], "k3_launches": n["k3"],
+                "fused_calls": fused, "per_doc_replays": replays,
+                "resolves": resolves, "planned_docs": planned,
+                "host_fallbacks": host,
+                "plan_fallbacks": plan, "schedulers": len(ms),
+                "k1_max_abs_err": k1_err, "k2_max_abs_err": k2_worst,
+                "x8_max_abs_err": x8_worst, "k3_max_abs_err": k3_worst,
+                "plain_check_s": time.perf_counter() - t}
+
+
+def node_flush(served: Served, wall_s: float) -> list:
+    """Per server the run booted: flush p50/p99 (ms) and docs/s over the
+    run's wall time."""
+    out = []
+    for h in served.httpds:
+        if h.store.scheduler is None:
+            continue
+        m = h.store.scheduler.metrics_json()
+        lat = m["latencies"]["flush"]
+        out.append({"flush_ms_p50_p99": [1e3 * lat["p50"],
+                                         1e3 * lat["p99"]],
+                    "flushes": m["totals"]["flushes"],
+                    "flushed_docs": m["totals"]["flushed_docs"],
+                    "docs_per_s": m["totals"]["flushed_docs"] / wall_s})
+    return out
+
+
+def run_scenario_phase(device) -> dict:
+    """`workload.run_scenario(get_scenario("flash-crowd"), qos=True,
+    device=<the card>)`: the scenario as `workload/spec.py` registers it
+    (3 servers of 2 serve shards with follower reads, 2 tenants x 8
+    documents, 20 virtual seconds at ticks of 0.5 s, bursty arrivals at
+    12/s with x8 bursts of 1.5 s every 6 s on a rotating hot set of 2
+    documents at weight 0.85, 20 reads per write, session churn every
+    4 s), the QoS controller on every server, over real HTTP. The runner
+    steps the mesh's control plane each tick and reconciles at the end.
+    Every `ReadPath.read` is recorded (its budget, source and staleness),
+    and one tick (SCENARIO_PROFILE_TICK) is traced by `torch.profiler` for
+    the card's busy share. Requires the scorecard's byte-identical
+    convergence and ok, no read served locally past a `max_staleness`
+    budget it carried (the runner's GETs carry none, so every local read
+    is within its budget by the contract; the follower_reads phase sends
+    budgets), and `Served.verify`: every K1, K2 and X8 launch equal to its
+    plain version, the launch counts equal to the calls, 0 host and plan
+    fallbacks, no scheduler fault."""
+    from diamond_types_tpu_torch.read import path as rpath
+    from diamond_types_tpu_torch.workload import get_scenario, run_scenario
+    from diamond_types_tpu_torch.workload import runner
+
+    reads: List[tuple] = []
+    real_read = rpath.ReadPath.read
+
+    def read(self, doc_id, kind="text", max_staleness=None,
+             min_version=None, forced_local=False, trace=None):
+        res = real_read(self, doc_id, kind, max_staleness, min_version,
+                        forced_local, trace)
+        st = res.headers.get(rpath.STALENESS_HEADER)
+        reads.append((max_staleness, res.status, res.source,
+                      None if st is None else float(st)))
+        return res
+
+    real_publish = runner.publish_scenario
+    prof_box: dict = {}
+
+    def publish(state):
+        tick = state.get("tick")
+        if state.get("phase") == "traffic":
+            if tick == SCENARIO_PROFILE_TICK:
+                prof_box["prof"] = torch.profiler.profile(
+                    activities=PROFILED)
+                prof_box["prof"].__enter__()
+                prof_box["t"] = time.perf_counter()
+            elif tick == SCENARIO_PROFILE_TICK + 1 and "prof" in prof_box:
+                torch.cuda.synchronize()
+                prof_box["wall"] = time.perf_counter() - prof_box["t"]
+                prof_box["prof"].__exit__(None, None, None)
+        return real_publish(state)
+
+    sc = get_scenario(SCENARIO)
+    rpath.ReadPath.read = read
+    runner.publish_scenario = publish
+    try:
+        with Served("scenario") as served:
+            t = time.perf_counter()
+            card = run_scenario(sc, qos=True, device=device)
+            wall = time.perf_counter() - t
+    finally:
+        rpath.ReadPath.read = real_read
+        runner.publish_scenario = real_publish
+        if "prof" in prof_box and "wall" not in prof_box:
+            prof_box["prof"].__exit__(None, None, None)
+    kern = served.verify()
+    check(card["convergence"]["converged"], "scenario: the servers did not "
+          "converge byte-identically after the reconcile")
+    check(card["ok"], f"scenario: the scorecard is not ok: slo "
+          f"{card['slo']}, errors {card['totals']['errors']}")
+    over = [r for r in reads if r[0] is not None and r[2] == "local"
+            and (r[3] is None or r[3] > r[0])]
+    check(not over, f"scenario: {len(over)} reads served past their "
+          f"max_staleness budget, e.g. {over[:3]}")
+    check(len(served.httpds) == sc.servers,
+          f"scenario: {len(served.httpds)} servers booted")
+    rm = [h.store.reads.metrics.snapshot()["counters"]
+          for h in served.httpds]
+    counters = {k: sum(c[k] for c in rm) for k in (
+        "reads", "local", "catchup_waits", "proxied_staleness",
+        "proxied_min_version", "proxied_steered", "proxied_forced",
+        "refused", "cache_hits", "cache_misses", "cache_coalesced",
+        "flush_invalidations", "ae_invalidations", "adverts",
+        "reconciles")}
+    stale = [r[3] for r in reads if r[2] == "local" and r[3] is not None]
+    tot = card["totals"]
+    tape = runner._build_events(sc)
+    rl = card["latencies"]["read"]
+    return {
+        "phase": "scenario", "scenario": sc.to_dict(), "qos": True,
+        "wall_s": wall,
+        "scorecard": {k: card[k] for k in (
+            "wall_s", "virtual_s", "throughput", "latency_p99_s",
+            "bytes_per_op", "slo", "burn_minutes", "burn_minutes_total",
+            "ok", "qos", "serve", "hydration") if k in card},
+        "convergence": {k: card["convergence"][k]
+                        for k in ("converged", "reconcile_rounds")},
+        "writes": {"attempted": sum(1 for e in tape if e[1] == "write"),
+                   "succeeded": tot["writes"], "refused": tot["sheds"],
+                   "errors": tot["errors"]},
+        "reads": {"attempted": sum(1 for e in tape if e[1] == "read"),
+                  "succeeded": tot["reads"],
+                  "refused": tot["read_refusals"],
+                  "with_budget": sum(1 for r in reads if r[0] is not None),
+                  "by_source": dict(collections.Counter(
+                      r[2] for r in reads)),
+                  "read_path": counters},
+        "staleness_s_p50_p99": [float(np.percentile(stale, 50)),
+                                float(np.percentile(stale, 99))]
+        if stale else None,
+        "read_latency_ms_p50_p99": [1e3 * rl["p50"], 1e3 * rl["p99"]],
+        "per_node": node_flush(served, wall),
+        "incidents": {"count": card["incidents"]["count"],
+                      "by_kind": card["incidents"]["by_kind"],
+                      "series": dict(collections.Counter(
+                          r["series"] for r in
+                          card["incidents"]["timeline"]))},
+        "device_share_tick": device_share(
+            prof_box["prof"], prof_box["wall"], SCENARIO_PROFILE_TICK)
+        if "wall" in prof_box else None,
+        **kern}
+
+
+def run_follower_reads(device) -> dict:
+    """`read.bench.run_read_bench` at its defaults (2 servers with
+    follower reads, 3 documents of 16 KiB, one writer a document, 6 reader
+    threads x 120 Zipf-1.2 reads a phase, a min-version token every 4th
+    read; the control phase reads with max_staleness 0, so every
+    follower read proxies to the owner, the follower phase with 2 s) with
+    `serve_shards=2, device=<the card>`. Every response's staleness and
+    read-your-writes token is checked client-side by the bench. Requires
+    the bench's own pass (settled, 0 violations, 0 errors) and
+    `Served.verify`. Each document has one writer appending, so its tails
+    are linear and planned on the host: K2 may not launch here."""
+    from diamond_types_tpu_torch.read.bench import run_read_bench
+    with Served("follower_reads", need_k2=False) as served:
+        t = time.perf_counter()
+        rep = run_read_bench(serve_shards=FOLLOWER_SHARDS, device=device)
+        wall = time.perf_counter() - t
+    kern = served.verify()
+    check(rep["ok"], f"follower_reads: the read bench failed: settled "
+          f"{rep['settled']}, violations {rep['violations']}, errors "
+          f"{rep['errors']}")
+    phases = {p: {k: rep[p][k] for k in (
+        "max_staleness_s", "reads", "reads_per_s", "local", "proxied",
+        "refused", "staleness_violations", "ryw_violations",
+        "max_observed_staleness_s", "latency_s")}
+        for p in ("control", "follower")}
+    return {"phase": "follower_reads", "config": rep["config"],
+            "wall_s": wall, "ok": rep["ok"], "settled": rep["settled"],
+            "speedup": rep["speedup"], "violations": rep["violations"],
+            "errors": rep["errors"], "writes": rep["writes"],
+            "proxied_latency_s": phases["control"]["latency_s"],
+            "local_latency_s": phases["follower"]["latency_s"],
+            "phases": phases, "per_node": node_flush(served, wall),
+            **kern}
+
+
+def run_replicate_soak_phase(device) -> dict:
+    """`replicate.soak.run_replicate_soak(servers=3, rounds=8, crash=True,
+    asym=True, churn=True, serve_shards=2, device=<the card>)`: the
+    drill's documented settings (seed 7, 4 documents, drops 15%, one-way
+    partitions, two crash-restarts on their journals, a join then a
+    leave), its servers' data under a temporary directory. Requires the
+    soak's own verdict (byte-identical convergence, zero split-brain, the
+    lock witness acyclic) and `Served.verify` over every server
+    incarnation's scheduler."""
+    import shutil
+    import tempfile
+
+    from diamond_types_tpu_torch.replicate.soak import run_replicate_soak
+    root = tempfile.mkdtemp(prefix="dt_soak_")
+    try:
+        with Served("replicate_soak") as served:
+            t = time.perf_counter()
+            rep = run_replicate_soak(servers=3, rounds=SOAK_ROUNDS,
+                                     crash=True, asym=True, churn=True,
+                                     serve_shards=SOAK_SHARDS,
+                                     data_dir=root, device=device)
+            wall = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    kern = served.verify()
+    wit = rep.get("lock_witness", {})
+    check(rep["converged"] and rep["zero_split_brain"]
+          and wit.get("acyclic"),
+          f"replicate_soak: converged {rep['converged']}, split brain "
+          f"{rep['split_brain']}, witness cycles {wit.get('cycles')}")
+    return {"phase": "replicate_soak", "config": rep["config"],
+            "wall_s": wall,
+            **{k: rep[k] for k in ("converged", "zero_split_brain",
+                                   "crashes", "edits_applied", "fencing",
+                                   "quorum", "multi_merger_docs",
+                                   "converged_after_reconcile_rounds")},
+            "lock_witness": {k: wit.get(k) for k in (
+                "acyclic", "edge_count", "violation_count", "acquires")},
+            "server_incarnations": len(served.httpds),
+            "per_node": node_flush(served, wall), **kern}
+
+
 def replay_batch_inputs(rng: np.random.Generator, b: int, n: int, cap: int,
                         mi: int, device) -> List[torch.Tensor]:
     """In-contract whole-trace replays for `replay_batch_kernel`: per row
@@ -4267,6 +4664,20 @@ def main(argv=None) -> int:
         rsched["seconds"] = time.perf_counter() - t
         emit(rsched)
         t = time.perf_counter()
+        scen = run_scenario_phase(device)
+        scen["seconds"] = time.perf_counter() - t
+        emit(scen)
+        t = time.perf_counter()
+        freads = run_follower_reads(device)
+        freads["seconds"] = time.perf_counter() - t
+        emit(freads)
+        t = time.perf_counter()
+        rsoak = run_replicate_soak_phase(device)
+        rsoak["seconds"] = time.perf_counter() - t
+        emit(rsoak)
+        above = (("scenario", scen), ("follower_reads", freads),
+                 ("replicate_soak", rsoak))
+        t = time.perf_counter()
         replay = run_replay_batch(rng(17), device)
         replay["seconds"] = time.perf_counter() - t
         emit(replay)
@@ -4284,7 +4695,8 @@ def main(argv=None) -> int:
                                   "scheduler_hydrated": hsched["launches"],
                                   "scheduler_qos": qsched["launches"],
                                   "scheduler_obs": osched["launches"],
-                                  "replicated": rsched["launches"]},
+                                  "replicated": rsched["launches"],
+                                  **{p: r["launches"] for p, r in above}},
              "max_abs_err": max(kvp["max_abs_err"], timing["max_abs_err"],
                                 sched["k1_max_abs_err"],
                                 sched_w["k1_max_abs_err"],
@@ -4292,7 +4704,8 @@ def main(argv=None) -> int:
                                 hsched["k1_max_abs_err"],
                                 qsched["k1_max_abs_err"],
                                 osched["k1_max_abs_err"],
-                                rsched["k1_max_abs_err"]),
+                                rsched["k1_max_abs_err"],
+                                *(r["k1_max_abs_err"] for _p, r in above)),
              "bound_by": "bytes", "library_ms": None,
              **{k: widest[k] for k in timed if k in widest},
              "shape": {k: widest[k] for k in ("b", "cap", "n")},
@@ -4310,14 +4723,16 @@ def main(argv=None) -> int:
                                       hsched["k2_launches"],
                                   "scheduler_qos": qsched["k2_launches"],
                                   "scheduler_obs": osched["k2_launches"],
-                                  "replicated": rsched["k2_launches"]},
+                                  "replicated": rsched["k2_launches"],
+                                  **{p: r["k2_launches"] for p, r in above}},
              "max_abs_err": max(k2p["max_abs_err"], k2["max_abs_err"],
                                 sched["k2_max_abs_err"],
                                 sched_w["k2_max_abs_err"],
                                 hsched["k2_max_abs_err"],
                                 qsched["k2_max_abs_err"],
                                 osched["k2_max_abs_err"],
-                                rsched["k2_max_abs_err"]),
+                                rsched["k2_max_abs_err"],
+                                *(r["k2_max_abs_err"] for _p, r in above)),
              "bound_by": "bytes", **{k: k2[k] for k in timed},
              "shape": k2["shape"],
              "library": {"call": "torch.cumsum(nv, 1)", **k2["library"]}},
@@ -4327,10 +4742,13 @@ def main(argv=None) -> int:
              "launches": checkout["launches"],
              "launches_by_path": {"checkout": checkout["launches"],
                                   "history": history["launches"],
-                                  "replicated": rsched["k3_launches"]},
+                                  "replicated": rsched["k3_launches"],
+                                  **{p: r["k3_launches"] for p, r in above
+                                     if r["k3_launches"]}},
              "max_abs_err": max(k3p["max_abs_err"], k3["max_abs_err"],
                                 history["max_abs_err"],
-                                rsched["k3_max_abs_err"]),
+                                rsched["k3_max_abs_err"],
+                                *(r["k3_max_abs_err"] for _p, r in above)),
              "bound_by": "bytes", **{k: k3[k] for k in timed},
              "device_ms_cold_l2": k3["device_ms_cold_l2"],
              "shape": k3["shape"],
@@ -4345,10 +4763,12 @@ def main(argv=None) -> int:
              "launches_by_path": {"zone": zone["launches"],
                                   "zone_batch": zbatch["launches"],
                                   "scheduler_zone": zsched["launches"],
-                                  "replicated": rsched["x8_launches"]},
+                                  "replicated": rsched["x8_launches"],
+                                  **{p: r["x8_launches"] for p, r in above}},
              "max_abs_err": max(zkern["max_abs_err"], zone["max_abs_err"],
                                 zsched["max_abs_err"],
-                                rsched["x8_max_abs_err"]),
+                                rsched["x8_max_abs_err"],
+                                *(r["x8_max_abs_err"] for _p, r in above)),
              **{k: zone["x8"][k] for k in timed},
              "bound_by": "bytes",
              **{k: zone["x8"][k] for k in ("bound_step_bytes",

@@ -9,13 +9,14 @@ recorder (`recorder`, a `queue_bound_violation` event) and the live
 time-series double-writes (`ts`: `serve.<counter>`, `serve.flush`,
 `serve.flushed_ops`, `serve.queue_wait`, `serve.xform_device_docs`,
 `serve.hydration.<event>`, `serve.hydration_cold_start`), which the QoS
-controller and the SLO engine read. Left out until their layers are
-ported: the follower-read `read` block and the Pallas-rung fallback
-counter, so the snapshot's keys are those of schema 3.
+controller and the SLO engine read, and the follower-read tier's `read`
+block (`read.attach_follower_reads` wires `read`, a `ReadMetrics`; null
+until then). Left out: the Pallas-rung fallback counter (the port has no
+Pallas rung).
 
 Schema (snapshot()):
 
-  {"version": 3, "uptime_s": s, "shards": N, "flush_docs": B,
+  {"version": 4, "uptime_s": s, "shards": N, "flush_docs": B,
    "max_pending": P,
    "totals": {"submits", "coalesced", "rejects", "denied", "fenced",
               "flushes", "flushed_docs", "flushed_ops", "builds",
@@ -40,6 +41,8 @@ Schema (snapshot()):
    "hydration": {"prefetches", "warm_hits", "hydrations", ...},
                                     # the residency tier (HYDRATION_KEYS;
                                     # all zero until a Hydrator is attached)
+   "read": {...} | null,            # ReadMetrics.snapshot() once a
+                                    # ReadPath is attached
    "max_depth_seen": d,
    "queue_bound_violations": 0,     # depth observed above max_pending
    "latencies": {"flush": hist,     # obs.hist snapshot w/ p50/p90/p99
@@ -105,8 +108,8 @@ class ServeMetrics:
     # the port's own counter-set version; bump whenever it changes
     # (2: the flush window's super-batch and staging fields; 3: the
     # residency tier's `hydration` block and
-    # `latencies.hydration_cold_start`)
-    SCHEMA_VERSION = 3
+    # `latencies.hydration_cold_start`; 4: the follower-read `read` block)
+    SCHEMA_VERSION = 4
 
     def __init__(self, n_shards: int, flush_docs: int,
                  max_pending: int) -> None:
@@ -146,6 +149,10 @@ class ServeMetrics:
         self.cold_start_latency = Histogram()
         self.flush_latency = Histogram()
         self.queue_wait_latency = Histogram()
+        # follower-read tier (read/metrics.py ReadMetrics), wired by
+        # read.attach_follower_reads; the `read` block is its snapshot,
+        # null until a ReadPath is attached
+        self.read = None
         self.flush_wall_s: List[float] = [0.0] * n_shards
         self.device_sync_s: List[float] = [0.0] * n_shards
         # obs.recorder.FlightRecorder, wired by
@@ -285,6 +292,7 @@ class ServeMetrics:
         flush_hist = self.flush_latency.snapshot()
         queue_wait_hist = self.queue_wait_latency.snapshot()
         cold_hist = self.cold_start_latency.snapshot()
+        read_snap = self.read.snapshot() if self.read is not None else None
         with self._lock:
             totals = {k: sum(s[k] for s in self.shard)
                       for k in _SHARD_KEYS}
@@ -346,6 +354,7 @@ class ServeMetrics:
                               + self.xform_fallbacks, 1), 4),
                 },
                 "hydration": dict(self.hydration),
+                "read": read_snap,
                 "max_depth_seen": self.max_depth_seen,
                 "queue_bound_violations": self.queue_bound_violations,
                 "latencies": {"flush": flush_hist,

@@ -85,8 +85,10 @@ wires it): `admit` is the node's lease gate (`ReplicaNode.owns`) and
 lease it holds, on the card, and drops work whose lease moved before the
 flush.
 
-Left out of the port so far (ROADMAP item 12): follower-read
-invalidation (`read/`, item 12e).
+Follower reads (`read.attach_follower_reads`): `read_invalidate` is the
+read path's `on_flush`, called for every document a flush committed, on
+the per-shard path and in the window, so the checkout cache drops the
+document's entries.
 """
 
 from __future__ import annotations
@@ -204,6 +206,12 @@ class MergeScheduler:
         # qos.QosController (attach_qos); None = the static size-or-
         # deadline trigger
         self.qos = None
+        # read.attach_follower_reads wires this to ReadPath.on_flush: a
+        # committed flush moved the doc's merged tip, so the follower-read
+        # checkout cache drops the doc's entries. Called outside the
+        # shard and bank locks, right after record_flush, for every item
+        # of the flush on either path.
+        self.read_invalidate: Optional[Callable[[str], None]] = None
         # docs the hydration gate requeued (written under self.lock):
         # drain() counts a pump that only deferred as progress
         self._deferred = 0
@@ -599,6 +607,9 @@ class MergeScheduler:
             for it in items:
                 obs.attrib.note("ops", doc=it.doc_id, n=it.n_ops)
                 obs.attrib.note("device_s", doc=it.doc_id, n=dev_share)
+        if self.read_invalidate is not None:
+            for it in items:
+                self.read_invalidate(it.doc_id)
 
     # ---- flush window ----------------------------------------------------
 
@@ -734,6 +745,12 @@ class MergeScheduler:
                 self.metrics.record_flush(
                     s, len(items), sum(i.n_ops for i in items), reason,
                     dur_s=time.perf_counter() - t0)
+                # every item of the entry, the capacity-pressure victims
+                # that `adopt_window` re-synced on the per-doc rung among
+                # them, is committed by now
+                if self.read_invalidate is not None:
+                    for it in items:
+                        self.read_invalidate(it.doc_id)
         dur = time.perf_counter() - t0
         fspan.end(dur_s=round(dur, 6), dispatches=dispatches)
         self.metrics.record_window(dispatches, n_docs, len(shards),

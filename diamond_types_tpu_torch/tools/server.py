@@ -5,9 +5,12 @@ The JAX package's `tools/server.py`, ported. Two places reach the card:
 device plan (K2, then K1 for every flush), and with DT_SERVER_DEVICE set
 the history strip is one `gpu/plan_kernels.texts_at_versions` call (K3).
 Both take the server's `device` (`serve(device=...)`): None means CUDA,
-which must exist, so neither ever falls back to the host engine. A fault
-under a flush is fail-stop: once the scheduler holds one, every request
-answers 503 and the replica node's loop ends.
+which must exist, so neither ever falls back to the host engine. Every
+checkout the server makes (`DocStore.checkout`) merges on that device
+too, where the JAX server calls `OpLog.checkout`: the engine policy may
+give a checkout to the zone engine. A fault under a flush is fail-stop:
+once the scheduler holds one, every request answers 503 and the replica
+node's loop ends.
 
 Capability mirror of the reference's wiki demo app (reference:
 wiki/server/server.ts:1-60 — an HTTP server holding an OpLog per document,
@@ -138,6 +141,7 @@ from ..causalgraph.summary import intersect_with_summary, summarize_versions
 from ..encoding.decode import decode_into, load_oplog
 from ..encoding.encode import ENCODE_FULL, ENCODE_PATCH, encode_oplog
 from ..obs.trace import TRACE_HEADER, parse_header
+from ..text.branch import Branch
 from ..text.oplog import OpLog
 from ..wire.frames import (FRAME_DOCS, FRAME_OPS, FRAME_PATCH,
                            FRAME_SNAPSHOT, FRAME_STATE, FRAME_SUMMARY,
@@ -200,6 +204,10 @@ class DocStore:
         self._conds: Dict[str, threading.Condition] = {}
         self._stop = threading.Event()
         self._flusher: Optional[threading.Thread] = None
+
+    def checkout(self, ol: OpLog, frontier) -> Branch:
+        """`ol.checkout(frontier)` on the store's device (`checkout`)."""
+        return checkout(ol, frontier, self.device)
 
     def start_flusher(self) -> None:
         """Run autosave on a background thread so the (lock-holding) encode
@@ -449,7 +457,18 @@ def _crdt_next_seq(aa, agent: int) -> int:
     return nxt
 
 
-def _crdt_apply_op(ol: OpLog, op: dict, cache: Optional[dict] = None) -> None:
+def checkout(ol: OpLog, frontier, device=None) -> Branch:
+    """`ol.checkout(frontier)` with `Branch.merge`'s engines on `device`
+    (None: CUDA, which must exist), so a server asked for the CPU never
+    sends a checkout to the card when the engine policy picks the zone
+    engine."""
+    b = Branch()
+    b.merge(ol, list(frontier), device=device)
+    return b
+
+
+def _crdt_apply_op(ol: OpLog, op: dict, cache: Optional[dict] = None,
+                   device=None) -> None:
     """Fold one browser-CRDT op (original position + explicit parents)
     into the oplog; idempotent on (agent, seq) replays. Validation runs
     BEFORE any mutation: a bad op must not leave a half-appended log.
@@ -490,7 +509,7 @@ def _crdt_apply_op(ol: OpLog, op: dict, cache: Optional[dict] = None) -> None:
     if cache is not None and cache.get("frontier") == tuple(frontier):
         blen = cache["blen"]
     else:
-        blen = len(ol.checkout(frontier))
+        blen = len(checkout(ol, frontier, device))
     if op.get("kind") == "ins":
         pos = _ix(op["pos"])
         content = op.get("content")
@@ -575,7 +594,7 @@ def doc_history_strip(ol: OpLog, n: int, tip: Optional[list] = None,
         from ..gpu.plan_kernels import texts_at_versions
         if n == 1:   # strip budget fits only the merged-tip snapshot
             return [{"lv": int(max(t for t in tip)),
-                     "text": ol.checkout(tip).snapshot()}]
+                     "text": checkout(ol, tip, device).snapshot()}]
         take = min(n - 1, n_entries)
         idxs = [round(i * (n_entries - 1) / max(take - 1, 1))
                 for i in range(take)]
@@ -590,7 +609,7 @@ def doc_history_strip(ol: OpLog, n: int, tip: Optional[list] = None,
         # an entry's snapshot is its own causal cone; the strip's last
         # stop is the MERGED tip (all cones joined)
         out.append({"lv": int(max(t for t in tip)),
-                    "text": ol.checkout(tip).snapshot()})
+                    "text": checkout(ol, tip, device).snapshot()})
         return out
     # host path: sample versions along the LV axis (each checkout is a
     # fast native merge)
@@ -599,9 +618,11 @@ def doc_history_strip(ol: OpLog, n: int, tip: Optional[list] = None,
     lvs = sorted({round((i + 1) * top / take) - 1 for i in range(take)})
     for lv in lvs:
         f = ol.cg.graph.find_dominators([lv])
-        out.append({"lv": int(lv), "text": ol.checkout(f).snapshot()})
+        out.append({"lv": int(lv),
+                    "text": checkout(ol, f, device).snapshot()})
     if out and out[-1]["lv"] == top - 1 and len(tip) > 1:
-        out[-1] = {"lv": top - 1, "text": ol.checkout(tip).snapshot()}
+        out[-1] = {"lv": top - 1,
+                   "text": checkout(ol, tip, device).snapshot()}
     return out
 
 
@@ -915,7 +936,7 @@ class SyncHandler(BaseHTTPRequestHandler):
         ol = self.store.get(doc_id)
         if action == "":
             with self.store.lock:
-                text = ol.checkout_tip().snapshot()
+                text = self.store.checkout(ol, ol.version).snapshot()
                 frontier = ol.cg.local_to_remote_frontier(ol.version)
             return self._send(200, text.encode("utf8"),
                               "text/plain; charset=utf-8",
@@ -941,7 +962,8 @@ class SyncHandler(BaseHTTPRequestHandler):
             with self.store.lock:
                 frontier = ol.cg.local_to_remote_frontier(ol.version)
                 body = json.dumps({
-                    "text": ol.checkout_tip().snapshot(),
+                    "text": self.store.checkout(ol, ol.version)
+                    .snapshot(),
                     "version": frontier})
             return self._send(200, body.encode("utf8"),
                               extra={**no_store,
@@ -1317,7 +1339,7 @@ class SyncHandler(BaseHTTPRequestHandler):
                 # Validate the WHOLE batch against the doc length at the
                 # client's version before touching the oplog: a rejected op
                 # must not leave earlier batch ops half-applied.
-                blen = len(ol.checkout(frontier))
+                blen = len(self.store.checkout(ol, frontier))
                 for op in ops:
                     if op[0] == "ins":
                         _k, pos, text = op
@@ -1403,7 +1425,8 @@ class SyncHandler(BaseHTTPRequestHandler):
                     cache = {}   # (frontier, blen) carried across the batch
                     for op in req.get("push") or []:
                         try:
-                            _crdt_apply_op(ol, op, cache)
+                            _crdt_apply_op(ol, op, cache,
+                                           self.store.device)
                         except AssertionError as e:
                             # engine invariant tripped mid-apply (e.g. a doc
                             # poisoned before op validation existed): a
@@ -1469,7 +1492,7 @@ class SyncHandler(BaseHTTPRequestHandler):
                 if not 0 <= lv < len(ol):
                     return self._send(400, b'{"error": "lv out of range"}')
                 f = ol.cg.graph.find_dominators([lv])
-                text = ol.checkout(f).snapshot()
+                text = self.store.checkout(ol, f).snapshot()
             return self._send(200, json.dumps({"text": text})
                               .encode("utf8"))
         return self._send(404, b"{}")

@@ -374,7 +374,7 @@ def test_metrics_hydration_block_matches_jax_keys():
     assert tmetrics.HYDRATION_KEYS == jmetrics.HYDRATION_KEYS
     m = tmetrics.ServeMetrics(2, 4, 64)
     snap0 = m.snapshot()
-    assert snap0["version"] == 3
+    assert snap0["version"] == 4
     assert tuple(snap0["hydration"]) == jmetrics.HYDRATION_KEYS
     assert set(snap0["hydration"].values()) == {0}
     m.record_hydration("prefetches")
@@ -442,10 +442,15 @@ def test_scheduler_rejects_quarantined_and_flushes_rest(tmp_path):
 
 
 def _lock_table(pkg):
+    import importlib
+    root = "diamond_types_tpu" if pkg is JAX else "diamond_types_tpu_torch"
+    read = importlib.import_module(f"{root}.read")
     sched = pkg.sched.MergeScheduler(3, resolve=lambda d: None,
                                      engine="host")
     locks = [sched.lock, *sched._shard_locks, *sched._device_locks,
-             pkg.bank._first_touch_lock]
+             pkg.bank._first_touch_lock,
+             read.CheckoutCache()._cache_lock,
+             read.FollowerIndex()._read_lock]
     return [(lk.name, lk.order_class, lk.rank) for lk in locks]
 
 
@@ -454,7 +459,9 @@ def test_witness_lock_table_matches_jax():
     assert table == _lock_table(JAX)
     assert table[0] == ("scheduler.global", "global", None)
     assert table[1:4] == [(f"shard[{i}]", "shard", i) for i in range(3)]
-    assert table[-1] == ("first_touch", "leaf", None)
+    assert table[-3] == ("first_touch", "leaf", None)
+    assert table[-2:] == [("read.cache", "io", None),
+                          ("read.follower", "io", None)]
 
 
 # ---- the hydrated device-engine scheduler vs JAX ---------------------------

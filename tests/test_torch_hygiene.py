@@ -56,7 +56,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "replicate.quorum", "replicate.writergroup",
               "replicate.rebalance", "replicate.antientropy",
               "replicate.node", "tools", "tools.server",
-              "tools.web_assets", "tools.py2js", "tools.crdt_replay_src"):
+              "tools.web_assets", "tools.py2js", "tools.crdt_replay_src",
+              "read.cache", "read.follower", "read.path", "read.bench",
+              "replicate.soak", "replicate.rebalance_soak", "workload",
+              "workload.arrivals", "workload.popularity", "workload.spec",
+              "workload.runner"):
         assert f"diamond_types_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -181,6 +185,35 @@ def test_device_entry_points_of_the_graph_and_history_paths_raise():
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert xform.validate_prefix_frontier(ol, ol.version, 3, device="cpu")
+
+
+@pytest.mark.parametrize("entry", [
+    "workload.runner:run_scenario", "read.bench:run_read_bench",
+    "replicate.soak:run_replicate_soak",
+    "replicate.rebalance_soak:run_rebalance_soak",
+    "replicate.rebalance_soak:run_split_soak"])
+def test_server_booting_entry_points_raise_without_cuda(entry):
+    """Every entry point that boots servers takes `device` and passes it to
+    `serve`; None means CUDA, so with no card it raises before it boots
+    anything, never falling back to the CPU or the host engine. The soak
+    raises even at `serve_shards=0`, where its servers merge nothing."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    import importlib
+    import inspect
+    import threading
+    mod, name = entry.split(":")
+    fn = getattr(importlib.import_module(f"diamond_types_tpu_torch.{mod}"),
+                 name)
+    assert inspect.signature(fn).parameters["device"].default is None
+    args = ()
+    if name == "run_scenario":
+        from diamond_types_tpu_torch.workload import get_scenario
+        args = (get_scenario("smoke"),)
+    threads = threading.active_count()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fn(*args)
+    assert threading.active_count() == threads
 
 
 def test_chip_smoke_fails_without_cuda():

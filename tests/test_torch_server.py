@@ -13,8 +13,9 @@ The port's server differs from JAX's on purpose, and these tests pin it:
 plan on `device` (None: CUDA, which must exist; no host engine), so with
 no CUDA and no device it raises; the DT_SERVER_DEVICE history strip runs
 `gpu/plan_kernels.texts_at_versions` (K3) on the server's device and
-raises without CUDA when none was asked for; and `serve(follower_reads=
-True)` raises ImportError until `read/` is ported. On a card (the `cuda`
+raises without CUDA when none was asked for; and every checkout the
+server makes merges on its device, so a server asked for the CPU stays
+there when the engine policy picks the zone engine. On a card (the `cuda`
 marker) the device strip equals the host strip and a two-node port mesh
 converges with the admit gate on.
 """
@@ -814,10 +815,62 @@ def test_device_history_strip_without_cuda_raises(monkeypatch):
         _stop(httpd)
 
 
-def test_follower_reads_raise_import_error_until_read_is_ported():
+@pytest.mark.parametrize("follower_reads", [False, True])
+def test_cpu_server_checkouts_stay_on_its_device(monkeypatch,
+                                                 follower_reads):
+    """Once the engine policy has measured the zone engine faster, every
+    checkout `Branch.merge` makes may go to the zone engine, which runs on
+    the device it is given. A server asked for the CPU gives its own: its
+    GETs (through the read path or not), the edit endpoint's length check
+    and the host history strip all answer there, on the zone engine.
+    `OpLog.checkout` gives no device (CUDA), so without a card the same
+    checkout raises."""
+    from diamond_types_tpu_torch.listmerge import policy
     srv = _mod(PORT, "tools.server")
-    with pytest.raises(ImportError):
-        srv.serve(port=0, follower_reads=True)
+    pol = policy.EnginePolicy()
+    pol.record(policy.TRACKER, 10_000, 1.0)
+    pol.record(policy.ZONE, 10_000, 0.001)
+    ol = _concurrent_oplog(PORT)
+    httpd, base = _serve(PORT, port=0, follower_reads=follower_reads)
+    try:
+        enc = _mod(PORT, "encoding.encode")
+        urllib.request.urlopen(urllib.request.Request(
+            base + "/doc/z/push",
+            data=enc.encode_oplog(ol, enc.ENCODE_FULL))).read()
+        want = ol.checkout_tip().snapshot()
+        monkeypatch.setattr(policy, "GLOBAL", pol)
+        engines = []
+        real = srv.Branch._zone_merge
+
+        def zone_merge(self, oplog, frontier, device):
+            engines.append(str(device))
+            return real(self, oplog, frontier, device)
+
+        monkeypatch.setattr(srv.Branch, "_zone_merge", zone_merge)
+        assert _get(base + "/doc/z") == want
+        state = json.loads(_get(base + "/doc/z/state"))
+        assert state["text"] == want
+        at = json.loads(urllib.request.urlopen(urllib.request.Request(
+            base + "/doc/z/at", data=b'{"lv": 3}'), timeout=10).read())
+        assert at["text"] == srv.checkout(
+            ol, ol.cg.graph.find_dominators([3]), "cpu").snapshot()
+        edit = {"agent": "e", "version": state["version"],
+                "ops": [{"kind": "ins", "pos": len(want), "text": "!"}]}
+        urllib.request.urlopen(urllib.request.Request(
+            base + "/doc/z/edit", data=json.dumps(edit).encode("utf8")),
+            timeout=10).read()
+        strip = json.loads(urllib.request.urlopen(urllib.request.Request(
+            base + "/doc/z/history", data=b'{"n": 4}'), timeout=10).read())
+        assert strip["snapshots"][-1]["text"].endswith("!")
+        assert engines and set(engines) == {"cpu"}
+        if follower_reads:
+            assert httpd.store.reads.metrics.snapshot()[
+                "counters"]["reads"] >= 2
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA"):
+                ol.checkout(ol.version)
+    finally:
+        _stop(httpd)
 
 
 # ---- on the card ------------------------------------------------------------------

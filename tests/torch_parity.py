@@ -317,3 +317,55 @@ def span_forest(spans: List[dict], drop: Sequence[str] = ()) -> list:
                      {k: v for k, v in s["attrs"].items() if k not in drop},
                      s["t0"], s["dur_s"]))
     return rows
+
+
+# ---- served kernels on the card ------------------------------------------------
+
+class ServedLaunches:
+    """Counts what the port's servers launch while an entry point runs:
+    keeps every server it boots through `tools.server.serve` (patched on
+    `monkeypatch`), counts per-doc replays on `FusedDocSession.sync`, and
+    sets K1's and K2's launch counts to 0. `check()` then requires K1
+    launches == fused calls + per-doc replays (> 0), K2 launches ==
+    resolves, 0 host and plan fallbacks and no scheduler fault, over every
+    scheduler booted."""
+
+    def __init__(self, monkeypatch) -> None:
+        from diamond_types_tpu_torch.gpu import flush_fuse as ff
+        from diamond_types_tpu_torch.gpu import kernels
+        from diamond_types_tpu_torch.tools import server
+        self.kernels = kernels
+        self.httpds: list = []
+        self.syncs: List[int] = []
+        real_serve, real_sync = server.serve, ff.FusedDocSession.sync
+
+        def serve(*args, **kw):
+            httpd = real_serve(*args, **kw)
+            self.httpds.append(httpd)
+            return httpd
+
+        def counted_sync(sess):
+            n = real_sync(sess)
+            self.syncs.append(n)
+            return n
+
+        monkeypatch.setattr(server, "serve", serve)
+        monkeypatch.setattr(ff.FusedDocSession, "sync", counted_sync)
+        kernels.apply_ops_window.launches = 0
+        kernels.xform_positions.launches = 0
+
+    def check(self) -> dict:
+        ms = [h.store.scheduler.metrics_json() for h in self.httpds
+              if h.store.scheduler is not None]
+        assert ms and all(h.store.scheduler.fault is None
+                          for h in self.httpds)
+        fused = sum(m["fused"]["device_calls"] for m in ms)
+        replays = sum(1 for n in self.syncs if n)
+        resolves = sum(m["transform"]["batches"] for m in ms)
+        k1 = self.kernels.apply_ops_window.launches
+        k2 = self.kernels.xform_positions.launches
+        assert k1 == fused + replays and k1 > 0, (k1, fused, replays)
+        assert k2 == resolves, (k2, resolves)
+        assert sum(m["totals"]["host_fallbacks"] for m in ms) == 0
+        assert sum(m["transform"]["fallbacks"] for m in ms) == 0
+        return {"k1": k1, "k2": k2, "fused": fused, "replays": replays}
