@@ -214,7 +214,7 @@ package), in phases, each printing one JSON line:
                 warm oplog under the oplog guard and to an in-memory mirror
                 that never touches the tier) and flushed again (K2 plans
                 the tails, K1 replays them); later waves evict it to its
-                snapshot. 6 rounds on per-shard flush workers, then 3 with
+                snapshot. 4 rounds on per-shard flush workers, then 3 with
                 `mesh_window=True` (a new Hydrator over the same store), so
                 both gate sites run; round 1 traced. Requires every text
                 after its wave equal to the mirror's tip branch, a fresh
@@ -378,21 +378,48 @@ package), in phases, each printing one JSON line:
                 Requires the soak's verdict (converged, zero split-brain),
                 the lock witness acyclic and the same kernel checks over
                 every server incarnation's scheduler.
- 22. replay_batch - `kernels.replay_batch_kernel` (the counterpart of
+ 22. cli      - `tools.cli.main` in-process, as a user types it:
+                `serve-bench --shards 4 --docs 64 --mode concurrent
+                --device-plan --json --metrics-out <tmp>` on the CLI's
+                default device (the card; K2 plans the tails, K1 replays
+                them), then the same at `--docs 16 --no-fused` (the
+                zone-session bank, X8 per sync), at the CLI's own widths
+                (4 sessions a shard). Each must exit 0 (parity and SLO)
+                and print the report it wrote; K1 launches == fused calls
+                + per-doc replays, K2 == resolves, X8 == its calls, every
+                K1, K2 and X8 call equal to its plain version, 0 host and
+                plan fallbacks.
+ 23. device_soak - `tools.device_soak.main(["--corpus", <the history
+                phase's ~40k-op oplog as a .dt file>, "--hours", "0.006",
+                "--log", <tmp>, "--device", "cuda"])`: ~22 s of 2-agent
+                merge-per-edit traffic through one `DeviceZoneSession`,
+                the session's text checked against the C++ tracker after
+                every sync by the soak itself. Requires soak_start,
+                session_built and soak_end in its log, no PARITY_MISMATCH
+                and no device_crash, syncs > 0, X8 launches == its calls,
+                every continuation launch equal to its plain version and
+                of the resync launches the first (the build over the whole
+                zone, whose plain version takes seconds). At the session's
+                width (pow2(2 W)) 22 s of growth forces no resync, so the
+                same command then soaks a 300-op history of the same
+                generator for ~5 s, whose small zone the growth outgrows:
+                resyncs >= 1, every launch held against its plain version.
+ 24. replay_batch - `kernels.replay_batch_kernel` (the counterpart of
                 `replay_batch_pallas`: one K1 launch over a whole op
                 sequence from empty rows) against its plain version at b
                 128, n 64, cap 4,096, max_ins 16 on in-contract ops; its
                 call_ms, device_ms, plain ms and HBM bound. It is on no
                 serve path.
- 23. kernels  - one line for K1, K2, K3, X8 and `replay_batch_kernel`:
+ 25. kernels  - one line for K1, K2, K3, X8 and `replay_batch_kernel`:
                 launches on the main path (K1
                 and K2 in the serve phase, K3 in the checkout phase; per
                 path in `launches_by_path`, the scheduler's, the flush
                 window's, the hydrated scheduler's, the QoS scheduler's,
                 the observed scheduler's, the replicated mesh's, the
-                scenario's, the follower reads' and the soak's (K1, K2, and
-                X8 where the engine policy gives a merge to the zone
-                engine), the history's and the replicated mesh's (K3, and
+                scenario's, the follower reads', the soak's and the CLI's
+                (K1, K2, and X8 where the engine policy gives a merge to
+                the zone engine; the CLI's zone-session bench and the
+                device soak for X8), the history's and the replicated mesh's (K3, and
                 a later phase's where one launches it) and the merge
                 step's (K1) too; `replay_batch_kernel`'s from its own check), max
                 error against the plain version (see below), and at the
@@ -409,7 +436,8 @@ package), in phases, each printing one JSON line:
                 power limit. max_abs_err covers the kernel phases, the serve
                 phase's captured calls, the scheduler runs' calls, the
                 served phases' calls (replicated, scenario, follower_reads,
-                replicate_soak), the history's and the history strips' K3
+                replicate_soak, cli), the device soak's held X8 launches,
+                the history's and the history strips' K3
                 calls and the merge step's K1 call; K3's line
                 has its numbers at the history's shape under "history",
                 K1's at the merge step's under "merge_step". The
@@ -417,10 +445,10 @@ package), in phases, each printing one JSON line:
                 device_ms at every captured bucket, and K1's CTAs per
                 launch as derived from the launcher's grid rule
                 (b * ceil(cap / 512)), not observed. X8's entry has its
-                launches per path (zone, zone_batch, scheduler_zone and
-                the four served phases), its max error over the
-                zone_kernel, zone, scheduler_zone and served phases'
-                launches, its times at the zone phase's shape and its
+                launches per path (zone, zone_batch, scheduler_zone, the
+                four served phases, cli and device_soak), its max error
+                over the zone_kernel, zone, scheduler_zone, served, cli
+                and device_soak phases' launches, its times at the zone phase's shape and its
                 bounds there: `bound_ms`, the sum over steps of each
                 step's inputs read once and outputs written once, at HBM
                 rate; `whole_tape_ms`, the tape once and the carry in and
@@ -2649,7 +2677,7 @@ def run_scheduler_zone(rng: np.random.Generator, device, cfg: ServeConfig,
 class HydratedConfig:
     warm_max: int = 64          # a quarter of the 256 documents
     workers: int = 2
-    rounds: int = 6             # per-shard flush workers
+    rounds: int = 4             # per-shard flush workers
     window_rounds: int = 3      # then the flush window
     wave: int = 32              # documents opened and edited together
     profile_round: int = 1      # this round is traced
@@ -2742,7 +2770,7 @@ def run_scheduler_hydrated(rng: np.random.Generator, device,
     ops go into the warm oplog `hyd.resolve` returns, under the oplog
     guard, and into the mirror; a second flush plans the tails (K2) and
     replays them (K1). Later waves evict the wave's documents to their
-    snapshots, so every round hydrates every document anew. 6 rounds on
+    snapshots, so every round hydrates every document anew. 4 rounds on
     per-shard flush workers, then 3 rounds with `mesh_window=True`, each
     stage with its own Hydrator over the same store (so both gate sites
     run); round 1 traced. Requires every text after each wave equal to the
@@ -4092,8 +4120,10 @@ class Served:
     every call against its plain version and the launch counts against
     the calls the schedulers made."""
 
-    def __init__(self, phase: str, need_k2: bool = True) -> None:
+    def __init__(self, phase: str, need_k2: bool = True,
+                 need_k1: bool = True, need_x8: bool = False) -> None:
         self.phase, self.need_k2 = phase, need_k2
+        self.need_k1, self.need_x8 = need_k1, need_x8
         self.httpds: list = []
         self.syncs: List[int] = []
 
@@ -4143,6 +4173,13 @@ class Served:
         return [h.store.scheduler for h in self.httpds
                 if h.store.scheduler is not None]
 
+    def metrics(self) -> list:
+        """The metrics of every scheduler the run booted."""
+        return [s.metrics_json() for s in self.scheds()]
+
+    def faults(self) -> list:
+        return [repr(s.fault) for s in self.scheds() if s.fault is not None]
+
     def verify(self) -> dict:
         """Every K1, K2, X8 and K3 call of the run against its plain
         version; K1 launches == fused calls + per-doc replays, K2 ==
@@ -4151,8 +4188,8 @@ class Served:
         length fence never failed), 0 plan fallbacks, no scheduler fault."""
         from diamond_types_tpu_torch.gpu import zone_kernel as zk
         phase, n = self.phase, self.launches
-        ms = [s.metrics_json() for s in self.scheds()]
-        faults = [repr(s.fault) for s in self.scheds() if s.fault is not None]
+        ms = self.metrics()
+        faults = self.faults()
         check(not faults, f"{phase}: scheduler faults {faults}")
         fused = sum(m["fused"]["device_calls"] for m in ms)
         resolves = sum(m["transform"]["batches"] for m in ms)
@@ -4160,7 +4197,7 @@ class Served:
                    for k in ("device_docs", "host_docs")}
         replays = sum(1 for k in self.syncs if k)
         check(n["k1"] == fused + replays == len(self.k1.args)
-              and n["k1"] > 0,
+              and (n["k1"] > 0 or not self.need_k1),
               f"{phase}: K1 launched {n['k1']} times for {fused} fused "
               f"calls and {replays} per-doc replays "
               f"({len(self.k1.args)} calls)")
@@ -4168,7 +4205,8 @@ class Served:
               and (n["k2"] > 0 or not self.need_k2),
               f"{phase}: K2 launched {n['k2']} times for {resolves} "
               f"resolves ({len(self.k2.args)} calls)")
-        check(n["x8"] == len(self.x8.runs),
+        check(n["x8"] == len(self.x8.runs)
+              and (n["x8"] > 0 or not self.need_x8),
               f"{phase}: X8 launched {n['x8']} times for "
               f"{len(self.x8.runs)} zone_tape_run calls")
         check(n["k3"] == len(self.k3.args),
@@ -4423,6 +4461,249 @@ def run_replicate_soak_phase(device) -> dict:
             "per_node": node_flush(served, wall), **kern}
 
 
+class Benched(Served):
+    """`Served` for an entry point that builds its scheduler inside itself
+    (the CLI's serve bench): the schedulers' metrics are the `metrics`
+    blocks of the JSON reports the run wrote (`add_report`), and a
+    scheduler fault would have raised out of the run."""
+
+    def __init__(self, phase: str, **need) -> None:
+        super().__init__(phase, **need)
+        self.reports: List[dict] = []
+
+    def add_report(self, report: dict) -> None:
+        self.reports.append(report)
+
+    def metrics(self) -> list:
+        return [r["metrics"] for r in self.reports]
+
+    def faults(self) -> list:
+        return []
+
+
+# the CLI phase's serve benches: the fused flush (K2 plans, K1 replays),
+# then the zone-session bank (X8 per sync), at the CLI's own widths
+CLI_BENCHES = (("fused", ["--docs", "64"], dict(need_x8=False)),
+               ("zone_sessions", ["--docs", "16", "--no-fused"],
+                dict(need_k1=False, need_k2=False, need_x8=True)))
+
+
+def run_cli_phase(device: Optional[str] = None) -> dict:
+    """`tools.cli.main` in-process, as a user types it: `serve-bench
+    --shards 4 --docs 64 --mode concurrent --device-plan --json
+    --metrics-out <tmp>` (the schedulers on the CLI's default device, the
+    card), then the same at `--docs 16 --no-fused`, the zone-session bank.
+    Each must exit 0 (parity and SLO), its printed report must equal the
+    one it wrote, and `Benched.verify` must hold: K1 launches == fused
+    calls + per-doc replays, K2 == resolves, X8 == its calls, every K1, K2
+    and X8 call equal to its plain version, 0 host and plan fallbacks.
+    `device` is for a check of this phase on the CPU (`--device cpu`)."""
+    import io
+    import tempfile
+
+    from diamond_types_tpu_torch.tools import cli
+    runs, totals = [], collections.Counter()
+    errs: Dict[str, int] = collections.defaultdict(int)
+    for name, flags, need in CLI_BENCHES:
+        with tempfile.TemporaryDirectory(prefix="dt_cli_") as tmp:
+            out = f"{tmp}/report.json"
+            argv = ["serve-bench", "--shards", "4", "--mode", "concurrent",
+                    "--device-plan", "--json", "--metrics-out", out, *flags]
+            if device is not None:
+                argv += ["--device", device]
+            printed = io.StringIO()
+            with Benched(f"cli {name}", **need) as bench:
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(printed):
+                    rc = cli.main(argv)
+                wall = time.perf_counter() - t
+                with open(out) as f:
+                    report = json.load(f)
+                bench.add_report(report)
+        check(rc == 0, f"cli {name}: serve-bench exited {rc}: parity "
+              f"{report['parity_ok']} ({report['parity_mismatches']}), "
+              f"slo {report['slo']}")
+        check(json.loads(printed.getvalue().strip().splitlines()[-1])
+              == report, f"cli {name}: the printed report is not the one "
+              f"written to --metrics-out")
+        kern = bench.verify()
+        lat = report["metrics"]["latencies"]["flush"]
+        runs.append({"bench": name,
+                     "argv": [a if a != out else "<tmp>" for a in argv],
+                     "rc": rc, "wall_s": wall,
+                     "parity_ok": report["parity_ok"],
+                     "slo_ok": report["slo_ok"],
+                     "total_ops": report["total_ops"],
+                     "ops_per_sec": report["ops_per_sec"],
+                     "flush_ms": {q: 1e3 * lat[q] for q in ("p50", "p99")},
+                     "config": report["config"], **kern})
+        for key in ("launches", "k2_launches", "x8_launches",
+                    "k3_launches"):
+            totals[key] += kern[key]
+        for key in ("k1_max_abs_err", "k2_max_abs_err", "x8_max_abs_err",
+                    "k3_max_abs_err"):
+            errs[key] = max(errs[key], kern[key])
+    return {"phase": "cli", "runs": runs, **dict(totals), **dict(errs)}
+
+
+# the device soak: its documented command over the history phase's oplog,
+# then over a short history whose small zone the soak's growth outgrows
+SOAK_HOURS = 0.006                  # ~22 s of merge-per-edit traffic
+SOAK_GROWTH_LVS = 300               # the growth run's history, in ops
+SOAK_GROWTH_HOURS = 0.0015          # ~5 s
+
+
+class SoakRuns(Spy):
+    """A Spy on `kernels.zone_tape_run` for the device soak. Each launch is
+    a resync (the session's build, or a rebuild: `DeviceZoneSession.resync`
+    is on the stack, flagged by `resync_hook`) or a continuation (a sync's
+    micro-tape). Keeps the tape and clones of the carry before and after
+    (X8 updates it in place) of every continuation launch and of the first
+    `keep_resyncs` resync launches, for the plain version after the run."""
+
+    def __init__(self, owner, name: str, keep_resyncs: int) -> None:
+        super().__init__(owner, name)
+        self.keep_resyncs = keep_resyncs
+        self.in_resync = 0
+        self.counts = collections.Counter()
+        self.runs: List[tuple] = []
+
+    @contextlib.contextmanager
+    def resync_hook(self, cls):
+        real = cls.resync
+        spy = self
+
+        def resync(sess):
+            spy.in_resync += 1
+            try:
+                return real(sess)
+            finally:
+                spy.in_resync -= 1
+
+        cls.resync = resync
+        try:
+            yield
+        finally:
+            cls.resync = real
+
+    def __call__(self, carry, xs, plen, cluster=None):
+        from diamond_types_tpu_torch.gpu.zone_kernel import ZoneCarry
+        kind = "resync" if self.in_resync else "continuation"
+        keep = kind == "continuation" or \
+            self.counts["resync"] < self.keep_resyncs
+        self.counts[kind] += 1
+        before = ZoneCarry(*(t.clone() for t in carry)) if keep else None
+        out = super().__call__(carry, xs, plen, cluster=cluster)
+        if keep:
+            self.runs.append((kind, xs, plen, before,
+                              ZoneCarry(*(t.clone() for t in out))))
+        return out
+
+    def check(self, what: str) -> dict:
+        """Every kept launch against the plain version, on the launch's
+        device; frees each as it goes."""
+        from diamond_types_tpu_torch.gpu import zone_kernel as zk
+        t = time.perf_counter()
+        worst = collections.Counter()
+        held = collections.Counter()
+        while self.runs:
+            kind, xs, plen, before, after = self.runs.pop(0)
+            err = zone_err(after, zk.run_zone_plain(before, xs, plen))
+            worst[kind] = max(worst[kind], err)
+            held[kind] += 1
+        for kind, err in worst.items():
+            check(err == 0, f"{what}: an X8 {kind} launch differs from its "
+                  f"plain version: max abs err {err}")
+        return {"x8_launches_by_kind": dict(self.counts),
+                "x8_held_by_kind": dict(held),
+                "x8_max_abs_err": max(worst.values(), default=0),
+                "plain_check_s": time.perf_counter() - t}
+
+
+def drive_device_soak(ol, hours: float, keep_resyncs: int, what: str,
+                      device: str = "cuda") -> dict:
+    """`tools.device_soak.main(["--corpus", <ol as a .dt file>, "--hours",
+    hours, "--log", <tmp>, "--device", device])` with X8 under a
+    `SoakRuns` spy (its launch count set to 0 just before and read just
+    after). Requires exit 0, the log's soak_start, session_built and
+    soak_end, no PARITY_MISMATCH and no device_crash, syncs > 0, X8
+    launches == its calls and every kept launch equal to its plain
+    version. Returns the soak's end event, the launches and the checks."""
+    import tempfile
+
+    from diamond_types_tpu_torch.encoding.encode import (ENCODE_FULL,
+                                                         encode_oplog)
+    from diamond_types_tpu_torch.gpu import kernels, zone_session
+    from diamond_types_tpu_torch.tools import device_soak
+    with tempfile.TemporaryDirectory(prefix="dt_dsoak_") as tmp:
+        path, log = f"{tmp}/history.dt", f"{tmp}/soak.jsonl"
+        with open(path, "wb") as f:
+            f.write(encode_oplog(ol, ENCODE_FULL))
+        with SoakRuns(kernels, "zone_tape_run", keep_resyncs) as spy, \
+                spy.resync_hook(zone_session.DeviceZoneSession):
+            kernels.zone_tape_run.launches = 0
+            t = time.perf_counter()
+            rc = device_soak.main(["--corpus", path, "--hours", str(hours),
+                                   "--log", log, "--device", device])
+            wall = time.perf_counter() - t
+            launches = kernels.zone_tape_run.launches
+        with open(log) as f:
+            events = [json.loads(line) for line in f]
+    kinds = [e["event"] for e in events]
+    end = events[-1] if kinds and kinds[-1] == "soak_end" else {}
+    check(rc == 0 and {"soak_start", "session_built", "soak_end"}
+          <= set(kinds) and "PARITY_MISMATCH" not in kinds
+          and "device_crash" not in kinds,
+          f"{what}: device soak exited {rc} with events {kinds[-4:]}")
+    check(end.get("syncs", 0) > 0, f"{what}: no sync in {hours} h")
+    n_calls = sum(spy.counts.values())
+    check(launches == n_calls and launches > 0,
+          f"{what}: X8 launched {launches} times for {n_calls} calls")
+    built = next(e for e in events if e["event"] == "session_built")
+    out = {"wall_s": wall, "events": kinds, "build_s": built["build_s"],
+           "n_ops_start": events[0]["n_ops_start"],
+           **{k: end[k] for k in ("syncs", "edits", "resyncs", "crashes",
+                                  "n_ops_end")},
+           "syncs_per_s": end["syncs"] / wall, "x8_launches": launches}
+    out.update(spy.check(what))
+    return out
+
+
+def run_device_soak_phase(history_ol, device: str = "cuda") -> dict:
+    """`tools.device_soak` as documented, on the card: the history phase's
+    ~40k-op oplog written to a `.dt` file and soaked for SOAK_HOURS (~22
+    s) of 2-agent merge-per-edit traffic, the session's text checked
+    against the C++ tracker after every sync by the soak itself. Every
+    continuation X8 launch is held against its plain version here; of the
+    resync launches only the first (the session's build over the whole
+    zone: the plain version takes seconds there); the soak's own tracker
+    check at every sync holds the rest. Then the same command over a
+    SOAK_GROWTH_LVS-op history of the same generator for SOAK_GROWTH_HOURS:
+    its small zone's capacity is outgrown within seconds, so the soak's
+    growth forces resyncs, each held against its plain version. Requires
+    both soaks' checks (`drive_device_soak`) and resyncs >= 1 in the
+    growth run."""
+    main_run = drive_device_soak(history_ol, SOAK_HOURS, 1, "device_soak",
+                                 device)
+    hcfg = HistoryConfig()
+    small = build_history(np.random.default_rng([0, 20]), SOAK_GROWTH_LVS,
+                          hcfg, hcfg.small_turns)
+    growth = drive_device_soak(small, SOAK_GROWTH_HOURS, 1 << 30,
+                               "device_soak growth", device)
+    check(growth["resyncs"] >= 1, f"device_soak growth: the soak's growth "
+          f"forced no resync in {growth['syncs']} syncs")
+    return {"phase": "device_soak",
+            "held": "history: every continuation X8 launch and the first "
+                    "resync launch (the build) against the plain version; "
+                    "the soak's tracker check at every sync holds the "
+                    "rest. growth: every X8 launch",
+            "history": main_run, "growth": growth,
+            "x8_launches": main_run["x8_launches"]
+            + growth["x8_launches"],
+            "x8_max_abs_err": max(main_run["x8_max_abs_err"],
+                                  growth["x8_max_abs_err"])}
+
+
 def replay_batch_inputs(rng: np.random.Generator, b: int, n: int, cap: int,
                         mi: int, device) -> List[torch.Tensor]:
     """In-contract whole-trace replays for `replay_batch_kernel`: per row
@@ -4675,8 +4956,16 @@ def main(argv=None) -> int:
         rsoak = run_replicate_soak_phase(device)
         rsoak["seconds"] = time.perf_counter() - t
         emit(rsoak)
+        t = time.perf_counter()
+        clip = run_cli_phase()
+        clip["seconds"] = time.perf_counter() - t
+        emit(clip)
+        t = time.perf_counter()
+        dsoak = run_device_soak_phase(history_ol)
+        dsoak["seconds"] = time.perf_counter() - t
+        emit(dsoak)
         above = (("scenario", scen), ("follower_reads", freads),
-                 ("replicate_soak", rsoak))
+                 ("replicate_soak", rsoak), ("cli", clip))
         t = time.perf_counter()
         replay = run_replay_batch(rng(17), device)
         replay["seconds"] = time.perf_counter() - t
@@ -4764,11 +5053,13 @@ def main(argv=None) -> int:
                                   "zone_batch": zbatch["launches"],
                                   "scheduler_zone": zsched["launches"],
                                   "replicated": rsched["x8_launches"],
-                                  **{p: r["x8_launches"] for p, r in above}},
+                                  **{p: r["x8_launches"] for p, r in above},
+                                  "device_soak": dsoak["x8_launches"]},
              "max_abs_err": max(zkern["max_abs_err"], zone["max_abs_err"],
                                 zsched["max_abs_err"],
                                 rsched["x8_max_abs_err"],
-                                *(r["x8_max_abs_err"] for _p, r in above)),
+                                *(r["x8_max_abs_err"] for _p, r in above),
+                                dsoak["x8_max_abs_err"]),
              **{k: zone["x8"][k] for k in timed},
              "bound_by": "bytes",
              **{k: zone["x8"][k] for k in ("bound_step_bytes",

@@ -23,14 +23,6 @@ and recorder into the admit→flush path, attach_replication() hands it
 to ReplicaNode for lease/fencing/circuit events and proxy tracing.
 Everything degrades to a no-op when the bundle is absent or disabled —
 hot paths pay one branch, zero allocations.
-
-The JAX package's `obs/__init__.py`, copied except for `snapshot()`:
-the static lint (`analysis/lint`) and the model checker
-(`analysis/explore`) are not ported yet, so `snapshot()` leaves out
-their `lint` and `explore` lookups. The JAX snapshot carries those two
-keys only once a dt-lint or dt-explore run has published a report in
-the process; in a process where none has, both snapshots have the same
-keys.
 """
 
 from __future__ import annotations
@@ -144,9 +136,20 @@ class Observability:
                "journey": self.journey.snapshot(),
                "incidents": {"version": 1, **sto, **det}}
         # concurrency-invariant tier (analysis/): the runtime lock
-        # witness is always reported (enabled=False when off)
-        from ..analysis import witness_snapshot
+        # witness is always reported (enabled=False when off); the
+        # lint block appears once a dt-lint run published a report in
+        # this process
+        from ..analysis import last_report, witness_snapshot
         out["witness"] = witness_snapshot()
+        lint = last_report()
+        if lint is not None:
+            out["lint"] = lint
+        # the model-checker verdict rides the same pattern: present
+        # once a dt-explore run published in this process
+        from ..analysis.explore import last_report as explore_report
+        explore = explore_report()
+        if explore is not None:
+            out["explore"] = explore
         # the scenario runner's live snapshot (workload/runner.py
         # publishes each tick): present while/after a run in this
         # process — obs-watch renders it as the scenario panel

@@ -521,10 +521,15 @@ class SessionBank:
                         error="fused_poisoned_or_len_mismatch")
             for it in win["serial"]:
                 with dlock:
-                    # the per-doc rung interleaves oplog reads with its
-                    # device replay inside one sess.sync(), so it holds
-                    # the oplog guard throughout
-                    self.sync_doc(it.doc_id, win["ols"][it.doc_id])
+                    # The serial fallback rung interleaves oplog reads
+                    # (span walk, agent keys, host checkouts) with its
+                    # device continuation inside one sess.sync(), so it
+                    # cannot drop the oplog guard the way the fused
+                    # phases do. It is the rare rung — unfusable,
+                    # overflowing or poisoned docs — and stalling
+                    # oplog readers here is the documented cost of
+                    # falling off the fused path.
+                    self.sync_doc(it.doc_id, win["ols"][it.doc_id])  # dt-lint: ignore[device-under-lock]
             if self.metrics is not None:
                 self.metrics.observe_footprint(self.shard_id,
                                                self.footprint_slots())

@@ -1476,8 +1476,11 @@ class SyncHandler(BaseHTTPRequestHandler):
             # concurrent push rebuilding that context mid-call would be a
             # use-after-free. (Host strips are a few hundred ms worst
             # case; the device path is opt-in — see doc_history_strip.)
+            # The opt-in device strip launches K3 (texts_at_versions)
+            # under this lock for the same reason: its tape source is
+            # built from the shared native context.
             with self.store.lock:
-                snaps = doc_history_strip(ol, n, list(ol.version),
+                snaps = doc_history_strip(ol, n, list(ol.version),  # dt-lint: ignore[device-under-lock]
                                           device=self.store.device)
             return self._send(200, json.dumps({"snapshots": snaps})
                               .encode("utf8"))

@@ -720,3 +720,27 @@ def test_replay_batch_kernel_matches_plain_on_card(b, n, cap, mi):
     want_d, want_l = kernels.replay_batch_plain(*args, cap=cap)
     assert torch.equal(got_d, want_d) and torch.equal(got_l, want_l)
     assert int(got_l[0]) == -1
+
+
+def test_cli_serve_bench_on_card_launches_its_kernels(monkeypatch, tmp_path,
+                                                      capsys):
+    """`tools.cli serve-bench` at test size on the card (the CLI's default
+    device): exit 0 (parity and SLO), K1 launched for every fused call and
+    per-doc replay, K2 for every resolve, 0 host and plan fallbacks."""
+    _need_card()
+    import json
+
+    from torch_parity import ServedLaunches
+
+    from diamond_types_tpu_torch.tools import cli
+    served = ServedLaunches(monkeypatch)
+    out = tmp_path / "report.json"
+    rc = cli.main(["serve-bench", "--shards", "2", "--docs", "8",
+                   "--max-sessions", "8", "--mode", "concurrent",
+                   "--device-plan", "--metrics-out", str(out)])
+    capsys.readouterr()
+    assert rc == 0
+    report = json.loads(out.read_text())
+    assert report["config"]["device"].startswith("cuda")
+    got = served.check(metrics=[report["metrics"]])
+    assert got["k1"] > 0 and got["k2"] > 0

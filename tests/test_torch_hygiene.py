@@ -60,14 +60,22 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "read.cache", "read.follower", "read.path", "read.bench",
               "replicate.soak", "replicate.rebalance_soak", "workload",
               "workload.arrivals", "workload.popularity", "workload.spec",
-              "workload.runner"):
+              "workload.runner", "analysis", "analysis.lint",
+              "analysis.rules", "analysis.rules.locks",
+              "analysis.rules.fencing", "analysis.rules.dataflow",
+              "analysis.rules.jit_purity", "analysis.rules.metrics_schema",
+              "analysis.explore", "analysis.explore.engine",
+              "analysis.explore.world", "analysis.explore.model",
+              "analysis.explore.invariants", "analysis.explore.mutations",
+              "tools.cli", "tools.soak", "tools.device_soak",
+              "tools.dump_columns"):
         assert f"diamond_types_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {['diamond_types_tpu_torch'] + mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m in ('jax', 'diamond_types_tpu')"
-        " or m.startswith(('jax.', 'jaxlib', 'diamond_types_tpu.'))]\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'diamond_types_tpu',"
+        " 'bench') or m.startswith(('jax.', 'jaxlib', 'diamond_types_tpu.'))]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -191,22 +199,37 @@ def test_device_entry_points_of_the_graph_and_history_paths_raise():
     "workload.runner:run_scenario", "read.bench:run_read_bench",
     "replicate.soak:run_replicate_soak",
     "replicate.rebalance_soak:run_rebalance_soak",
-    "replicate.rebalance_soak:run_split_soak"])
+    "replicate.rebalance_soak:run_split_soak",
+    "tools.cli:main serve-bench", "tools.cli:main serve-bench --no-fused",
+    "tools.cli:main serve-bench --real-device",
+    "tools.cli:main scenario run --name smoke",
+    "tools.cli:main replicate-soak --serve-shards 0",
+    "tools.cli:main rebalance-soak",
+    "tools.cli:main rebalance-soak --split-hot-doc",
+    "tools.cli:main read-bench",
+    "tools.device_soak:main --corpus missing.dt"])
 def test_server_booting_entry_points_raise_without_cuda(entry):
     """Every entry point that boots servers takes `device` and passes it to
     `serve`; None means CUDA, so with no card it raises before it boots
     anything, never falling back to the CPU or the host engine. The soak
-    raises even at `serve_shards=0`, where its servers merge nothing."""
+    raises even at `serve_shards=0`, where its servers merge nothing. The
+    CLI's subcommands that boot a scheduler or a server, and the device
+    soak, take `--device` with the same default (an entry given with its
+    arguments is a `main` called on them)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
     import importlib
     import inspect
     import threading
+    entry, *argv = entry.split()
     mod, name = entry.split(":")
     fn = getattr(importlib.import_module(f"diamond_types_tpu_torch.{mod}"),
                  name)
-    assert inspect.signature(fn).parameters["device"].default is None
     args = ()
+    if argv:
+        args = (argv,)
+    else:
+        assert inspect.signature(fn).parameters["device"].default is None
     if name == "run_scenario":
         from diamond_types_tpu_torch.workload import get_scenario
         args = (get_scenario("smoke"),)

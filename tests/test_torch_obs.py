@@ -2,9 +2,10 @@
 the JAX package's.
 
 The modules are copies: each file must equal the JAX package's byte for
-byte, except `obs/__init__.py`, whose `snapshot()` leaves out the `lint`
-and `explore` lookups until `analysis/lint` and `analysis/explore` are
-ported. Then both packages' `Observability` bundles run one seeded script
+byte, `obs/__init__.py` among them since the port has `analysis/lint`
+and `analysis/explore` (its `snapshot()` carries their `lint` and
+`explore` lookups). Then both packages' `Observability` bundles run one
+seeded script
 on clocks advanced alike (every obs module's `time` reads a `FakeClock`),
 and everything they report must be equal: the tracer's sampling decisions
 and span trees, the SLO rows and alert transitions under tight custom
@@ -31,6 +32,8 @@ import diamond_types_tpu.obs.prom as jprom
 import diamond_types_tpu.obs.scorecard as jscore
 import diamond_types_tpu.obs.slo as jslo
 import diamond_types_tpu.obs.trace as jtrace
+import diamond_types_tpu_torch.analysis.explore.engine as texplore
+import diamond_types_tpu_torch.analysis.lint as tlint
 import diamond_types_tpu_torch.obs as tobs
 import diamond_types_tpu_torch.obs.prom as tprom
 import diamond_types_tpu_torch.obs.scorecard as tscore
@@ -66,21 +69,19 @@ def test_module_is_a_byte_identical_copy(rel):
 
 
 def test_bundle_differs_only_by_the_lint_and_explore_lookups():
-    """`obs/__init__.py`: the same exports, the same constructor, and a
-    `snapshot()` whose source is JAX's without the lint and explore
-    lookups; its docstring says so."""
+    """`obs/__init__.py`: once the port has `analysis/lint` and
+    `analysis/explore`, the bundle differs from JAX's by nothing: the file
+    is a byte-identical copy, and `snapshot()` carries both lookups."""
+    rel = "obs/__init__.py"
+    assert (REPO / "diamond_types_tpu_torch" / rel).read_bytes() == \
+        (REPO / "diamond_types_tpu" / rel).read_bytes()
     assert tobs.__all__ == jobs.__all__
     for name in jobs.__all__:
         assert hasattr(tobs, name), name
     jo, to = jobs.Observability, tobs.Observability
     assert inspect.signature(to.__init__) == inspect.signature(jo.__init__)
-    assert inspect.getsource(to.__init__) == inspect.getsource(jo.__init__)
-    jsrc, tsrc = inspect.getsource(jo.snapshot), inspect.getsource(to.snapshot)
-    assert "last_report" in jsrc and "explore" in jsrc
-    assert "last_report" not in tsrc and "explore" not in tsrc
-    tail = jsrc[jsrc.index("        # the scenario runner's"):]
-    assert tsrc.endswith(tail)
-    assert "lint" in tobs.__doc__ and "explore" in tobs.__doc__
+    tsrc = inspect.getsource(to.snapshot)
+    assert "last_report" in tsrc and "explore" in tsrc
 
 
 def test_read_package_exports_only_the_metrics():
@@ -239,17 +240,21 @@ def test_snapshots_match_jax(twins, monkeypatch):
     """In a process where no dt-lint, dt-explore or scenario run has
     published a report (other tests in this worker may have: the reports
     are module globals), both snapshots have the same keys; once a lint
-    report is published, JAX's gains `lint` and the port's does not (the
-    lookups wait for 12f)."""
+    and an explore report are published in each package, both gain
+    `lint` and `explore`."""
     for mod, name in ((jlint, "_LAST_REPORT"), (jexplore, "_last_report"),
+                      (tlint, "_LAST_REPORT"), (texplore, "_last_report"),
                       (jscore, "_LAST_SCENARIO"),
                       (tscore, "_LAST_SCENARIO")):
         monkeypatch.setattr(mod, name, None)
     j, t = twins
     js, ts = j.obs.snapshot(), t.obs.snapshot()
     assert sorted(ts) == sorted(js)
-    monkeypatch.setattr(jlint, "_LAST_REPORT", {"ok": True})
-    assert set(j.obs.snapshot()) - set(t.obs.snapshot()) == {"lint"}
+    for mod, name in ((jlint, "_LAST_REPORT"), (tlint, "_LAST_REPORT"),
+                      (jexplore, "_last_report"), (texplore, "_last_report")):
+        monkeypatch.setattr(mod, name, {"ok": True})
+    assert set(j.obs.snapshot()) - set(js) == {"lint", "explore"}
+    assert sorted(j.obs.snapshot()) == sorted(t.obs.snapshot())
     for key in ("recorder", "http", "timeseries", "slo", "hot", "journey",
                 "incidents"):
         assert ts[key] == js[key], key

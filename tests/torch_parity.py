@@ -9,7 +9,7 @@ versions, transformed ops or text.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -328,7 +328,9 @@ class ServedLaunches:
     sets K1's and K2's launch counts to 0. `check()` then requires K1
     launches == fused calls + per-doc replays (> 0), K2 launches ==
     resolves, 0 host and plan fallbacks and no scheduler fault, over every
-    scheduler booted."""
+    scheduler booted. An entry point that builds its scheduler inside
+    itself (the CLI's serve bench) passes its reports' `metrics` blocks
+    to `check` instead."""
 
     def __init__(self, monkeypatch) -> None:
         from diamond_types_tpu_torch.gpu import flush_fuse as ff
@@ -354,9 +356,10 @@ class ServedLaunches:
         kernels.apply_ops_window.launches = 0
         kernels.xform_positions.launches = 0
 
-    def check(self) -> dict:
-        ms = [h.store.scheduler.metrics_json() for h in self.httpds
-              if h.store.scheduler is not None]
+    def check(self, metrics: Optional[List[dict]] = None) -> dict:
+        ms = metrics if metrics is not None else [
+            h.store.scheduler.metrics_json() for h in self.httpds
+            if h.store.scheduler is not None]
         assert ms and all(h.store.scheduler.fault is None
                           for h in self.httpds)
         fused = sum(m["fused"]["device_calls"] for m in ms)
