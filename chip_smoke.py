@@ -185,7 +185,22 @@ package), in phases, each printing one JSON line:
                 rule's pick and the best shape; `execute_zone_batch_sliced`
                 at B 132 in slices of 128 steps (one launch per slice),
                 equal.
- 13. scheduler_zone - the zone-session bank: the scheduler phase's 256
+ 13. zone_sharded - the zone engine's multi-device forms, the card named
+                several times (the split, placement and gathers run; no
+                copy between cards takes place): `execute_zone_batch` at
+                B 1,024 over the card named 4 times (four X8 launches of
+                256 replicas), every replica equal to B 1's, and B 1,022
+                refused before any launch; a `DeviceZoneSession(devices=
+                [card] * 3, n_rows=4)` over the device soak's 300-op growth
+                history through the JAX package's sharded-session drills
+                (concurrent edits; forks past the row count, then a
+                revisit of an evicted frontier; a bulk insert past the
+                slot headroom; a new agent): the text equal to the C++
+                tracker's after every sync, a resync forced by each
+                drill, the state rows in three equal blocks, every X8
+                launch of the session held against its plain version on
+                the card.
+ 14. scheduler_zone - the zone-session bank: the scheduler phase's 256
                 documents and edits (its generator seed) through
                 `MergeScheduler(fused=False)`, every `DeviceZoneSession`
                 resident: 2 of its 6 rounds, whose new agents make every
@@ -200,7 +215,7 @@ package), in phases, each printing one JSON line:
                 rule's launch shape over the launches (derived from each
                 session's carry shape with `kernels.cluster_size`, as the
                 wrapper picks it).
- 14. scheduler_hydrated - the serve layer over the residency tier: the
+ 15. scheduler_hydrated - the serve layer over the residency tier: the
                 scheduler phase's 256 documents (its generator seed), each
                 saved to a `TieredStore` home under a temporary root (removed
                 at the end) and served through `MergeScheduler(4 shards,
@@ -227,12 +242,12 @@ package), in phases, each printing one JSON line:
                 and cold-start p50/p99 per stage, the hydration block,
                 builds, evictions by site (stale-oplog rebuilds among them),
                 K1/K2 launches a round and round 1's device busy share.
- 15. storage_soak - `storage.soak.run_storage_soak(churn=True, crash=True,
+ 16. storage_soak - `storage.soak.run_storage_soak(churn=True, crash=True,
                 slow=True)` at its defaults (120 documents, 12 warm, 8
                 rounds, the host engine): crash-restart, compaction killed
                 at each fsync point, torn tails, corrupt homes, slow loads;
                 fails unless its verdict is ok.
- 16. scheduler_qos - the QoS controller steering the device scheduler:
+ 17. scheduler_qos - the QoS controller steering the device scheduler:
                 the scheduler phase's kind of 256 documents (its own
                 generator), named `t{k}-doc{nnn}` over 4 tenants, each with
                 a class fixed by the generator (128 interactive, 80 bulk,
@@ -258,7 +273,7 @@ package), in phases, each printing one JSON line:
                 round, the `QosMetrics` snapshot (per class admitted, shed,
                 deferred and deadline_s; the controller's decisions) and
                 round 1's device busy share.
- 17. scheduler_obs - the observability bundle on the device scheduler:
+ 18. scheduler_obs - the observability bundle on the device scheduler:
                 scheduler_qos's setup (256 documents from this phase's own
                 generator, 128 interactive, 80 bulk, 48 catchup over 4
                 tenants; 4 shards, flush_docs 8, flush workers, device
@@ -288,7 +303,7 @@ package), in phases, each printing one JSON line:
                 share from `torch.profiler` (the card busy) beside
                 devprof's device_fraction for the same round (the flushes
                 waiting on the fence).
- 18. replicated - the replication mesh and its server on the card: three
+ 19. replicated - the replication mesh and its server on the card: three
                 port servers in this process (`tools.server.serve(port=0,
                 data_dir=<a temporary directory each>, serve_shards=2,
                 device=<the card>)`: each merges with its fused device
@@ -336,7 +351,7 @@ package), in phases, each printing one JSON line:
                 counters; the handoffs' ms, the seconds to converge after
                 the heal, the history strips' ms, the `dt_wire_*` families
                 and round 1's device busy share.
- 19. scenario - the scenario harness over three replicas' device
+ 20. scenario - the scenario harness over three replicas' device
                 schedulers: `workload.run_scenario(get_scenario(
                 "flash-crowd"), qos=True, device=<the card>)`, the scenario
                 registered unchanged (3 servers, serve_shards 2, follower
@@ -361,7 +376,7 @@ package), in phases, each printing one JSON line:
                 proxied, refused, cache), staleness and read latency
                 p50/p99, per-node flush p50/p99 and docs/s, burn-minutes,
                 launches and the traced tick's device busy share.
- 20. follower_reads - `read.bench.run_read_bench` at its defaults (2
+ 21. follower_reads - `read.bench.run_read_bench` at its defaults (2
                 servers, 3 documents of 16 KiB, 6 readers x 120 Zipf-1.2
                 reads a phase, a min-version token every 4th read) with
                 serve_shards 2 on the card: the control phase (every
@@ -370,7 +385,7 @@ package), in phases, each printing one JSON line:
                 its staleness and token. Requires the bench's pass and the
                 same kernel checks; prints local against proxied read
                 latency, the bench's speedup and verdict.
- 21. replicate_soak - `replicate.soak.run_replicate_soak(servers=3,
+ 22. replicate_soak - `replicate.soak.run_replicate_soak(servers=3,
                 rounds=8, crash=True, asym=True, churn=True,
                 serve_shards=2, device=<the card>)`: drops, one-way
                 partitions, two crash-restarts on their journals, a join
@@ -378,7 +393,7 @@ package), in phases, each printing one JSON line:
                 Requires the soak's verdict (converged, zero split-brain),
                 the lock witness acyclic and the same kernel checks over
                 every server incarnation's scheduler.
- 22. cli      - `tools.cli.main` in-process, as a user types it:
+ 23. cli      - `tools.cli.main` in-process, as a user types it:
                 `serve-bench --shards 4 --docs 64 --mode concurrent
                 --device-plan --json --metrics-out <tmp>` on the CLI's
                 default device (the card; K2 plans the tails, K1 replays
@@ -389,7 +404,7 @@ package), in phases, each printing one JSON line:
                 + per-doc replays, K2 == resolves, X8 == its calls, every
                 K1, K2 and X8 call equal to its plain version, 0 host and
                 plan fallbacks.
- 23. device_soak - `tools.device_soak.main(["--corpus", <the history
+ 24. device_soak - `tools.device_soak.main(["--corpus", <the history
                 phase's ~40k-op oplog as a .dt file>, "--hours", "0.006",
                 "--log", <tmp>, "--device", "cuda"])`: ~22 s of 2-agent
                 merge-per-edit traffic through one `DeviceZoneSession`,
@@ -404,13 +419,13 @@ package), in phases, each printing one JSON line:
                 same command then soaks a 300-op history of the same
                 generator for ~5 s, whose small zone the growth outgrows:
                 resyncs >= 1, every launch held against its plain version.
- 24. replay_batch - `kernels.replay_batch_kernel` (the counterpart of
+ 25. replay_batch - `kernels.replay_batch_kernel` (the counterpart of
                 `replay_batch_pallas`: one K1 launch over a whole op
                 sequence from empty rows) against its plain version at b
                 128, n 64, cap 4,096, max_ins 16 on in-contract ops; its
                 call_ms, device_ms, plain ms and HBM bound. It is on no
                 serve path.
- 25. kernels  - one line for K1, K2, K3, X8 and `replay_batch_kernel`:
+ 26. kernels  - one line for K1, K2, K3, X8 and `replay_batch_kernel`:
                 launches on the main path (K1
                 and K2 in the serve phase, K3 in the checkout phase; per
                 path in `launches_by_path`, the scheduler's, the flush
@@ -445,10 +460,11 @@ package), in phases, each printing one JSON line:
                 device_ms at every captured bucket, and K1's CTAs per
                 launch as derived from the launcher's grid rule
                 (b * ceil(cap / 512)), not observed. X8's entry has its
-                launches per path (zone, zone_batch, scheduler_zone, the
-                four served phases, cli and device_soak), its max error
-                over the zone_kernel, zone, scheduler_zone, served, cli
-                and device_soak phases' launches, its times at the zone phase's shape and its
+                launches per path (zone, zone_batch, zone_sharded,
+                scheduler_zone, the four served phases, cli and
+                device_soak), its max error over the zone_kernel, zone,
+                zone_sharded, scheduler_zone, served, cli and device_soak
+                phases' launches, its times at the zone phase's shape and its
                 bounds there: `bound_ms`, the sum over steps of each
                 step's inputs read once and outputs written once, at HBM
                 rate; `whole_tape_ms`, the tape once and the carry in and
@@ -2162,7 +2178,7 @@ def run_merge_step(rng: np.random.Generator, device, b: int = 256,
                        *args[:6], max_ins), 1),
                    "library_ms": None, "ctas_derived": k1_ctas(bp, cap)}}
 
-# ---- phases 11-14: the zone engine (X8) --------------------------------------
+# ---- phases 11-15: the zone engine (X8) --------------------------------------
 
 @dataclass
 class ZoneConfig:
@@ -2515,6 +2531,148 @@ def run_zone_batch(device, prep, tape, zcfg: ZoneConfig) -> dict:
             "runs": runs, "sweep": sweep, "launches": launches,
             "sliced": {"B": zcfg.slice_batch, "slice_steps": zcfg.slice_steps,
                        "slices": n_slices, "ms": sliced_ms}}
+
+
+ZONE_SHARDED_DEVICES = 4               # the replica form's split
+ZONE_SHARDED_BATCH = 1024              # config 4: 4 launches of 256
+ZONE_SHARDED_ROW_DEVICES = 3           # the row form's split
+ZONE_SHARDED_ROWS = 4                  # the session's n_rows, before rounding
+
+
+def run_zone_sharded(device, prep, tape) -> dict:
+    """The zone engine's multi-device forms, with the one card named
+    several times: the split, placement and gathers run, but no copy
+    between cards takes place. The replica form: `execute_zone_batch` at
+    B 1,024 over `[device] * 4` (four X8 launches of 256 replicas), every
+    replica's rank and ever equal to B 1's on the zone phase's tape, and
+    B 1,022 refused (ValueError) with no launch. The row form: a
+    `DeviceZoneSession(devices=[device] * 3, n_rows=4)` over the device
+    soak's 300-op growth history, driven through the JAX package's
+    sharded-session drills (concurrent edits; n_rows_eff + 3 forks, then
+    a revisit of an evicted frontier; a bulk insert just past the slot
+    headroom; a new agent): after every sync the text equals the C++
+    tracker's, each forced drill raises `resyncs`, n_rows_eff divides
+    over the devices and the state rows rest in equal blocks. Every X8
+    launch of the session is held against `run_zone_plain` on the card
+    from a copy of its carry. X8's count is set to 0 after the B 1
+    reference and read after the drills."""
+    from diamond_types_tpu_torch.gpu import kernels
+    from diamond_types_tpu_torch.gpu import zone_kernel as zk
+    from diamond_types_tpu_torch.gpu.zone_session import DeviceZoneSession
+    from diamond_types_tpu_torch.native.core import get_native_ctx
+    x8 = kernels.zone_tape_run
+    rank1, ever1 = zk.execute_zone_batch(tape, prep.agent_k, prep.seq_k, 1,
+                                         device=device)
+    x8.launches = 0
+    devs = [device] * ZONE_SHARDED_DEVICES
+    (rank, ever), replica_ms = wall_ms(lambda: zk.execute_zone_batch(
+        tape, prep.agent_k, prep.seq_k, ZONE_SHARDED_BATCH, devices=devs))
+    replica_launches = x8.launches
+    check(replica_launches == ZONE_SHARDED_DEVICES,
+          f"zone_sharded: X8 launched {replica_launches} times over "
+          f"{ZONE_SHARDED_DEVICES} devices")
+    check(tuple(rank.shape) == (ZONE_SHARDED_BATCH, tape.W)
+          and bool((rank == rank1).all()) and bool((ever == ever1).all()),
+          "zone_sharded: a replica of the split batch differs from B 1")
+    del rank, ever
+    try:
+        zk.execute_zone_batch(tape, prep.agent_k, prep.seq_k,
+                              ZONE_SHARDED_BATCH - 2, devices=devs)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused and x8.launches == replica_launches,
+          f"zone_sharded: B {ZONE_SHARDED_BATCH - 2} over "
+          f"{ZONE_SHARDED_DEVICES} devices was not refused before any "
+          "launch")
+    with KeptRuns(kernels, "zone_tape_run") as spy:
+        hcfg = HistoryConfig()
+        ol = build_history(np.random.default_rng([0, 20]), SOAK_GROWTH_LVS,
+                           hcfg, hcfg.small_turns)
+        a, b = (ol.get_or_create_agent_id(n) for n in ("sa", "sb"))
+        lvs = len(ol)
+        t = time.perf_counter()
+        sess = DeviceZoneSession(ol, n_rows=ZONE_SHARDED_ROWS,
+                                 devices=[device] * ZONE_SHARDED_ROW_DEVICES)
+        k = ZONE_SHARDED_ROW_DEVICES
+        syncs = []
+
+        def parity(tag: str) -> None:
+            sess.sync()
+            want, _ = get_native_ctx(ol).merge_to_string("", [], ol.version)
+            check(sess.text() == want, f"zone_sharded: the row form's text "
+                  f"differs from the C++ tracker's after {tag}")
+            blocks = sess.state_blocks
+            check(sess.carry.state is None and sess.n_rows_eff % k == 0
+                  and len(blocks) == k
+                  and all(tuple(x.shape) == (1, sess.n_rows_eff // k,
+                                             sess.W_cap) for x in blocks),
+                  f"zone_sharded: the state rows after {tag} do not rest "
+                  f"in {k} equal blocks")
+            syncs.append({"after": tag, "resyncs": sess.resyncs,
+                          "merges": sess.merges,
+                          "n_rows_eff": sess.n_rows_eff,
+                          "W_cap": sess.W_cap, "chars": len(want)})
+
+        parity("build")
+        tip = list(ol.version)
+        v1 = ol.add_insert_at(a, tip, 0, "sharded! ")
+        v2 = ol.add_insert_at(b, tip, 0, "concurrent! ")
+        ol.add_delete_at(a, [v1, v2], 0, 4, None)
+        parity("concurrent edits")
+        base = sess.resyncs
+        tip = list(ol.version)
+        forks = [ol.add_insert_at((a, b)[i % 2], tip, 0, f"[f{i}]")
+                 for i in range(sess.n_rows_eff + 3)]
+        parity("row-exhaustion forks")
+        ol.add_insert_at(a, [forks[0]], 0, "revisit-evicted ")
+        parity("evicted-frontier revisit")
+        check(sess.resyncs > base, "zone_sharded: LRU pressure forced no "
+              "resync")
+        base = sess.resyncs
+        ol.add_insert_at(a, list(ol.version), 0,
+                         "#" * (sess.W_cap - sess.W_used + 64))
+        parity("slot-capacity overflow")
+        check(sess.resyncs > base, "zone_sharded: the capacity overflow "
+              "forced no resync")
+        base = sess.resyncs
+        ol.add_insert_at(ol.get_or_create_agent_id("a-fresh-agent"),
+                         list(ol.version), 0, "epoch! ")
+        parity("agent-epoch change")
+        check(sess.resyncs > base, "zone_sharded: the new agent forced no "
+              "resync")
+        torch.cuda.synchronize()
+        row_s = time.perf_counter() - t
+        launches = x8.launches
+    session_runs = len(spy.runs)
+    check(launches == replica_launches + session_runs
+          and session_runs == sess.resyncs + 1 + sess.merges,
+          f"zone_sharded: X8 launched {launches} times for "
+          f"{replica_launches} replica blocks and {session_runs} session "
+          f"tape runs ({sess.resyncs} resyncs, {sess.merges} merges)")
+    t = time.perf_counter()
+    worst = max(zone_err(after, zk.run_zone_plain(before, xs, plen))
+                for xs, plen, before, after in spy.runs)
+    check(worst == 0, f"zone_sharded: an X8 launch of the row form differs "
+          f"from its plain version: max abs err {worst}")
+    plain_s = time.perf_counter() - t
+    return {"phase": "zone_sharded",
+            "one_card": f"the card named {ZONE_SHARDED_DEVICES} and "
+                        f"{ZONE_SHARDED_ROW_DEVICES} times: the split, "
+                        "placement and gathers run; no copy between cards "
+                        "takes place",
+            "launches": launches,
+            "replica": {"B": ZONE_SHARDED_BATCH,
+                        "devices": ZONE_SHARDED_DEVICES,
+                        "launches": replica_launches, "ms": replica_ms,
+                        "uneven_B_refused": ZONE_SHARDED_BATCH - 2},
+            "rows": {"lvs": lvs, "devices": k,
+                     "n_rows": ZONE_SHARDED_ROWS,
+                     "n_rows_eff": sess.n_rows_eff,
+                     "launches": session_runs, "resyncs": sess.resyncs,
+                     "merges": sess.merges, "syncs": syncs,
+                     "seconds": row_s},
+            "max_abs_err": worst, "plain_check_s": plain_s}
 
 
 def run_scheduler_zone(rng: np.random.Generator, device, cfg: ServeConfig,
@@ -3603,7 +3761,7 @@ def run_scheduler_obs(rng: np.random.Generator, device, cfg: ServeConfig,
             "transform": m["transform"], "lock_witness": run.lock_witness}
 
 
-# ---- phase 18: the replication mesh on the card -----------------------------
+# ---- phase 19: the replication mesh on the card -----------------------------
 
 REPL_NODES = 3                      # the standard quorum of three
 REPL_DOCS = 96
@@ -4000,14 +4158,14 @@ def run_replicated(rng: np.random.Generator, device,
               f"replicated resolve: max abs err {k2_worst}")
         # X8 runs where `Branch.merge`'s engine policy picks the zone
         # engine for a merge (a client's pull, a server's checkout): held
-        # against its plain version, on the host, from a copy of the carry
+        # against its plain version, on the card, from a copy of the carry
         check(x8_launches == len(x8_calls.runs),
               f"replicated: X8 launched {x8_launches} times for "
               f"{len(x8_calls.runs)} zone_tape_run calls")
-        x8_worst = max((zone_err(after, zk.run_zone_plain(
-            zk.ZoneCarry(*(t.cpu() for t in before)),
-            {k: v.cpu() for k, v in xs.items()}, plen))
-            for xs, plen, before, after in x8_calls.runs), default=0)
+        x8_worst = max((zone_err(after, zk.run_zone_plain(before, xs,
+                                                          plen))
+                        for xs, plen, before, after in x8_calls.runs),
+                       default=0)
         check(x8_worst == 0, f"X8 differs from its plain version at a "
               f"replicated merge: max abs err {x8_worst}")
         plain_check_s = time.perf_counter() - t
@@ -4101,7 +4259,7 @@ def run_replicated(rng: np.random.Generator, device,
         shutil.rmtree(root, ignore_errors=True)
 
 
-# ---- phases 19-21: the layer above the server --------------------------------
+# ---- phases 20-22: the layer above the server --------------------------------
 
 SCENARIO = "flash-crowd"            # workload/spec.py, registered unchanged
 SCENARIO_PROFILE_TICK = 24          # the traced tick: 12.0-12.5 s, in the
@@ -4224,10 +4382,10 @@ class Served:
                       for mi, calls in by_mi.items()), default=0)
         k2_worst = max((k2_err(nv, ov) for nv, ov in self.k2.args),
                        default=0)
-        x8_worst = max((zone_err(after, zk.run_zone_plain(
-            zk.ZoneCarry(*(t_.cpu() for t_ in before)),
-            {k: v.cpu() for k, v in xs.items()}, plen))
-            for xs, plen, before, after in self.x8.runs), default=0)
+        x8_worst = max((zone_err(after, zk.run_zone_plain(before, xs,
+                                                          plen))
+                        for xs, plen, before, after in self.x8.runs),
+                       default=0)
         k3_worst = max((k3_err(list(a[:4]), a[4]) for a in self.k3.args),
                        default=0)
         for name, err in (("K1", k1_err), ("K2", k2_worst),
@@ -4913,6 +5071,10 @@ def main(argv=None) -> int:
         zbatch = run_zone_batch(device, zprep, ztape, zcfg)
         zbatch["seconds"] = time.perf_counter() - t
         emit(zbatch)
+        t = time.perf_counter()
+        zshard = run_zone_sharded(device, zprep, ztape)
+        zshard["seconds"] = time.perf_counter() - t
+        emit(zshard)
         # the scheduler phase's documents and edits (its generator seed)
         t = time.perf_counter()
         zsched = run_scheduler_zone(rng(5), device, cfg, SchedulerConfig(),
@@ -5051,12 +5213,13 @@ def main(argv=None) -> int:
              "launches": zone["launches"],
              "launches_by_path": {"zone": zone["launches"],
                                   "zone_batch": zbatch["launches"],
+                                  "zone_sharded": zshard["launches"],
                                   "scheduler_zone": zsched["launches"],
                                   "replicated": rsched["x8_launches"],
                                   **{p: r["x8_launches"] for p, r in above},
                                   "device_soak": dsoak["x8_launches"]},
              "max_abs_err": max(zkern["max_abs_err"], zone["max_abs_err"],
-                                zsched["max_abs_err"],
+                                zshard["max_abs_err"], zsched["max_abs_err"],
                                 rsched["x8_max_abs_err"],
                                 *(r["x8_max_abs_err"] for _p, r in above),
                                 dsoak["x8_max_abs_err"]),

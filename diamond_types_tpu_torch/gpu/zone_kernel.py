@@ -783,19 +783,47 @@ def run_zone_plain(carry: ZoneCarry, xs: dict, plen: int) -> ZoneCarry:
 
 def execute_zone_batch(tape: ZoneTape, agent_k: np.ndarray,
                        seq_k: np.ndarray, batch: int, device=None,
-                       xs: Optional[dict] = None):
+                       xs: Optional[dict] = None,
+                       devices: Optional[Sequence] = None):
     """Run one shared tape for `batch` independent replicas (BASELINE
     config 4's many-documents-per-card shape): ONE `zone_tape_run` launch
     on a fresh [batch, ...] carry. seq keys are materialized per replica,
     as the JAX package does. Returns (rank [B, W], ever [B, W]) on the
-    device."""
-    dev = resolve_device(device)
-    if xs is None:
-        xs = tape_xs(tape, dev)
-    carry = init_zone_carry(tape.W, tape.plen, tape.n_idx, agent_k,
-                            seq_k, batch=batch, device=dev)
-    carry = kernels.zone_tape_run(carry, xs, tape.plen)
-    return carry.rank, carry.ever
+    device; `xs`, the tape's columns on that device, saves the upload.
+
+    `devices` (the JAX package's `replica_sharding`) spreads the batch
+    over several devices: each gets its own copy of the tape's columns
+    (one per distinct device; a given `xs` is the first device's), the
+    agent keys and its contiguous block of batch / len(devices)
+    replicas, and X8 launches once on each device over its block. The
+    replicas are independent, so nothing moves between devices until the
+    blocks are concatenated, in device order, on the first device; JAX
+    returns a sharded global array instead. A batch that does not divide
+    over the devices raises ValueError before any launch, as JAX's
+    `device_put` does."""
+    if devices is None:
+        devs = [resolve_device(device)]
+    else:
+        devs = [resolve_device(d) for d in devices]
+        if not devs:
+            raise ValueError("devices names no device")
+        if batch % len(devs):
+            raise ValueError(f"a batch of {batch} replicas does not divide "
+                             f"over {len(devs)} devices")
+    per = batch // len(devs)
+    cols = {} if xs is None else {devs[0]: xs}
+    carries = []
+    for dev in devs:
+        if dev not in cols:
+            cols[dev] = tape_xs(tape, dev)
+        carry = init_zone_carry(tape.W, tape.plen, tape.n_idx, agent_k,
+                                seq_k, batch=per, device=dev)
+        carries.append(kernels.zone_tape_run(carry, cols[dev], tape.plen))
+    if len(carries) == 1:
+        return carries[0].rank, carries[0].ever
+    lead = devs[0]
+    return (torch.cat([c.rank.to(lead) for c in carries]),
+            torch.cat([c.ever.to(lead) for c in carries]))
 
 
 def execute_zone(tape: ZoneTape, agent_k: np.ndarray, seq_k: np.ndarray,

@@ -22,14 +22,24 @@ headroom; growth also resyncs.
 Everything reuses the zone engine verbatim: the same tape schema, the same
 kernel (or its plain version for a CPU session), the same YjsMod
 semantics — a session is a tape whose steps arrive over time. The session
-lives on `device`: CUDA unless the caller asks for "cpu". The JAX session's
-sharded row form (`row_sharding`, the state rows spread over a mesh) needs
-more than one card and is not ported.
+lives on `device`: CUDA unless the caller asks for "cpu".
+
+`devices` (the JAX session's `row_sharding`) spreads the version rows over
+several devices. The row count is rounded up to a multiple of
+len(devices), as JAX rounds it to the mesh, so rows, evictions and resyncs
+match. Between syncs the state rows rest in equal contiguous blocks, one a
+device in device order (`state_blocks`; `carry.state` is then None), and
+the rest of the carry stays on the first device, `self.device`. X8's steps
+read and write any rows (FORK copies row a into row b, MAX merges them,
+APPLY snapshots its row), so a block cannot step on its own device: a
+tape run gathers the blocks onto the first device, launches X8 there once,
+in place, and copies each block back to its device (`_on_lead`). JAX's
+GSPMD moves rows between chips for the same reason.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -53,12 +63,24 @@ class DeviceZoneSession:
 
     def __init__(self, oplog, n_rows: int = 8, headroom: float = 2.0,
                  max_blocks: int = 4, max_chars: int = 256,
-                 max_dels: int = 8, device=None):
+                 max_dels: int = 8, device=None,
+                 devices: Optional[Sequence] = None):
         self.oplog = oplog
         self.n_rows = n_rows
         self.headroom = headroom
         self.MB, self.MC, self.MD = max_blocks, max_chars, max_dels
-        self.device = resolve_device(device)
+        if devices is None:
+            self.devices = None
+            self.device = resolve_device(device)
+        else:
+            if device is not None:
+                raise ValueError("device= and devices= are mutually "
+                                 "exclusive")
+            self.devices = [resolve_device(d) for d in devices]
+            if not self.devices:
+                raise ValueError("devices names no device")
+            self.device = self.devices[0]
+        self.state_blocks: Optional[List[torch.Tensor]] = None
         self.resyncs = -1          # first build counts up to 0
         self.merges = 0
         self._lru: Dict[Tuple[int, ...], int] = {}
@@ -83,6 +105,11 @@ class DeviceZoneSession:
         self.prep = prep
         W_cap = _pow2(max(int(prep.W * self.headroom), prep.W + 1024))
         n_rows = max(self.n_rows, prep.plan.indexes_used)
+        if self.devices is not None:
+            # equal row blocks: round up to the devices, as JAX rounds the
+            # sharded row axis up to the mesh
+            k = len(self.devices)
+            n_rows = -(-n_rows // k) * k
         self.W_cap = W_cap
         self.plen = prep.plen
 
@@ -104,6 +131,7 @@ class DeviceZoneSession:
         tape.W = W_cap     # slot ids are absolute: only the width differs
         self.carry = init_zone_carry(W_cap, prep.plen, n_rows, agent_k,
                                      seq_k, device=self.device)
+        self.state_blocks = None
         self._run_tape(tape)
 
         # row registry: pinned agent-head rows + their frontiers
@@ -126,24 +154,46 @@ class DeviceZoneSession:
             self._tip_row(r)
             self.row_of[tipkey] = r
 
+    def _on_lead(self, fn) -> None:
+        """Call `fn()` on the whole carry on `self.device`. With `devices`,
+        the state rows are first gathered from their blocks (unless a
+        fresh carry already holds them) and afterwards copied back, one
+        block a device; `carry.state` is None again after."""
+        if self.devices is None:
+            fn()
+            return
+        if self.carry.state is None:
+            self.carry = self.carry._replace(state=torch.cat(
+                [b.to(self.device) for b in self.state_blocks], dim=1))
+        fn()
+        state = self.carry.state
+        per = state.shape[1] // len(self.devices)
+        self.state_blocks = [state[:, k * per:(k + 1) * per].to(d, copy=True)
+                             for k, d in enumerate(self.devices)]
+        self.carry = self.carry._replace(state=None)
+
     def _tip_row(self, r: int) -> None:
         """state[r] <- the merged tip's visibility (1 = placed and never
         deleted, 2 = placed and deleted, 0 = unplaced), in place."""
-        c = self.carry
-        row = torch.where(c.rank < int(BIG32),
-                          torch.where(c.ever == 0, 1, 2), 0)
-        c.state[:, min(max(r, 0), self.n_rows_eff - 1)] = row.to(torch.uint8)
+        def build():
+            c = self.carry
+            row = torch.where(c.rank < int(BIG32),
+                              torch.where(c.ever == 0, 1, 2), 0)
+            c.state[:, min(max(r, 0), self.n_rows_eff - 1)] = \
+                row.to(torch.uint8)
+        self._on_lead(build)
 
     def _run_tape(self, tape: ZoneTape) -> None:
         """Continue the resident carry with `tape`, in place: one launch
-        for the whole tape. (The JAX session can cut it into slices,
-        DT_SESSION_SLICE, for its TPU runtime's per-program time limit; the
-        card has none.) The tape's upload is counted by
+        for the whole tape, on `self.device`. (The JAX session can cut it
+        into slices, DT_SESSION_SLICE, for its TPU runtime's per-program
+        time limit; the card has none.) The tape's upload is counted by
         `note_transfer`, untagged as in the JAX package; the port's tape
         is unpadded, so it moves fewer bytes than JAX's pow2-padded one."""
         xs = tape_xs(tape, self.device)
         note_transfer(sum(v.nbytes for v in xs.values()))
-        kernels.zone_tape_run(self.carry, xs, tape.plen)
+        self._on_lead(lambda: kernels.zone_tape_run(self.carry, xs,
+                                                    tape.plen))
 
     def _take_row(self, exclude) -> Optional[int]:
         """A free state row, evicting the least-recently-used tracked

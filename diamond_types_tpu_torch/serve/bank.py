@@ -150,8 +150,8 @@ class SessionBank:
         `session_opts` with `fused=False`); None means CUDA, and the
         constructor raises without it. `fused_opts` (cap / max_ins /
         headroom / device) go to each `FusedDocSession`; `session_opts`
-        (n_rows / headroom / max_blocks / max_chars / max_dels / device)
-        to each `DeviceZoneSession`. `device_plan` (fused engine only)
+        (n_rows / headroom / max_blocks / max_chars / max_dels / device,
+        or devices, passed through unchanged) to each `DeviceZoneSession`. `device_plan` (fused engine only)
         plans tails through the device transform (`xform.extract_tail` +
         `resolve_positions`, K2) instead of the host tracker walk.
 
@@ -177,9 +177,14 @@ class SessionBank:
         self.device = None
         if engine == "device":
             opts = self.fused_opts if self.fused else self.session_opts
-            self.device = resolve_device(
-                device if device is not None else opts.get("device"))
-            opts["device"] = self.device
+            if not self.fused and opts.get("devices") is not None:
+                # a zone session over several devices (its row form)
+                # names them itself: the bank's device is their first
+                self.device = resolve_device(opts["devices"][0])
+            else:
+                self.device = resolve_device(
+                    device if device is not None else opts.get("device"))
+                opts["device"] = self.device
         self.flush_docs = int(flush_docs)
         self.device_plan = bool(device_plan) and self.fused
         self.mesh_shards = int(mesh_shards)

@@ -248,3 +248,25 @@ def test_chip_smoke_fails_without_cuda():
                        cwd=REPO, capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout and "CUDA" in r.stderr
+
+
+def test_serve_readme_carries_every_cited_section():
+    """Every section of `serve/README.md` that a port docstring cites by
+    its quoted title is a heading of the port's copy, and the copy names
+    no TPU module path and not JAX_PLATFORMS."""
+    import re
+    port = REPO / "diamond_types_tpu_torch"
+    readme = (port / "serve" / "README.md").read_text()
+    headings = [line.lstrip("#").strip() for line in readme.splitlines()
+                if line.startswith("#")]
+    cited = set()
+    for path in port.rglob("*.py"):
+        text = " ".join(path.read_text(encoding="utf-8").split())
+        cited.update(re.findall(
+            r'serve/README\.md (?:documents under )?"([^"]+)"', text))
+    assert cited >= {"Tiered residency", "Concurrency invariants",
+                     "Cross-host replication"}, cited
+    for title in sorted(cited):
+        assert any(h.startswith(title) for h in headings), title
+    assert "JAX_PLATFORMS" not in readme
+    assert not re.search(r"(?<![\w.])tpu/", readme)

@@ -47,10 +47,11 @@ def _fresh_port_policy(monkeypatch):
 
 class TwinSessions:
     """One realtime history driven into a JAX-package OpLog and a port
-    OpLog by one random stream each, with a session over each."""
+    OpLog by one random stream each, with a session over each: the JAX
+    one with `jax_kw`, the port's with `port_kw` (default: on the CPU)."""
 
     def __init__(self, seed, agents=("ann", "bo", "cy"), warm=5,
-                 **session_kw):
+                 jax_kw=None, port_kw=None, **session_kw):
         self.rngs = [random.Random(seed), random.Random(seed)]
         self.ols = [JaxOpLog(), OpLog()]
         self.agents = [[ol.get_or_create_agent_id(n) for n in agents]
@@ -63,9 +64,10 @@ class TwinSessions:
                 v, c = random_edit(self.rngs[k], ol, a0, v, c)
             for a in self.agents[k]:
                 self.heads[k][a] = (v, c)
-        self.sessions = [JaxSession(self.ols[0], **session_kw),
-                         DeviceZoneSession(self.ols[1], device="cpu",
-                                           **session_kw)]
+        self.sessions = [
+            JaxSession(self.ols[0], **session_kw, **(jax_kw or {})),
+            DeviceZoneSession(self.ols[1], **session_kw,
+                              **(port_kw or CPU))]
 
     def step(self, merge_share=0.4):
         for k, ol in enumerate(self.ols):
