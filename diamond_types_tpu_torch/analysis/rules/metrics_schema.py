@@ -40,6 +40,14 @@ copied, so the rule can never drift from the schema itself):
                                prom families zero-fill from that same
                                tuple, so an undeclared kind would mint
                                a bundle no renderer ever counts)
+  .record_phases(shard, {"phase": s, ...})  each literal key in
+                               serve.metrics.FLUSH_PHASES (the port's
+                               flush phases; record_phases raises on an
+                               undeclared one, and the
+                               dt_serve_flush_phase_seconds_total
+                               family zero-fills from that tuple)
+  .enter_phase("phase")        phase in FLUSH_PHASES (the FlushClock
+                               call that starts a phase)
 
 plus the exemplar join: a module defining `_EXEMPLAR_FAMILIES` (the
 prom histogram -> TimeSeries mapping) must only name families some
@@ -64,7 +72,7 @@ from ...qos.classes import QOS_CLASSES
 from ...qos.metrics import QOS_CLASS_KEYS, QOS_CTL_KEYS
 from ...read.metrics import READ_KEYS
 from ...replicate.metrics import _GROUPS, _LATENCY_NAMES
-from ...serve.metrics import HYDRATION_KEYS, _SHARD_KEYS
+from ...serve.metrics import FLUSH_PHASES, HYDRATION_KEYS, _SHARD_KEYS
 from ...storage.tier import TIER_KEYS
 from ...wire.frames import WIRE_CHANNELS, WIRE_KEYS
 
@@ -191,6 +199,23 @@ def check_metrics_schema(ctx: FileContext, summary) -> List[Violation]:
                             f"serve.metrics.HYDRATION_KEYS — the "
                             f"residency-tier prom block will never "
                             f"carry it")
+            elif name == "record_phases" and len(args) > 1 \
+                    and isinstance(args[1], ast.Dict):
+                for key in args[1].keys:
+                    k = _const_str(key) if key is not None else None
+                    if k is not None and k not in FLUSH_PHASES:
+                        violate(node.lineno,
+                                f"flush phase {k!r} is not in "
+                                f"serve.metrics.FLUSH_PHASES "
+                                f"{FLUSH_PHASES} — record_phases "
+                                f"raises on it and no prom family "
+                                f"carries it")
+            elif name == "enter_phase" and args:
+                a0 = _const_str(args[0])
+                if a0 is not None and a0 not in FLUSH_PHASES:
+                    violate(node.lineno,
+                            f"flush phase {a0!r} is not in "
+                            f"serve.metrics.FLUSH_PHASES {FLUSH_PHASES}")
             elif name == "observe_latency" and args:
                 a0 = _const_str(args[0])
                 if a0 is not None and a0 not in _LATENCY_NAMES:

@@ -325,17 +325,28 @@ def adopt_results(sessions: Sequence[FusedDocSession],
     return ok
 
 
+def fetch_lengths(out_lens: torch.Tensor) -> np.ndarray:
+    """The completion fence: the replayed lengths fetched to the host,
+    which waits for the replay to finish."""
+    return out_lens.cpu().numpy()
+
+
 # the JAX package's transfer tag for each replay rung (its cache names):
 # the port's kernel rung is the counterpart of `pallas_fused_replay`
 _TRANSFER_RUNG = {"kernel": "pallas"}
 
 
 def _replay(sessions: List[FusedDocSession], plans: List[TailPlan],
-            cache: str) -> Tuple[List[bool], float]:
+            cache: str, clock=None) -> Tuple[List[bool], float]:
     """Pack a bucket, note its steered class warm under `cache`, launch K1
     once over it, and fence the results. All sessions share (cap, max_ins,
     device). Returns (ok-per-session, seconds blocked on the length fetch,
-    which is the completion fence)."""
+    which is the completion fence).
+
+    `clock` (a `serve.metrics.FlushClock`, its "pack" phase running) is
+    switched to "fence" at the length fetch and to "adopt" for the
+    commits. The per-doc sync passes none: the serial rung that runs it
+    counts its pack and fence as its own."""
     b = len(sessions)
     if b < 1 or b != len(plans):
         raise ValueError(f"{b} sessions for {len(plans)} plans")
@@ -350,15 +361,21 @@ def _replay(sessions: List[FusedDocSession], plans: List[TailPlan],
     bp, n = STEER.snap(cache, args[0].shape[0], args[2].shape[1], mi, cap)
     STEER.note_warm(cache, mi, cap, bp, n)
     out_docs, out_lens = apply_ops_window(*args, mi)
+    if clock is not None:
+        clock.enter_phase("fence")
     t_fence = time.perf_counter()
-    got = out_lens.cpu().numpy()
+    got = fetch_lengths(out_lens)
     device_s = time.perf_counter() - t_fence
+    if clock is not None:
+        clock.enter_phase("adopt")
     return adopt_results(sessions, plans, out_docs, out_lens, got), device_s
 
 
 def kernel_fused_replay(sessions: List[FusedDocSession],
-                        plans: List[TailPlan]) -> Tuple[List[bool], float]:
+                        plans: List[TailPlan],
+                        clock=None) -> Tuple[List[bool], float]:
     """The kernel rung, the counterpart of `pallas_fused_replay`: the
     bucket's window in ONE launch of K1 on CUDA sessions (K1's plain
-    version on CPU sessions), its class noted under "kernel"."""
-    return _replay(sessions, plans, "kernel")
+    version on CPU sessions), its class noted under "kernel". `clock`:
+    the flush's phase timer, as `_replay` takes it."""
+    return _replay(sessions, plans, "kernel", clock)

@@ -1,13 +1,14 @@
 """Device-time profiling: wall vs. device seconds per flush, compile
 cache hit/miss counts, and host<->device transfer bytes.
 
-A process-wide `PROFILER` singleton (disabled by default) keeps the
-hooks in tpu/zone_session.py and serve/bank.py down to one attribute
-check when profiling is off — the jit-cache lookup path must not pay
-for observability it isn't using. serve/driver.py enables it for
-bench runs so `bench_serve_sched` can report how much of each flush
-was actual `block_until_ready` device time versus host bookkeeping,
-which is the measurement ROADMAP item (c)'s fused-flush claim needs.
+A process-wide `PROFILER` singleton (disabled by default) keeps its
+hooks (in gpu/, parallel/mesh.py and serve/) down to one attribute
+check when profiling is off. serve/driver.py enables it
+for its runs (`run_serve_bench`) so the report can say how much of each
+flush was spent waiting on the device (the length fetch that fences a
+replay, or a `torch.cuda.synchronize` after a per-doc sync) versus host
+bookkeeping. The port never notes a jit-cache lookup: it has no jit.
+The always-on per-phase times of a flush are ServeMetrics' (`flush_phases`).
 """
 
 from __future__ import annotations
@@ -65,10 +66,9 @@ class DeviceProfiler:
     def observe_fused(self, shard: int, wall_s: float, device_s: float,
                       n_docs: int) -> None:
         """One fused bucket replay: `wall_s` is the whole dispatch +
-        commit, `device_s` the completion-fence wait (the
-        block_until_ready-equivalent) — the wall-vs-device attribution
-        for the fused path, per ROADMAP item (c). Also counts toward
-        the shard's flush totals so per_shard rows stay comparable
+        commit, `device_s` the completion-fence wait (the length fetch)
+        — the wall-vs-device attribution for the fused path. Also counts
+        toward the shard's flush totals so per_shard rows stay comparable
         between fused and per-doc flushes."""
         if not self.enabled:
             return
@@ -88,11 +88,11 @@ class DeviceProfiler:
                        n_docs: int, n_shards: int,
                        staged_bytes: int = 0) -> None:
         """One mesh flush-window dispatch: `n_docs` docs from
-        `n_shards` shards replayed in a single shard_map program
+        `n_shards` shards replayed in one K1 launch per device slice
         (scheduler._flush_window). `staged_bytes` is the host->device
         byte count the window's state staging actually paid (0 when
         the arena fast path or the device-side gather kept rows
-        resident — the saving ISSUE 20's staging claim is about).
+        resident).
         Kept SEPARATE from the per-shard flush totals — a window is
         cross-shard by construction, so attributing its wall time to
         any one shard would double-count against the per_shard rows."""

@@ -10,6 +10,11 @@ Naming scheme:
   dt_serve_<counter>_total            scheduler totals
   dt_serve_flush_reason_total{reason}
   dt_serve_shard_*{shard}             per-shard gauges/counters
+  dt_serve_flush_phase_seconds_total{phase}  the bank flush's phases
+                                      (zero-filled over FLUSH_PHASES)
+  dt_serve_oplog_wait_seconds_total   blocked before taking the oplog
+                                      lock (its holds: the oplog_hold
+                                      latency histogram)
   dt_repl_<group>_<key>_total         replication counters
   dt_rebalance_<counter>_total /      elastic-mesh migrations (zero-
   dt_rebalance_override_table_size    filled) + override-table gauge
@@ -27,7 +32,8 @@ Naming scheme:
   dt_read_<counter>_total             follower-read tier counters
   dt_read_local_ratio /               local-serve ratio gauge +
   dt_read_staleness_seconds           staleness histogram
-  dt_<name>_latency_seconds           histograms (flush, handoff,
+  dt_<name>_latency_seconds           histograms (flush, queue_wait,
+                                      admit_wait, oplog_hold, handoff,
                                       quorum_round, probe,
                                       antientropy_round,
                                       rebalance_drain)
@@ -251,6 +257,18 @@ def _render_serve(b: _Builder, serve: dict) -> None:
         if "device_sync_s" in row:
             b.add("dt_serve_shard_device_sync_seconds_total", "counter",
                   row["device_sync_s"], labels=lb)
+    phases = serve.get("flush_phases")
+    if phases is not None:
+        # the flush's phases (ServeMetrics v5), zero-filled over
+        # FLUSH_PHASES so every phase exists from the first scrape
+        from ..serve.metrics import FLUSH_PHASES
+        secs = dict.fromkeys(FLUSH_PHASES, 0.0)
+        secs.update(phases.get("seconds") or {})
+        for phase, v in secs.items():
+            b.add("dt_serve_flush_phase_seconds_total", "counter", v,
+                  labels={"phase": phase})
+        b.add("dt_serve_oplog_wait_seconds_total", "counter",
+              phases.get("oplog_wait_s", 0.0))
     for name, snap in sorted((serve.get("latencies") or {}).items()):
         b.histogram(f"dt_{name}_latency_seconds", snap)
 

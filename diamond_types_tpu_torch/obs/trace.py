@@ -11,12 +11,18 @@ receiving server parses it and parents its own request span on the
 remote caller, stitching both hosts into one trace.
 
 Disabled tracers are a hard no-op: `start()` checks one flag and
-returns `NOOP_SPAN` without allocating (verified by a tracemalloc test
-in tests/test_obs.py), so the serve hot path pays a single branch when
-observability is off.
+returns `NOOP_SPAN` without allocating, so the serve hot path pays a
+single branch when observability is off. An untraced bank flush opens
+no span either (tests/test_torch_flush_phases.py holds both with
+tracemalloc).
 
 Finished spans land in a bounded ring (deque) — this is a flight
-recorder for traces, not an exporter; scrape via Tracer.spans().
+recorder for traces, not an exporter; scrape via Tracer.spans(), and
+`resize()` the ring to hold a whole run. Each record carries its start
+and duration on `time.monotonic()` (`t0`, `dur_s`: the clock
+obs/assemble.py aligns across hosts) and its start and end on
+`time.time_ns()` (`t0_ns`, `t1_ns`: torch.profiler's clock, so spans lay
+against a device trace).
 """
 
 from __future__ import annotations
@@ -99,7 +105,7 @@ NOOP_SPAN = _NoopSpan()
 
 class Span:
     __slots__ = ("_tracer", "name", "trace_id", "span_id", "parent_id",
-                 "t0", "attrs", "_done")
+                 "t0", "t0_ns", "attrs", "_done")
     sampled = True
 
     def __init__(self, tracer: "Tracer", name: str, trace_id: str,
@@ -113,6 +119,7 @@ class Span:
         self.attrs = attrs
         self._done = False
         self.t0 = time.monotonic()
+        self.t0_ns = time.time_ns()
 
     def context(self) -> SpanContext:
         return SpanContext(self.trace_id, self.span_id, True)
@@ -197,6 +204,8 @@ class Tracer:
                "parent": span.parent_id,
                "t0": round(span.t0, 6),
                "dur_s": round(time.monotonic() - span.t0, 6),
+               "t0_ns": span.t0_ns,
+               "t1_ns": time.time_ns(),
                "attrs": span.attrs}
         with self._lock:
             self.finished += 1
@@ -205,6 +214,14 @@ class Tracer:
     def spans(self) -> list:
         with self._lock:
             return list(self._spans)
+
+    def resize(self, capacity: int) -> None:
+        """Bound the finished-span ring at `capacity` spans from now on,
+        keeping the newest that fit (a run that reads every span of a
+        window sizes the ring for it first)."""
+        with self._lock:
+            self._spans = collections.deque(self._spans,
+                                            maxlen=max(int(capacity), 1))
 
     def find(self, trace_id: str) -> list:
         return [s for s in self.spans() if s["trace"] == trace_id]

@@ -170,8 +170,8 @@ def _stage_rows(sessions, idx: List[int], bp: int, cap: int,
             docs_h.nbytes + lens_h.nbytes)
 
 
-def mesh_fused_replay(mesh: Sequence[torch.device], sessions, plans
-                      ) -> Tuple[List[bool], float, int, int]:
+def mesh_fused_replay(mesh: Sequence[torch.device], sessions, plans,
+                      clock=None) -> Tuple[List[bool], float, int, int]:
     """Replay the fusable rows of a whole flush window, every shard's
     bucket concatenated, all sharing (cap, max_ins): one K1 launch per
     device slice of the super-batch.
@@ -186,6 +186,10 @@ def mesh_fused_replay(mesh: Sequence[torch.device], sessions, plans
     `flush_fuse.adopt_results`, committing each good row as a view of the
     output with no clone; the outputs are then parked as the class's
     arena.
+
+    `clock` (the window's `serve.metrics.FlushClock`, its "pack" phase
+    running) is switched to "fence" at the length fetch and to "adopt"
+    for the commits and the arena.
 
     Returns (ok per session, seconds blocked on the length fetch, padded
     rows launched, host-to-device bytes staged: the plan arrays, plus
@@ -230,9 +234,13 @@ def mesh_fused_replay(mesh: Sequence[torch.device], sessions, plans
         staged += row_bytes
     outs = run([(d, ln, *o) for d, ln, o in zip(docs_l, lens_l, ops)])
     # the length fetch is the completion fence
+    if clock is not None:
+        clock.enter_phase("fence")
     t_fence = time.perf_counter()
-    got = [out_lens.cpu().numpy() for _, out_lens in outs]
+    got = [_ff.fetch_lengths(out_lens) for _, out_lens in outs]
     device_s = time.perf_counter() - t_fence
+    if clock is not None:
+        clock.enter_phase("adopt")
     ok = [False] * b
     for (_dev, idx), (out_docs, out_lens), g in zip(slices, outs, got):
         oks = _ff.adopt_results([sessions[i] for i in idx],

@@ -63,11 +63,25 @@ outside it) and `_plan_fused` (grouping by (cap, max_ins), under it again).
 tail (sync counts, fence failures to the host, the per-doc rung).
 `sync_docs` is `plan_window`, one replay per group, `adopt_window`.
 
+Phases (always on): every flush is timed by a `FlushClock`
+(`serve/metrics.py`), which the window dict carries (`win["clock"]`):
+`extract_window` runs "extract", `resolve_windows` "resolve",
+`_plan_fused` "plan", a fused group's replay "pack", "fence" and "adopt",
+`adopt_window` "adopt" and, for its serial items, "serial". The oplog
+lock is taken through the clock at the three sites that take it
+(`extract_window`, `_plan_fused`, `adopt_window`), so its wait counts in
+no phase and each hold is timed, whatever lock object the caller passes.
+`sync_docs` records its flush's phases once (`ServeMetrics.record_phases`);
+the scheduler's flush window records its shards' itself.
+
 Observability (`MergeScheduler.attach_obs`): the flight recorder takes
 every eviction (`session_evicted`, with its pending ops and whether the
 snapshot path took them) and every fence failure (`host_fallback`); the
 journey stamps each sampled item `planned`, `device_replayed` and
-`adopted`; the process-wide `obs.devprof.PROFILER` takes each fused group
+`adopted`; in a traced flush (a parent span context: `trace_parent` for
+`sync_docs`, `trace` for the window's steps) the clock opens one leaf span
+`bank.<phase>` a stretch of each phase on the bundle's tracer; the
+process-wide `obs.devprof.PROFILER` takes each fused group
 (`observe_fused`: wall and the length fetch's wait) and each per-doc sync
 (`observe_flush`). While the profiler is enabled, a per-doc sync on a CUDA
 session is followed by a `torch.cuda.synchronize`, timed as its device
@@ -92,7 +106,7 @@ from ..gpu.steer import STEER, WARMUP_SHAPE_CLASSES, _pow2, cap_class, \
 from ..gpu.zone_session import DeviceZoneSession
 from ..obs.devprof import PROFILER
 from ..parallel.mesh import pad_batch_count
-from .metrics import ServeMetrics
+from .metrics import FlushClock, ServeMetrics
 
 # the first CUDA touch in the process initialises the driver and its
 # device table; it runs exactly once, under this lock
@@ -197,6 +211,13 @@ class SessionBank:
         # obs.journey.OpJourney (same attach path): planned /
         # device_replayed / adopted stamps for sampled-trace items
         self.journey = None
+        # obs.trace.Tracer (same attach path): the traced flushes' phase
+        # spans open on it
+        self.tracer = None
+        # the parent span context of the flush `sync_docs` runs, set by the
+        # scheduler under the shard lock for a traced flush (None:
+        # untraced); the flush window passes its context to each step
+        self.trace_parent = None
         # residency tier (MergeScheduler.attach_hydrator): called as
         # snapshot_hook(doc_id, pending_ops) at every eviction site so
         # the doc's state is persisted, not dropped. Enqueue-only by
@@ -394,14 +415,12 @@ class SessionBank:
         if self.metrics is not None:
             self.metrics.observe_footprint(self.shard_id,
                                            self.footprint_slots())
-            self.metrics.observe_device_time(
-                self.shard_id, time.perf_counter() - t0, device_s)
         PROFILER.observe_flush(self.shard_id, time.perf_counter() - t0,
                                device_s)
         return {"engine": self.engine, "steps": int(steps)}
 
     def plan_window(self, items, resolve, oplog_lock=None,
-                    min_fuse: int = 2) -> dict:
+                    min_fuse: int = 2, trace=None) -> dict:
         """The host-side half of `sync_docs`, with no replay issued:
         session build and tail extraction under `oplog_lock`
         (`extract_window`), the device resolve outside it
@@ -409,9 +428,10 @@ class SessionBank:
         The flush window runs the three steps itself, so that it resolves
         every shard's extracts at once.
 
-        Returns the window dict: {"items", "ols", "serial", "groups", ...}
-        with `groups` [(sessions, plans, doc_ids)] by (cap, max_ins)."""
-        win = self.extract_window(items, resolve, oplog_lock)
+        Returns the window dict: {"items", "ols", "serial", "groups",
+        "clock", ...} with `groups` [(sessions, plans, doc_ids)] by
+        (cap, max_ins). `trace`: as `extract_window` takes it."""
+        win = self.extract_window(items, resolve, oplog_lock, trace=trace)
         resolve_windows([win])
         self._plan_fused(win, oplog_lock, min_fuse=min_fuse)
         return win
@@ -430,22 +450,28 @@ class SessionBank:
                 continue
             j.stamp(tr.trace_id, stage)
 
-    def extract_window(self, items, resolve, oplog_lock=None) -> dict:
+    def extract_window(self, items, resolve, oplog_lock=None,
+                       trace=None) -> dict:
         """First step of planning: `resolve(doc_id) -> OpLog` for every
         item OUTSIDE `oplog_lock` (DocStore.get takes that same
         non-reentrant lock), then, under it, get/build each document's
         session and take its tail: a `TailExtract` for the device resolve
         with `device_plan`, else the host `plan_tail()`. The host engine
-        plans nothing: every item is serial."""
-        olock = oplog_lock if oplog_lock is not None \
-            else contextlib.nullcontext()
+        plans nothing: every item is serial.
+
+        Starts the flush's `FlushClock` (`win["clock"]`) in "extract";
+        `trace`, the traced flush's parent span context (None: untraced),
+        makes it open the phases' spans."""
+        clock = FlushClock(self.tracer, trace, None if trace is None else
+                           {"shard": self.shard_id, "docs": len(items)})
+        clock.enter_phase("extract")
         ols = {it.doc_id: resolve(it.doc_id) for it in items}
         win = {"bank": self, "items": items, "ols": ols, "serial": [],
-               "planned": [], "groups": []}
+               "planned": [], "groups": [], "clock": clock}
         if not self.fused:
             win["serial"] = list(items)
             return win
-        with olock:
+        with clock.oplog(oplog_lock):
             for it in items:
                 sess = self.session(it.doc_id, ols[it.doc_id])
                 half = xform.extract_tail(sess) if self.device_plan \
@@ -462,12 +488,13 @@ class SessionBank:
         `min_fuse` fusable documents) lands in `win["serial"]`. The
         per-shard path keeps `min_fuse=2` (a lone document amortizes
         nothing); the flush window passes 1, since its launch is shared.
-        Every item of the window is then stamped `planned`."""
-        olock = oplog_lock if oplog_lock is not None \
-            else contextlib.nullcontext()
+        Every item of the window is then stamped `planned`. Runs in the
+        flush clock's "plan" phase."""
+        clock = win["clock"]
+        clock.enter_phase("plan")
         serial = win["serial"]
         fusable: List[tuple] = []    # (sess, plan, item)
-        with olock:
+        with clock.oplog(oplog_lock):
             for it, sess, plan in win["planned"]:
                 if plan is None:
                     # device/host length disagreement: host re-plan
@@ -508,14 +535,15 @@ class SessionBank:
         documents (poisoned or length-drift rows, whose device state is
         untrusted) to the host, and run the per-doc rung for the serial
         items. One code path for both flush forms. Every item is then
-        stamped `adopted`."""
+        stamped `adopted`. Runs in the flush clock's "adopt" phase, the
+        per-doc rung in its "serial" phase."""
         dlock = device_lock if device_lock is not None \
             else contextlib.nullcontext()
-        olock = oplog_lock if oplog_lock is not None \
-            else contextlib.nullcontext()
+        clock = win["clock"]
+        clock.enter_phase("adopt")
         for _sessions, _plans, doc_ids in win["groups"]:
             self._bump("syncs", len(doc_ids))
-        with olock:
+        with clock.oplog(oplog_lock):
             for d in failed:
                 # serve the doc from the host oracle until its rebuild
                 self.evict(d)
@@ -524,6 +552,8 @@ class SessionBank:
                     self.recorder.record(
                         "host_fallback", shard=self.shard_id, doc=d,
                         error="fused_poisoned_or_len_mismatch")
+            if win["serial"]:
+                clock.enter_phase("serial")
             for it in win["serial"]:
                 with dlock:
                     # The serial fallback rung interleaves oplog reads
@@ -535,6 +565,7 @@ class SessionBank:
                     # oplog readers here is the documented cost of
                     # falling off the fused path.
                     self.sync_doc(it.doc_id, win["ols"][it.doc_id])  # dt-lint: ignore[device-under-lock]
+            clock.enter_phase("adopt")
             if self.metrics is not None:
                 self.metrics.observe_footprint(self.shard_id,
                                                self.footprint_slots())
@@ -552,26 +583,31 @@ class SessionBank:
         docstring: the ladder): `plan_window`, one replay per fused group
         under `device_lock` only, then `adopt_window`. `items` are
         admission PendingMerge rows; `resolve(doc_id) -> OpLog` is called
-        OUTSIDE `oplog_lock`.
+        OUTSIDE `oplog_lock`. The phase spans of a traced flush go under
+        `trace_parent`. The flush's phases are recorded once, at its end
+        (`ServeMetrics.record_phases`); the wait for the device lock is in
+        no phase.
 
         Returns {"docs", "fused_calls", "fused_docs", "fallback_docs"}.
         """
         dlock = device_lock if device_lock is not None \
             else contextlib.nullcontext()
-        win = self.plan_window(items, resolve, oplog_lock=oplog_lock)
+        win = self.plan_window(items, resolve, oplog_lock=oplog_lock,
+                               trace=self.trace_parent)
+        clock = win["clock"]
         # ---- device phase: one replay per fused group, under the device
         # lock ONLY — host threads keep mutating other oplogs
         failed: List[str] = []
         for sessions, plans, doc_ids in win["groups"]:
+            clock.end()
             t0 = time.perf_counter()
             with dlock:
-                ok, device_s = flush_fuse.kernel_fused_replay(sessions,
-                                                              plans)
+                clock.enter_phase("pack")
+                ok, device_s = flush_fuse.kernel_fused_replay(
+                    sessions, plans, clock=clock)
             wall = time.perf_counter() - t0
             if self.metrics is not None:
                 self.metrics.record_fused(self.shard_id, len(sessions))
-                self.metrics.observe_device_time(self.shard_id, wall,
-                                                 device_s)
             PROFILER.observe_fused(self.shard_id, wall, device_s,
                                    len(sessions))
             failed.extend(d for good, d in zip(ok, doc_ids) if not good)
@@ -581,6 +617,11 @@ class SessionBank:
                                 docs=fused.difference(failed))
         out = self.adopt_window(win, failed, oplog_lock=oplog_lock,
                                 device_lock=device_lock)
+        clock.end()
+        if self.metrics is not None:
+            self.metrics.record_phases(self.shard_id, clock.seconds,
+                                       clock.oplog_wait_s,
+                                       clock.oplog_holds)
         out["fused_calls"] = len(win["groups"])
         out["fused_docs"] = sum(len(g[0]) for g in win["groups"])
         return out
@@ -606,7 +647,7 @@ class SessionBank:
             return sess.text()
 
 
-def resolve_windows(wins: List[dict]) -> int:
+def resolve_windows(wins: List[dict], clock=None) -> int:
     """The device half of planning for one or more windows from
     `SessionBank.extract_window`: every `TailExtract` among them, grouped
     by device, in ONE `xform.resolve_positions` call per device, outside
@@ -618,7 +659,13 @@ def resolve_windows(wins: List[dict]) -> int:
     Per-document transform counters are recorded per bank, as the JAX
     package's per-bank resolve records them; `batches` counts the real
     resolve calls, so a flush window over one card records one where the
-    JAX window records one per shard. Returns the number of calls."""
+    JAX window records one per shard. Runs in the "resolve" phase of
+    `clock` (the flush window's own), else of the first window's clock.
+    Returns the number of calls."""
+    if clock is None and wins:
+        clock = wins[0]["clock"]
+    if clock is not None:
+        clock.enter_phase("resolve")
     stats = [{"device_docs": 0, "host_docs": 0, "fallbacks": 0}
              for _ in wins]
     by_dev: Dict[str, tuple] = {}     # str(device) -> (device, rows)

@@ -14,9 +14,18 @@ block (`read.attach_follower_reads` wires `read`, a `ReadMetrics`; null
 until then). Left out: the Pallas-rung fallback counter (the port has no
 Pallas rung).
 
+Port-only since version 5: the flush's phases (`FLUSH_PHASES`), timed
+inside every bank flush by a `FlushClock` and recorded once a flush
+(`record_phases`); the oplog lock's wait and holds at the bank's three
+acquisitions; and the wait from admit to flush start (`admit_wait`). A
+phase's seconds are wall time on the flushing thread, waits for the
+interpreter (GIL) included: what the flush pays, not what it computes.
+`per_shard` `flush_wall_s` (every phase) and `device_sync_s` (the fence)
+are derived from the phase counters.
+
 Schema (snapshot()):
 
-  {"version": 4, "uptime_s": s, "shards": N, "flush_docs": B,
+  {"version": 5, "uptime_s": s, "shards": N, "flush_docs": B,
    "max_pending": P,
    "totals": {"submits", "coalesced", "rejects", "denied", "fenced",
               "flushes", "flushed_docs", "flushed_ops", "builds",
@@ -43,22 +52,32 @@ Schema (snapshot()):
                                     # all zero until a Hydrator is attached)
    "read": {...} | null,            # ReadMetrics.snapshot() once a
                                     # ReadPath is attached
+   "flush_phases": {"seconds": {<FLUSH_PHASES>: s},  # over shards
+                    "count": {<FLUSH_PHASES>: n},    # flushes timing it
+                    "oplog_wait_s": s,   # blocked before taking the lock
+                    "oplog_hold_s": s, "oplog_holds": n},
    "max_depth_seen": d,
    "queue_bound_violations": 0,     # depth observed above max_pending
    "latencies": {"flush": hist,     # obs.hist snapshot w/ p50/p90/p99
-                 "queue_wait": hist,             # admit -> flush start
-                 "hydration_cold_start": hist},  # prefetch/miss -> warm
+                 "queue_wait": hist,             # admit -> commit
+                 "hydration_cold_start": hist,   # prefetch/miss -> warm
+                 "oplog_hold": hist,             # one sample a hold
+                 "admit_wait": hist},            # admit -> flush start
    "per_shard": [{"shard", "queue_depth", "footprint_slots",
-                  "flush_wall_s", "device_sync_s", <totals' keys>}, ...]}
+                  "flush_wall_s",                # sum of its phases
+                  "device_sync_s",               # its fence phase
+                  <totals' keys>}, ...]}
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence
 
 from ..obs.hist import Histogram
+from ..obs.trace import NOOP_SPAN
 
 _SHARD_KEYS = ("submits", "coalesced", "rejects", "denied", "fenced",
                "flushes", "flushed_docs", "flushed_ops", "builds",
@@ -104,12 +123,104 @@ HYDRATION_KEYS = (
 )
 
 
+# the phases of one bank flush, in the order a flush runs them:
+#   extract  resolve the oplogs, get or build each session, take each tail
+#            (`xform.extract_tail` / `plan_tail`), under the oplog lock
+#   resolve  the device plan: linearisation and K2 (`resolve_windows`)
+#   plan     group the plans by (cap, max_ins), under the oplog lock
+#   pack     pack each fused group and enqueue K1, up to the fence
+#   fence    the length fetch that completes the replay
+#   adopt    commit the fenced rows, count syncs, evict failed rows
+#   serial   the per-doc rung for items that could not fuse (its own
+#            pack and fence count here, not above)
+# The wait to take the oplog lock is in no phase (`oplog_wait_s`).
+FLUSH_PHASES = ("extract", "resolve", "plan", "pack", "fence", "adopt",
+                "serial")
+_SPAN_NAMES = {p: f"bank.{p}" for p in FLUSH_PHASES}
+
+
+class FlushClock:
+    """One flush's phase timer on `time.perf_counter()`: `enter_phase(p)`
+    ends the running phase and starts `p` (None: no phase runs), so phases
+    never nest and every second between two calls belongs to one phase.
+    `oplog(lock)` takes the oplog lock with its wait in no phase, and
+    keeps each hold's seconds (`oplog_holds`).
+
+    With a tracer and a parent span context (a traced flush) each stretch
+    of a phase is also a leaf span `bank.<phase>` under that parent, with
+    `attrs` (shard or shards, docs). With no parent it opens no span and
+    allocates none: a phase costs one branch."""
+
+    __slots__ = ("seconds", "oplog_wait_s", "oplog_holds", "_tracer",
+                 "_parent", "_attrs", "_phase", "_t", "_span")
+
+    def __init__(self, tracer=None, parent=None,
+                 attrs: Optional[dict] = None) -> None:
+        self.seconds: Dict[str, float] = dict.fromkeys(FLUSH_PHASES, 0.0)
+        self.oplog_wait_s = 0.0
+        self.oplog_holds: List[float] = []
+        self._tracer = tracer
+        self._parent = parent if tracer is not None else None
+        self._attrs = attrs
+        self._phase: Optional[str] = None
+        self._t = 0.0
+        self._span = NOOP_SPAN
+
+    def enter_phase(self, phase: Optional[str]) -> None:
+        if phase == self._phase:
+            return
+        now = time.perf_counter()
+        if self._phase is not None:
+            self.seconds[self._phase] += now - self._t
+        self._span.end()
+        self._phase, self._t = phase, now
+        if phase is None or self._parent is None:
+            self._span = NOOP_SPAN
+        else:
+            self._span = self._tracer.start(_SPAN_NAMES[phase],
+                                            parent=self._parent,
+                                            attrs=self._attrs)
+
+    def end(self) -> None:
+        """Stop the running phase."""
+        self.enter_phase(None)
+
+    def share(self, other: "FlushClock", fraction: float) -> None:
+        """Add `fraction` of `other`'s phase seconds to this clock's (the
+        flush window's shared phases, split over its shards)."""
+        for p, s in other.seconds.items():
+            self.seconds[p] += s * fraction
+
+    @contextlib.contextmanager
+    def oplog(self, lock):
+        """Hold the oplog lock `lock` inside the running phase: the wait to
+        take it counts in `oplog_wait_s`, not in the phase, and the hold
+        is one entry of `oplog_holds`. None, or no real lock
+        (`contextlib.nullcontext`), is held untimed."""
+        if lock is None or isinstance(lock, contextlib.nullcontext):
+            yield
+            return
+        phase = self._phase
+        self.enter_phase(None)
+        t0 = time.perf_counter()
+        with lock:
+            t1 = time.perf_counter()
+            self.oplog_wait_s += t1 - t0
+            self.enter_phase(phase)
+            try:
+                yield
+            finally:
+                self.oplog_holds.append(time.perf_counter() - t1)
+
+
 class ServeMetrics:
     # the port's own counter-set version; bump whenever it changes
     # (2: the flush window's super-batch and staging fields; 3: the
     # residency tier's `hydration` block and
-    # `latencies.hydration_cold_start`; 4: the follower-read `read` block)
-    SCHEMA_VERSION = 4
+    # `latencies.hydration_cold_start`; 4: the follower-read `read` block;
+    # 5: the `flush_phases` block, `latencies.oplog_hold` and
+    # `latencies.admit_wait`, per_shard times derived from the phases)
+    SCHEMA_VERSION = 5
 
     def __init__(self, n_shards: int, flush_docs: int,
                  max_pending: int) -> None:
@@ -149,12 +260,21 @@ class ServeMetrics:
         self.cold_start_latency = Histogram()
         self.flush_latency = Histogram()
         self.queue_wait_latency = Histogram()
+        self.oplog_hold_latency = Histogram()
+        self.admit_wait_latency = Histogram()
         # follower-read tier (read/metrics.py ReadMetrics), wired by
         # read.attach_follower_reads; the `read` block is its snapshot,
         # null until a ReadPath is attached
         self.read = None
-        self.flush_wall_s: List[float] = [0.0] * n_shards
-        self.device_sync_s: List[float] = [0.0] * n_shards
+        # the flush's phases (record_phases): seconds and flushes that
+        # timed each, per shard; the oplog lock's wait and holds
+        self.phase_s: List[Dict[str, float]] = [
+            dict.fromkeys(FLUSH_PHASES, 0.0) for _ in range(n_shards)]
+        self.phase_n: List[Dict[str, int]] = [
+            dict.fromkeys(FLUSH_PHASES, 0) for _ in range(n_shards)]
+        self.oplog_wait_s = 0.0
+        self.oplog_hold_s = 0.0
+        self.oplog_holds = 0
         # obs.recorder.FlightRecorder, wired by
         # MergeScheduler.attach_obs; only rare events touch it
         self.recorder = None
@@ -235,13 +355,23 @@ class ServeMetrics:
         if self.ts is not None and device_docs:
             self.ts.inc("serve.xform_device_docs", device_docs)
 
-    def observe_device_time(self, shard: int, wall_s: float,
-                            device_s: float) -> None:
-        """Per-shard wall vs. fence (blocked on the device) seconds for
-        one replay."""
+    def record_phases(self, shard: int, phases: Dict[str, float],
+                      oplog_wait_s: float = 0.0,
+                      oplog_holds: Sequence[float] = ()) -> None:
+        """One flush's phase seconds (FLUSH_PHASES keys; a phase that took
+        no time is not counted as run), the wait for the oplog lock, and
+        each hold of it (one `latencies.oplog_hold` sample a hold)."""
         with self._lock:
-            self.flush_wall_s[shard] += wall_s
-            self.device_sync_s[shard] += device_s
+            s, n = self.phase_s[shard], self.phase_n[shard]
+            for p, sec in phases.items():
+                if sec > 0.0:
+                    s[p] += sec
+                    n[p] += 1
+            self.oplog_wait_s += oplog_wait_s
+            self.oplog_hold_s += sum(oplog_holds)
+            self.oplog_holds += len(oplog_holds)
+        for h in oplog_holds:
+            self.oplog_hold_latency.record(h)
 
     def observe_queue(self, shard: int, depth: int) -> None:
         with self._lock:
@@ -278,11 +408,17 @@ class ServeMetrics:
             self.ts.observe("serve.hydration_cold_start", dur_s)
 
     def observe_queue_wait(self, dur_s: float) -> None:
-        """Admit (or coalesce origin) -> flush-start wait for one queued
-        merge."""
+        """Admit (or coalesce origin) -> commit for one queued merge:
+        recorded once its flush has ended, so it spans the wait in the
+        queue and the flush."""
         self.queue_wait_latency.record(dur_s)
         if self.ts is not None:
             self.ts.observe("serve.queue_wait", dur_s)
+
+    def observe_admit_wait(self, dur_s: float) -> None:
+        """Admit (or coalesce origin) -> flush start for one queued merge:
+        the wait in the queue alone, what the admission deadline costs."""
+        self.admit_wait_latency.record(dur_s)
 
     # ---- export ----------------------------------------------------------
 
@@ -292,6 +428,8 @@ class ServeMetrics:
         flush_hist = self.flush_latency.snapshot()
         queue_wait_hist = self.queue_wait_latency.snapshot()
         cold_hist = self.cold_start_latency.snapshot()
+        hold_hist = self.oplog_hold_latency.snapshot()
+        admit_hist = self.admit_wait_latency.snapshot()
         read_snap = self.read.snapshot() if self.read is not None else None
         with self._lock:
             totals = {k: sum(s[k] for s in self.shard)
@@ -355,16 +493,28 @@ class ServeMetrics:
                 },
                 "hydration": dict(self.hydration),
                 "read": read_snap,
+                "flush_phases": {
+                    "seconds": {p: round(sum(s[p] for s in self.phase_s),
+                                         6) for p in FLUSH_PHASES},
+                    "count": {p: sum(n[p] for n in self.phase_n)
+                              for p in FLUSH_PHASES},
+                    "oplog_wait_s": round(self.oplog_wait_s, 6),
+                    "oplog_hold_s": round(self.oplog_hold_s, 6),
+                    "oplog_holds": self.oplog_holds,
+                },
                 "max_depth_seen": self.max_depth_seen,
                 "queue_bound_violations": self.queue_bound_violations,
                 "latencies": {"flush": flush_hist,
                               "queue_wait": queue_wait_hist,
-                              "hydration_cold_start": cold_hist},
+                              "hydration_cold_start": cold_hist,
+                              "oplog_hold": hold_hist,
+                              "admit_wait": admit_hist},
                 "per_shard": [
                     {"shard": i, "queue_depth": self.queue_depth[i],
                      "footprint_slots": self.footprint_slots[i],
-                     "flush_wall_s": round(self.flush_wall_s[i], 6),
-                     "device_sync_s": round(self.device_sync_s[i], 6),
+                     "flush_wall_s": round(
+                         sum(self.phase_s[i].values()), 6),
+                     "device_sync_s": round(self.phase_s[i]["fence"], 6),
                      **self.shard[i]}
                     for i in range(self.n_shards)],
             }

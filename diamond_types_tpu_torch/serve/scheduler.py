@@ -69,7 +69,10 @@ observability bundle (`attach_obs`, in either order), or from
 Observability (`attach_obs`, an `obs.Observability` bundle): sampled
 spans on the admit → flush → device-sync path (`serve.admit`,
 `serve.ownership_gate`, `serve.flush`, `serve.device_sync`; in the window
-`serve.mesh_window` and one `serve.mesh_dispatch` per class), the
+`serve.mesh_window` and one `serve.mesh_dispatch` per class), and below
+them the bank's phase spans (`bank.extract`, `bank.resolve`, `bank.plan`,
+`bank.pack`, `bank.fence`, `bank.adopt`, `bank.serial`). With
+`trace_flushes` every flush is traced, sampled item or not. The
 journey's `queued` stamp at submit (the bank stamps the rest), a flush
 exemplar when the flush rode a sampled trace, per-doc ops and device-time
 attribution, the metrics' time-series double writes (`serve.flush` among
@@ -78,6 +81,12 @@ recorder's rare events (fenced work, docs the hydration gate dropped,
 evictions, fence failures). The window reports each class's replay to
 `obs.devprof.PROFILER.observe_window`. With no bundle attached every
 touchpoint is one attribute check.
+
+Flush timing (always on, `serve/metrics.py`): each flush's phases
+(`FLUSH_PHASES`, timed by the bank's `FlushClock`), the oplog lock's wait
+and holds, and per item the wait from admit to flush start
+(`latencies.admit_wait`) and from admit to commit
+(`latencies.queue_wait`).
 
 Replication (`replicate.attach_replication`, as `tools/server.serve`
 wires it): `admit` is the node's lease gate (`ReplicaNode.owns`) and
@@ -109,7 +118,7 @@ from ..parallel.mesh import (mesh_fused_replay, serve_mesh,
 from ..qos.classes import QOS_PRIORITY
 from .admission import AdmissionQueue, Backpressure
 from .bank import SessionBank, resolve_windows
-from .metrics import ServeMetrics
+from .metrics import FlushClock, ServeMetrics
 from .router import ShardRouter
 
 
@@ -236,6 +245,12 @@ class MergeScheduler:
         # the first exception that escaped a flush on any path (inline,
         # worker, pump, read); unlike _error it is never consumed
         self.fault: Optional[Exception] = None
+        # True: with a bundle attached, every flush opens its span
+        # (`serve.flush`, or `serve.mesh_window`) as a forced root when no
+        # item's trace is sampled, so each flush's phase spans land in the
+        # tracer's ring (a profiling run; size the ring with
+        # `Tracer.resize`). False: flushes follow their items' sampling
+        self.trace_flushes = False
 
     def attach_obs(self, obs) -> None:
         """Wire an obs.Observability bundle into the admit→flush path:
@@ -255,6 +270,7 @@ class MergeScheduler:
         for bank in self.banks:
             bank.recorder = obs.recorder
             bank.journey = getattr(obs, "journey", None)
+            bank.tracer = obs.tracer
         if self.hydrator is not None:
             self.hydrator.recorder = obs.recorder
             self.hydrator.attrib = getattr(obs, "attrib", None)
@@ -576,15 +592,29 @@ class MergeScheduler:
                     "serve.flush", parent=parent,
                     attrs={"shard": shard, "reason": reason,
                            "docs": len(items)})
+            if self.trace_flushes and not fspan.sampled:
+                fspan = obs.tracer.start(
+                    "serve.flush", force=True,
+                    attrs={"shard": shard, "reason": reason,
+                           "docs": len(items)})
+        now_m = time.monotonic()
+        for it in items:
+            self.metrics.observe_admit_wait(
+                max(0.0, now_m - it.enqueued_at))
         t0 = time.perf_counter()
         with self._shard_locks[shard]:
             dspan = NOOP_SPAN if not fspan.sampled else \
                 obs.tracer.start("serve.device_sync",
                                  parent=fspan.context(),
                                  attrs={"docs": len(items)})
-            res = self.banks[shard].sync_docs(
-                items, self._flush_resolve, oplog_lock=self._sync_lock,
-                device_lock=self._device_locks[shard])
+            bank = self.banks[shard]
+            bank.trace_parent = dspan.context()
+            try:
+                res = bank.sync_docs(
+                    items, self._flush_resolve, oplog_lock=self._sync_lock,
+                    device_lock=self._device_locks[shard])
+            finally:
+                bank.trace_parent = None
             dspan.end(fused_calls=res["fused_calls"],
                       fused_docs=res["fused_docs"])
         dur = time.perf_counter() - t0
@@ -592,7 +622,7 @@ class MergeScheduler:
         self.metrics.record_flush(
             shard, len(items), sum(i.n_ops for i in items), reason,
             dur_s=dur)
-        # live telemetry: admit->flush queue wait per merged item, a
+        # live telemetry: admit->commit queue wait per merged item, a
         # flush-latency exemplar when this flush rode a sampled trace,
         # and per-doc ops/device-time attribution
         now_m = time.monotonic()
@@ -641,12 +671,19 @@ class MergeScheduler:
           4. each shard's `adopt_window`: fence failures go to the host,
              serial items take the per-doc rung.
 
+        Each shard's bank times its own phases (extract, plan, adopt,
+        serial) on its own clock; the window's clock times the shared
+        ones (resolve, and each class's pack, fence and commits), which
+        are split evenly over the window's shards when each shard's
+        phases are recorded, beside its `record_flush`.
+
         No rung catches a fault: a K1 or resolve error propagates out of
         `pump()` (from the background pump, out of the next `drain()`),
         so the JAX window's fallback events (`mesh_window_fallback`,
         `pallas_window_fallback`) have no counterpart. With a bundle
         attached the window opens `serve.mesh_window` under the first
-        sampled trace, one `serve.mesh_dispatch` per class, and stamps
+        sampled trace (a forced root with `trace_flushes`), the phase
+        spans under it, one `serve.mesh_dispatch` per class, and stamps
         each replayed row's journey `device_replayed`; each class's
         replay goes to `PROFILER.observe_window`.
         Lock order: the shard locks (sorted), the oplog lock inside the
@@ -677,17 +714,35 @@ class MergeScheduler:
                 fspan = obs.tracer.start(
                     "serve.mesh_window", parent=parent,
                     attrs={"shards": len(shards), "docs": n_docs})
+            if self.trace_flushes and not fspan.sampled:
+                fspan = obs.tracer.start(
+                    "serve.mesh_window", force=True,
+                    attrs={"shards": len(shards), "docs": n_docs})
+        ctx = fspan.context()
+        wclock = FlushClock(
+            obs.tracer if obs is not None else None, ctx,
+            None if ctx is None else {"shards": len(shards),
+                                      "docs": n_docs})
+        now_m = time.monotonic()
+        for _s, _r, its in entries:
+            for it in its:
+                self.metrics.observe_admit_wait(
+                    max(0.0, now_m - it.enqueued_at))
         t0 = time.perf_counter()
         with contextlib.ExitStack() as sstack:
             for s in shards:
                 sstack.enter_context(self._shard_locks[s])
-            wins = [self.banks[s].extract_window(
-                        items, self._flush_resolve,
-                        oplog_lock=self._sync_lock)
-                    for s, _r, items in entries]
-            resolve_windows(wins)
+            wins = []
+            for s, _r, items in entries:
+                wins.append(self.banks[s].extract_window(
+                    items, self._flush_resolve,
+                    oplog_lock=self._sync_lock, trace=ctx))
+                wins[-1]["clock"].end()
+            resolve_windows(wins, clock=wclock)
+            wclock.end()
             for (s, _r, _items), win in zip(entries, wins):
                 self.banks[s]._plan_fused(win, self._sync_lock, min_fuse=1)
+                win["clock"].end()
             classes: Dict[tuple, list] = {}
             for ei, win in enumerate(wins):
                 for sessions, plans, doc_ids in win["groups"]:
@@ -713,8 +768,11 @@ class MergeScheduler:
                             parent=fspan.context(),
                             attrs={"docs": len(rows), "cap": cap,
                                    "max_ins": mi})
+                    wclock.enter_phase("pack")
                     ok, device_s, bp, staged = mesh_fused_replay(
-                        mesh, [r[1] for r in rows], [r[2] for r in rows])
+                        mesh, [r[1] for r in rows], [r[2] for r in rows],
+                        clock=wclock)
+                    wclock.end()
                     dspan.end(padded_b=bp, staged_bytes=staged)
                 dispatches += 1
                 mesh_docs += len(rows)
@@ -742,6 +800,12 @@ class MergeScheduler:
                 self.banks[s].adopt_window(
                     wins[ei], failed[ei], oplog_lock=self._sync_lock,
                     device_lock=self._device_locks[s])
+                clock = wins[ei]["clock"]
+                clock.end()
+                clock.share(wclock, 1.0 / len(entries))
+                self.metrics.record_phases(s, clock.seconds,
+                                           clock.oplog_wait_s,
+                                           clock.oplog_holds)
                 self.metrics.record_flush(
                     s, len(items), sum(i.n_ops for i in items), reason,
                     dur_s=time.perf_counter() - t0)

@@ -1,0 +1,12 @@
+"""Bank flush, extraction: the `extract` phase (the oplogs resolved, each
+session got or built, each tail taken, under the oplog lock; the wait to
+take it aside), in microseconds per op committed in the window. It is the
+window's delta of the scheduler's `flush_phases.seconds.extract` over the
+ops of every sync committed in it: wall time on the flushing threads,
+summed over shards. None from a program that keeps no phases."""
+
+from dtbench.phases import phase_us_per_op
+
+
+def read(ctx):
+    return phase_us_per_op(ctx, "extract")

@@ -1,12 +1,14 @@
 """The port's static lint (`analysis/lint.py`, `analysis/rules/`) against
 the JAX package's.
 
-The rules are copies. `lint.py` walks `gpu/` where JAX's walks `tpu/`, and
+The rules are copies (`metrics_schema.py` adds the port's flush phases).
+`lint.py` walks `gpu/` where JAX's walks `tpu/`, and
 `rules/locks.py`'s dispatch set adds the port's own dispatch names. Every
 seeded fixture under `tests/fixtures/analysis/` goes through both
 packages' `run_lint` and must give the same violations; the port's own
 tree lints clean with JAX's rule keys; the port's dispatch names fire only
-in the port (`tests/fixtures/analysis_torch/`); the `dt-lint` gate and
+in the port (`tests/fixtures/analysis_torch/`), and so does its check of
+the flush's phases (`FLUSH_PHASES`); the `dt-lint` gate and
 its exit codes hold through the port's CLI; and after a `dt-lint` and a
 `dt-explore` run, both packages' `Observability.snapshot()`s carry the
 same keys and their Prometheus text JAX's `dt_lint_*` and `dt_explore_*`
@@ -58,9 +60,47 @@ def port_tree():
 
 # ---- the copies ---------------------------------------------------------------
 
+# the port's addition to metrics_schema.py: its flush phases (the
+# serve.metrics.FLUSH_PHASES import and the record_phases / enter_phase
+# checks, with their lines in the docstring's table)
+PHASE_CHECK = "analysis/rules/metrics_schema.py"
+PHASE_FIXTURE = REPO / "tests" / "fixtures" / "analysis_torch" / \
+    "bad_phase_drift.py"
+
+
 @pytest.mark.parametrize("rel", COPIED)
 def test_rule_module_is_a_byte_identical_copy(rel):
-    assert (REPO / PORT / rel).read_bytes() == (REPO / JAX / rel).read_bytes()
+    """A byte-identical copy; metrics_schema.py keeps every line of JAX's,
+    in order, but the import it extends, and adds the flush-phase
+    checks."""
+    port, jax = (REPO / PORT / rel).read_bytes(), (REPO / JAX / rel).read_bytes()
+    if rel != PHASE_CHECK:
+        assert port == jax
+        return
+    import difflib
+    j = jax.decode("utf8").splitlines()
+    t = port.decode("utf8").splitlines()
+    ops = difflib.SequenceMatcher(a=j, b=t, autojunk=False).get_opcodes()
+    assert [j[k] for tag, i1, i2, _a, _b in ops
+            if tag in ("delete", "replace") for k in range(i1, i2)] \
+        == ["from ...serve.metrics import HYDRATION_KEYS, _SHARD_KEYS"]
+    added = "\n".join(t[k] for tag, _a, _b, i1, i2 in ops
+                      if tag in ("insert", "replace") for k in range(i1, i2))
+    assert 'name == "record_phases"' in added
+    assert 'name == "enter_phase"' in added
+
+
+def test_phase_drift_fires_only_in_the_port():
+    """A port-only check: literal flush phases outside FLUSH_PHASES, at
+    `enter_phase` and in a `record_phases` dict, are drift; declared ones
+    pass. JAX's rule has no such phases."""
+    path = [str(PHASE_FIXTURE)]
+    assert jlint.run_lint(paths=path)["ok"]
+    t = tlint.run_lint(paths=path)
+    assert {v["rule"] for v in t["violations"]} == {"metrics-schema-drift"}
+    assert [v["line"] for v in t["violations"]] == [14, 15]
+    assert ["'replay'" in t["violations"][0]["message"],
+            "'fence_wait'" in t["violations"][1]["message"]] == [True, True]
 
 
 def test_lint_differs_only_in_its_package_list_and_docstrings():

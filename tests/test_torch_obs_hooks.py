@@ -11,7 +11,8 @@ package runs on its own `FakeClock`; the script advances both alike, and
 the obs modules and the scheduler read their package's clock (so a flush
 lasts what the test says it lasts: each bank's adoption advances its
 clock by a fixed cost a document). Per round the texts, the spans (names,
-parents, attributes and times; ids by order), the flight recorder's
+parents, attributes and times; ids by order; the port's own `bank.*` phase
+leaves dropped by name, `torch_parity.span_forest`), the flight recorder's
 events, each sampled trace's journey stamps, the time-series families and
 their event counts, the device profiler's fused counts and transfer keys
 and counts, and the controller's published table (now with `serve.flush`
@@ -66,8 +67,9 @@ from diamond_types_tpu_torch.serve.driver import run_serve_bench
 from diamond_types_tpu_torch.serve.hydrate import Hydrator
 from diamond_types_tpu_torch.storage import tier as ttier
 
-from torch_parity import (OBS_CLOCKED, FakeClock, clock_modules, serve_docs,
-                          serve_round, span_forest)
+from torch_parity import (OBS_CLOCKED, PORT_ONLY_SPANS, FakeClock,
+                          clock_modules, serve_docs, serve_round,
+                          span_forest)
 
 pytestmark = [pytest.mark.obs, pytest.mark.serve]
 
@@ -270,7 +272,9 @@ def test_device_scheduler_with_obs_matches_jax(monkeypatch):
     scheds, ctls, bundles = _run(monkeypatch, "shard")
     jd, td = JAX_PROFILER.snapshot(), PROFILER.snapshot()
     names = {s["name"] for s in bundles[1].tracer.spans()}
-    assert names == {"serve.admit", "serve.flush", "serve.device_sync"}
+    assert names - set(PORT_ONLY_SPANS) \
+        == {"serve.admit", "serve.flush", "serve.device_sync"}
+    assert {"bank.extract", "bank.pack", "bank.fence", "bank.adopt"} <= names
     kinds = {e["kind"] for e in bundles[1].recorder.dump()}
     assert "session_evicted" in kinds
     assert set(td["transfer_detail"]) == {"session.stage", "fused.plan",

@@ -362,7 +362,8 @@ def test_prom_renders_read_families():
 def test_metrics_read_block_matches_jax_keys():
     """The serve block's `read`: null until a ReadPath is attached, then
     the ReadMetrics snapshot, key for key JAX's; every other key of the
-    snapshot is JAX's but the Pallas rung's fallback counter."""
+    snapshot is JAX's but the Pallas rung's fallback counter, and the port
+    adds its `flush_phases` block."""
     snaps = {}
     for root in ROOTS:
         sm = _mod(root, "serve.metrics").ServeMetrics(2, 4, 64)
@@ -372,12 +373,13 @@ def test_metrics_read_block_matches_jax_keys():
         snaps[root] = (before, sm.snapshot())
     (jb, ja), (tb, ta) = snaps[JAX], snaps[PORT]
     assert jb["read"] is None and tb["read"] is None
-    assert set(ta) == set(ja)
+    # the port's own block (the flush's phases, schema version 5)
+    assert set(ta) - set(ja) == {"flush_phases"} and set(ja) <= set(ta)
     assert set(ta["read"]) == set(ja["read"])
     assert set(ta["read"]["counters"]) == set(ja["read"]["counters"])
     assert ta["read"]["counters"] == ja["read"]["counters"]
     assert set(ja["totals"]) - set(ta["totals"]) == {"pallas_fallbacks"}
-    assert ta["version"] == 4
+    assert ta["version"] == 5
 
 
 # ---- two-server acceptance ----------------------------------------------------------

@@ -57,6 +57,14 @@ COPIED = ("replicate/faults.py", "replicate/metrics.py",
 # rung's fallback counter)
 SERVE_ONLY_IN_JAX = {"serve.totals.pallas_fallbacks"}
 PROM_ONLY_IN_JAX = {"dt_serve_pallas_fallbacks_total"}
+# the port's flush timing (serve/metrics.py, schema version 5): the key
+# paths under these prefixes and these families are the port's alone
+SERVE_ONLY_IN_PORT = ("serve.flush_phases", "serve.latencies.admit_wait",
+                      "serve.latencies.oplog_hold")
+PROM_ONLY_IN_PORT = {"dt_serve_flush_phase_seconds_total",
+                     "dt_serve_oplog_wait_seconds_total",
+                     "dt_admit_wait_latency_seconds",
+                     "dt_oplog_hold_latency_seconds"}
 
 
 def _mod(root: str, name: str):
@@ -899,11 +907,15 @@ def _lease_view(nodes, doc):
 
 def _compare_metrics(jax_got, port_got):
     """The /metrics key sets of two runs: equal but for the serve keys
-    only JAX has."""
+    only JAX has and the port's flush timing."""
+    port_only = {k for k in port_got["keys"]
+                 if k.startswith(SERVE_ONLY_IN_PORT)}
+    assert "serve.flush_phases.seconds.extract" in port_only
     assert jax_got["keys"] - port_got["keys"] == SERVE_ONLY_IN_JAX
-    assert port_got["keys"] <= jax_got["keys"]
+    assert port_got["keys"] - port_only <= jax_got["keys"]
     assert jax_got["prom"] - port_got["prom"] <= PROM_ONLY_IN_JAX
-    assert port_got["prom"] <= jax_got["prom"]
+    assert PROM_ONLY_IN_PORT <= port_got["prom"]
+    assert port_got["prom"] - PROM_ONLY_IN_PORT <= jax_got["prom"]
 
 
 # ---- mesh: the scripted cases ------------------------------------------------

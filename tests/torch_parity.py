@@ -268,7 +268,8 @@ class FakeClock:
 
 class FakeTime:
     """Stands in for the `time` module inside a module under test: its
-    monotonic, perf_counter and wall-clock reads are all `clock`'s, so
+    monotonic, perf_counter and wall-clock reads (`time_ns` too) are all
+    `clock`'s, so
     two packages on clocks advanced alike stamp alike. Span ids still
     draw from the real nanosecond clock (they only need to be unique)."""
 
@@ -280,6 +281,9 @@ class FakeTime:
 
     perf_counter = monotonic
     time = monotonic
+
+    def time_ns(self) -> int:
+        return int(round(self._clock() * 1e9))
 
     @staticmethod
     def monotonic_ns() -> int:
@@ -302,10 +306,19 @@ def clock_modules(monkeypatch, root: str, clock: FakeClock,
         monkeypatch.setattr(mod, "time", FakeTime(clock))
 
 
+# the port's own leaf spans, one a phase of a bank flush
+# (serve/metrics.py FLUSH_PHASES): the JAX package has none
+PORT_ONLY_SPANS = ("bank.extract", "bank.resolve", "bank.plan", "bank.pack",
+                   "bank.fence", "bank.adopt", "bank.serial")
+
+
 def span_forest(spans: List[dict], drop: Sequence[str] = ()) -> list:
     """Finished spans as comparable rows with their random ids replaced by
     order of appearance: (trace #, name, parent's name or None, parent in
-    the ring, attrs without `drop`, t0, dur_s)."""
+    the ring, attrs without `drop`, t0, dur_s). The port-only leaf spans
+    (`PORT_ONLY_SPANS`) are dropped by name first, so both packages'
+    forests hold every span that both have."""
+    spans = [s for s in spans if s["name"] not in PORT_ONLY_SPANS]
     traces: Dict[str, int] = {}
     by_id = {s["span"]: s for s in spans}
     rows = []
