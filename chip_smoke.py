@@ -39,8 +39,10 @@ package), in phases, each printing one JSON line:
                 card; 4 flush windows in which two more agents fork from
                 each tip and edit concurrently and the first agent merges.
                 Each window plans every tail with `xform.plan_tails_device`
-                (host extract, then ONE device resolve: `fugue_linearize`
-                and K2), groups them by cap and replays them through
+                (host extract, then ONE device resolve: the linearize
+                kernel and K2 on one uploaded buffer, every resolve's
+                buffer held against the plain chain after the phase),
+                groups them by cap and replays them through
                 `kernel_fused_replay` (K1) in buckets of 8 (one window: one
                 wide bucket per cap); the K1 inputs of window 0 and of the
                 wide window are captured (each bucket packed once more,
@@ -679,6 +681,21 @@ def k2_err(nv: torch.Tensor, ov: torch.Tensor) -> int:
     return max(exact_err(g, w) for g, w in zip(got, want))
 
 
+def resolve_err(buf: torch.Tensor, b: int, n: int) -> int:
+    """Hold one resolve's buffer, as the card left it (`kernels.resolve_rows`:
+    the linearize kernel and K2), against the plain chain run on the CPU
+    from its columns: every word of the columns and the outputs (not the
+    kernel's scratch, which rows wider than 4,096 use)."""
+    from diamond_types_tpu_torch.gpu import kernels
+    torch.cuda.synchronize()
+    out = 11 * b * n + 2 * b
+    got = buf[:out].cpu()
+    want = torch.zeros(kernels.resolve_words(b, n), dtype=torch.int32)
+    want[:7 * b * n] = got[:7 * b * n]
+    kernels.resolve_rows(want, b, n)
+    return exact_err(got, want[:out])
+
+
 def phase_k2_vs_plain(rng: np.random.Generator, device) -> dict:
     worst = 0
     for b, n in K2_SHAPES:
@@ -1064,10 +1081,11 @@ def run_serve(rng: np.random.Generator, device, cfg: ServeConfig,
 
     frontiers0 = []                # each session's frontier after window 0
     k1, k2 = kernels.apply_ops_window, kernels.xform_positions
-    k1.launches = k2.launches = 0
+    lin = kernels.resolve_rows     # its count: the linearize launches
+    k1.launches = k2.launches = lin.launches = 0
     with Spy(xform, "resolve_positions") as resolve, \
             Spy(xform, "_assemble_plan") as assemble, \
-            Spy(kernels, "xform_positions", keep=capture) as k2_calls:
+            Spy(kernels, "resolve_rows", keep=capture) as k2_calls:
         for w in range(cfg.windows):
             t = time.perf_counter()
             lv0 = sum(len(ol) for ol in ols)
@@ -1104,7 +1122,8 @@ def run_serve(rng: np.random.Generator, device, cfg: ServeConfig,
                 check(s.text() == tip.snapshot(), f"window {w}: doc {d} "
                       "text differs from the host's merge")
             stats["verify_s"] += time.perf_counter() - t
-    launches, k2_launches = k1.launches, k2.launches
+    launches, k2_launches, lin_launches = (k1.launches, k2.launches,
+                                           lin.launches)
 
     wins = stats["plan_windows"]
     resolves = sum(x["batches"] for x in wins)
@@ -1116,11 +1135,15 @@ def run_serve(rng: np.random.Generator, device, cfg: ServeConfig,
           f"K1 launched {launches} times for {stats['buckets']} buckets")
     check(k2_launches == resolves == len(resolve.seconds),
           f"K2 launched {k2_launches} times for {resolves} resolves")
+    check(lin_launches == resolves,
+          f"the linearize kernel launched {lin_launches} times for "
+          f"{resolves} resolves")
     flush_s = stats["plan_s"] + stats["replay_s"]
     stats.update({"phase": "serve", "docs": cfg.n_docs,
                   "caps_at_build": caps0,
                   "caps_at_end": sorted({s.cap for s in sessions}),
                   "launches": launches, "k2_launches": k2_launches,
+                  "lin_launches": lin_launches,
                   "resolves": resolves, "fallbacks": fallbacks,
                   "device_docs": sum(x["device_docs"] for x in wins),
                   "host_docs": sum(x["host_docs"] for x in wins),
@@ -1247,18 +1270,18 @@ def run_scheduler(rng: np.random.Generator, device, cfg: ServeConfig,
     edit_s = verify_s = 0.0
     profile = None
     k1, k2 = kernels.apply_ops_window, kernels.xform_positions
+    lin = kernels.resolve_rows     # its count: the linearize launches
     ff.FusedDocSession.sync = counted_sync
-    k1.launches = k2.launches = 0
+    k1.launches = k2.launches = lin.launches = 0
     try:
         with Spy(xform, "extract_tail") as ext, \
                 Spy(xform, "resolve_positions") as res, \
-                Spy(xform, "fugue_linearize") as lin, \
                 Spy(xform, "_assemble_plan") as asm, \
                 Spy(ff, "kernel_fused_replay") as rep, \
                 Spy(sched_mod, "mesh_fused_replay") as wrep, \
                 Hits(arena, "acquire") as acq, \
                 Spy(ff, "apply_ops_window", keep=True) as k1_calls, \
-                Spy(kernels, "xform_positions", keep=True) as k2_calls:
+                Spy(kernels, "resolve_rows", keep=True) as k2_calls:
             for r in range(scfg.rounds):
                 t = time.perf_counter()
                 lv0 = sum(len(ol) for ol in ols)
@@ -1269,8 +1292,7 @@ def run_scheduler(rng: np.random.Generator, device, cfg: ServeConfig,
                 n_steps, n_ext, n_res, n_rep = (len(steps), len(ext.seconds),
                                                 len(res.seconds),
                                                 len(rep.seconds))
-                n_lin, n_asm, n_wrep = (len(lin.seconds), len(asm.seconds),
-                                        len(wrep.seconds))
+                n_asm, n_wrep = len(asm.seconds), len(wrep.seconds)
                 n_k1, n_k2 = len(k1_calls.seconds), len(k2_calls.seconds)
                 hits0, misses0 = acq.hits, acq.misses
                 profiling = r == scfg.profile_round
@@ -1315,12 +1337,12 @@ def run_scheduler(rng: np.random.Generator, device, cfg: ServeConfig,
                     "arena_hits": acq.hits - hits0,
                     "arena_misses": acq.misses - misses0,
                     # summed over the worker threads, which overlap (the
-                    # window runs on one thread); host clock: linearize
-                    # and K2 are their enqueue, the resolve's rest its
-                    # uploads, the wait for the card and the downloads
+                    # window runs on one thread); host clock: k2_s is the
+                    # enqueue of the linearize kernel and K2
+                    # (`resolve_rows`), the resolve's rest its packing,
+                    # upload, the wait for the card and the download
                     "extract_s": sum(ext.seconds[n_ext:]),
                     "resolve_s": sum(res.seconds[n_res:]),
-                    "linearize_s": sum(lin.seconds[n_lin:]),
                     "k2_s": sum(k2_calls.seconds[n_k2:]),
                     "assemble_s": sum(asm.seconds[n_asm:]),
                     "replay_s": sum(rep.seconds[n_rep:])
@@ -1334,7 +1356,8 @@ def run_scheduler(rng: np.random.Generator, device, cfg: ServeConfig,
         sched.stop_workers()
     finally:
         ff.FusedDocSession.sync = real_sync
-    launches, k2_launches = k1.launches, k2.launches
+    launches, k2_launches, lin_launches = (k1.launches, k2.launches,
+                                           lin.launches)
     m = sched.metrics_json()
     t = time.perf_counter()
     for ol, tip in zip(ols[:scfg.fresh_checkouts], tips):
@@ -1348,7 +1371,7 @@ def run_scheduler(rng: np.random.Generator, device, cfg: ServeConfig,
     k1_err = k1_calls_err(k1_calls.args, cfg.max_ins)
     check(k1_err == 0, f"K1 differs from its plain version at a scheduler "
           f"call: max abs err {k1_err}")
-    k2_worst = max(k2_err(nv, ov) for nv, ov in k2_calls.args)
+    k2_worst = max(resolve_err(*a) for a in k2_calls.args)
     check(k2_worst == 0, f"K2 differs from its plain version at a "
           f"scheduler resolve: max abs err {k2_worst}")
     plain_check_s = time.perf_counter() - t
@@ -1382,6 +1405,9 @@ def run_scheduler(rng: np.random.Generator, device, cfg: ServeConfig,
               f"and {replays} per-doc replays")
         check(k2_launches == batches,
               f"K2 launched {k2_launches} times for {batches} resolves")
+    check(lin_launches == batches,
+          f"the linearize kernel launched {lin_launches} times for "
+          f"{batches} resolves")
     lat = m["latencies"]
     n_r = len(rounds)
     walls = [x["wall_ms"] for x in rounds]
@@ -1409,6 +1435,7 @@ def run_scheduler(rng: np.random.Generator, device, cfg: ServeConfig,
             "flush_docs": scfg.flush_docs,
             "max_sessions_per_shard": scfg.max_sessions_per_shard,
             "launches": launches, "k2_launches": k2_launches,
+            "lin_launches": lin_launches,
             "fused_device_calls": fused_calls, "per_doc_replays": replays,
             "resolves": batches, "setup_s": setup_s, "edit_s": edit_s,
             "verify_s": verify_s, "final_verify_s": final_verify_s,
@@ -1443,10 +1470,11 @@ def run_serve_benches(device, scfg: SchedulerConfig, seed: int) -> dict:
     from diamond_types_tpu_torch.gpu import kernels
     from diamond_types_tpu_torch.serve.driver import run_serve_bench
     k1, k2 = kernels.apply_ops_window, kernels.xform_positions
+    lin = kernels.resolve_rows     # its count: the linearize launches
     out = []
     for mode, window in (("trace", False), ("concurrent", False),
                          ("flash", False), ("concurrent", True)):
-        k1.launches = k2.launches = 0
+        k1.launches = k2.launches = lin.launches = 0
         r = run_serve_bench(
             shards=scfg.shards, docs=scfg.bench_docs, mode=mode,
             txns=scfg.bench_txns, steady_rounds=scfg.bench_steady_rounds,
@@ -1456,6 +1484,10 @@ def run_serve_benches(device, scfg: SchedulerConfig, seed: int) -> dict:
         check(r["parity_ok"], f"serve bench {mode}: parity failed for "
               f"{r['parity_mismatches']}")
         check(k1.launches > 0, f"serve bench {mode}: K1 never launched")
+        check(lin.launches == k2.launches == r["transform"]["batches"],
+              f"serve bench {mode}: {lin.launches} linearize and "
+              f"{k2.launches} K2 launches for {r['transform']['batches']} "
+              "resolves")
         check(r["slo_ok"], f"serve bench {mode}: SLO burning: {r['slo']}")
         lat = r["metrics"]["latencies"]["flush"]
         out.append({"mode": mode, "parity_ok": r["parity_ok"],
@@ -1471,6 +1503,7 @@ def run_serve_benches(device, scfg: SchedulerConfig, seed: int) -> dict:
                         r["staged_bytes_per_window"],
                     "flush_ms": {q: 1e3 * lat[q] for q in ("p50", "p99")},
                     "k1_launches": k1.launches, "k2_launches": k2.launches,
+                    "lin_launches": lin.launches,
                     "transform": r["transform"], "steer": r["steer"],
                     "slo_ok": r["slo_ok"], "devprof": r["devprof"],
                     "obs": r["obs"], "config": r["config"]})
@@ -1633,25 +1666,83 @@ def time_captured(captured, mi: int, wide_window: int) -> dict:
 
 
 def time_k2(calls) -> dict:
-    """K2 at every main-path resolve: held exactly against its plain
-    version, then timed at the widest call (call_ms and device_ms) beside
-    its plain version and the library yardstick `torch.cumsum(nv, 1)`."""
+    """K2 and the linearize kernel at every main-path resolve
+    (`kernels.resolve_rows` calls: a buffer and its (b, n)): each buffer
+    held exactly against the plain chain, then K2 timed at the widest call
+    (call_ms and device_ms) beside its plain version and the library
+    yardstick `torch.cumsum(nv, 1)`, and the whole resolve's device half
+    (`time_linearize`) at that call and on random trees at [8, 256],
+    [8, 4,096] and [8, 8,192] (the widest in the kernel's scratch)."""
     from diamond_types_tpu_torch.gpu import kernels
-    worst = max(k2_err(nv, ov) for nv, ov in calls)
-    check(worst == 0, f"K2 differs from its plain version at a main-path "
-          f"resolve: max abs err {worst}")
-    nv, ov = max(calls, key=lambda a: a[0].numel())
-    b, n = nv.shape
+    worst = max(resolve_err(*a) for a in calls)
+    check(worst == 0, f"a main-path resolve differs from the plain chain: "
+          f"max abs err {worst}")
+    buf, b, n = max(calls, key=lambda a: a[1] * a[2])
+    bn = b * n
+    cols = buf[:7 * bn].view(7, b, n)
+    nv, ov = buf[8 * bn:9 * bn].view(b, n), buf[9 * bn:10 * bn].view(b, n)
     out = {"max_abs_err": worst, "calls_checked": len(calls),
            "shape": {"b": b, "n": n},
            "plain_ms": time_ms(
                lambda: kernels.xform_positions_plain(nv, ov), 20),
            "library": timings(lambda: torch.cumsum(nv, 1), 50, 50),
            # nv and ov read once, pos written once, new_len and peak
-           "bound_ms": 1e3 * 4 * (3 * b * n + 2 * b) / HBM_BYTES_PER_S}
+           "bound_ms": 1e3 * 4 * (3 * bn + 2 * b) / HBM_BYTES_PER_S}
     out.update(timings(lambda: kernels.xform_positions(nv, ov), 50, 50))
     out["ms"] = out["call_ms"]
     out["library_ms"] = out["library"]["call_ms"]
+    out["linearize"] = {"main_path": time_linearize(cols)}
+    for n_ in (256, 4096, 8192):
+        cols_ = torch.from_numpy(random_trees(np.random.default_rng(n_), 8,
+                                              n_)).cuda()
+        out["linearize"][f"b8_n{n_}"] = time_linearize(cols_)
+    return out
+
+
+def random_trees(rng: np.random.Generator, b: int, n: int) -> np.ndarray:
+    """[7, b, n] linearizer columns of b random Fugue trees of n nodes at
+    shuffled indices, keys in 0..3 (ties and heterogeneous right-origin
+    keys), visibility in 0..8."""
+    cols = np.empty((7, b, n), np.int32)
+    for r in range(b):
+        label = rng.permutation(n)
+        t = np.arange(n)
+        up = label[(rng.random(n) * t).astype(np.int64)]
+        cols[0, r, label] = np.where((t == 0) | (rng.random(n) < 0.2), n, up)
+        cols[1, r, label] = rng.integers(0, 2, n)
+        cols[2:5, r, label] = rng.integers(0, 4, (3, n))
+        cols[5:7, r, label] = rng.integers(0, 9, (2, n))
+    return cols
+
+
+def time_linearize(cols: torch.Tensor) -> dict:
+    """One resolve's device half, `kernels.resolve_rows` (the linearize
+    kernel, then K2), on a card buffer holding the [7, b, n] columns
+    `cols`: held against the plain chain on the CPU (`resolve_err`), then
+    call_ms and device_ms beside the plain chain's call time on the card
+    (`linearize_rows_plain`, then K2). Its bound: the columns read once;
+    perm, the two doc-order columns and pos written once; the doc-order
+    columns read again by K2; new_len and peak; over HBM's rate."""
+    from diamond_types_tpu_torch.gpu import kernels
+    _, b, n = cols.shape
+    bn = b * n
+    buf = torch.empty(kernels.resolve_words(b, n), dtype=torch.int32,
+                      device=cols.device)
+    buf[:7 * bn].copy_(cols.reshape(-1))
+    path = kernels.resolve_rows(buf, b, n)
+    check(path == "kernel", f"a card resolve took the {path} path")
+    err = resolve_err(buf, b, n)
+    check(err == 0, f"the linearize kernel and K2 differ from the plain "
+          f"chain at b={b} n={n}: max abs err {err}")
+
+    def plain():
+        _perm, nv, ov = kernels.linearize_rows_plain(cols)
+        return kernels.xform_positions(nv, ov)
+    out = {"b": b, "n": n, "max_abs_err": err,
+           "scratch_words_per_row": kernels.linearize_scratch_words(n),
+           "bound_ms": 1e3 * 4 * (13 * bn + 2 * b) / HBM_BYTES_PER_S,
+           "plain_ms": time_ms(plain, 20)}
+    out.update(timings(lambda: kernels.resolve_rows(buf, b, n), 50, 50))
     return out
 
 
@@ -2966,6 +3057,7 @@ def run_scheduler_hydrated(rng: np.random.Generator, device,
     witness.witness_reset()
     guard = witness.make_lock("smoke.oplog", "oplog")
     k1, k2 = kernels.apply_ops_window, kernels.xform_positions
+    lin = kernels.resolve_rows     # its count: the linearize launches
     steps: List[int] = []
     drops: Dict[str, int] = collections.Counter()
     real_sync, real_drop = ff.FusedDocSession.sync, SessionBank._drop
@@ -2994,7 +3086,7 @@ def run_scheduler_hydrated(rng: np.random.Generator, device,
         # hydration workers, the snapshot thread, this one)
         parts: Dict[str, float] = collections.defaultdict(float)
         with Spy(ff, "apply_ops_window", keep=True) as k1_calls, \
-                Spy(kernels, "xform_positions", keep=True) as k2_calls, \
+                Spy(kernels, "resolve_rows", keep=True) as k2_calls, \
                 timed_methods(parts, (
                     (TieredStore, "load", "load"),
                     (tier, "decode_into", "decode"),
@@ -3025,7 +3117,7 @@ def run_scheduler_hydrated(rng: np.random.Generator, device,
                     sync_lock=guard)
                 sched.attach_hydrator(hyd)
                 n_steps0 = len(steps)
-                k1.launches = k2.launches = 0
+                k1.launches = k2.launches = lin.launches = 0
                 for _ in range(n_rounds):
                     profiling = r == hcfg.profile_round
                     before = sched.metrics_json()
@@ -3106,7 +3198,8 @@ def run_scheduler_hydrated(rng: np.random.Generator, device,
                         **delta, "hydration": hd})
                     r += 1
                 sched.stop_workers()
-                launches, k2_launches = k1.launches, k2.launches
+                launches, k2_launches, lin_launches = (
+                    k1.launches, k2.launches, lin.launches)
                 hyd.stop(checkpoint=True)
                 m = sched.metrics_json()
                 replays = sum(1 for n in steps[n_steps0:] if n)
@@ -3133,10 +3226,14 @@ def run_scheduler_hydrated(rng: np.random.Generator, device,
                 check(k2_launches == batches,
                       f"K2 launched {k2_launches} times for {batches} "
                       "resolves")
+                check(lin_launches == batches,
+                      f"the linearize kernel launched {lin_launches} times "
+                      f"for {batches} resolves")
                 lat = m["latencies"]
                 stages.append({
                     "mesh_window": mesh_window, "rounds": n_rounds,
                     "launches": launches, "k2_launches": k2_launches,
+                    "lin_launches": lin_launches,
                     "fused_calls": fused_calls, "per_doc_replays": replays,
                     "resolves": batches,
                     "window_dispatches": m["window"]["dispatches"]
@@ -3169,13 +3266,14 @@ def run_scheduler_hydrated(rng: np.random.Generator, device,
     k1_err = k1_calls_err(k1_calls.args, cfg.max_ins)
     check(k1_err == 0, f"K1 differs from its plain version at a hydrated "
           f"scheduler call: max abs err {k1_err}")
-    k2_worst = max(k2_err(nv, ov) for nv, ov in k2_calls.args)
+    k2_worst = max(resolve_err(*a) for a in k2_calls.args)
     check(k2_worst == 0, f"K2 differs from its plain version at a "
           f"hydrated scheduler resolve: max abs err {k2_worst}")
     plain_check_s = time.perf_counter() - t
     n_r = len(rounds)
     launches = sum(s["launches"] for s in stages)
     k2_launches = sum(s["k2_launches"] for s in stages)
+    lin_launches = sum(s["lin_launches"] for s in stages)
     summary = {
         "docs_per_s": [x["docs_per_s"] for x in rounds],
         "round_wall_ms": [x["wall_ms"] for x in rounds],
@@ -3199,7 +3297,8 @@ def run_scheduler_hydrated(rng: np.random.Generator, device,
             "docs": cfg.n_docs, "shards": scfg.shards,
             "warm_max": hcfg.warm_max, "workers": hcfg.workers,
             "wave": hcfg.wave, "launches": launches,
-            "k2_launches": k2_launches, "stages": stages,
+            "k2_launches": k2_launches, "lin_launches": lin_launches,
+            "stages": stages,
             "rounds": rounds, "profile": profile, "setup_s": setup_s,
             "verify_s": verify_s, "rehydrate_check_s": rehydrate_s,
             "k1_calls_checked": len(k1_calls.args), "k1_max_abs_err": k1_err,
@@ -3350,15 +3449,16 @@ def drive_qos_rounds(phase: str, rng: np.random.Generator, device,
 
     sched.metrics.observe_queue_wait = kept_wait
     k1, k2 = kernels.apply_ops_window, kernels.xform_positions
+    lin = kernels.resolve_rows     # its count: the linearize launches
     rounds = []
     edit_s = verify_s = 0.0
     profile = None
     ff.FusedDocSession.sync = counted_sync
-    k1.launches = k2.launches = 0
+    k1.launches = k2.launches = lin.launches = 0
     try:
         sched.start_pump()
         with Spy(ff, "apply_ops_window", keep=True) as k1_calls, \
-                Spy(kernels, "xform_positions", keep=True) as k2_calls:
+                Spy(kernels, "resolve_rows", keep=True) as k2_calls:
             for r in range(qcfg.rounds):
                 mesh = ("warning" if r == qcfg.warning_round else
                         "burning" if r == qcfg.burning_round else None)
@@ -3458,7 +3558,8 @@ def drive_qos_rounds(phase: str, rng: np.random.Generator, device,
         if sched._pump_thread is not None:     # a round failed: stop the
             with contextlib.suppress(Exception):   # pump and controller
                 sched.stop_pump(drain=False)
-    launches, k2_launches = k1.launches, k2.launches
+    launches, k2_launches, lin_launches = (k1.launches, k2.launches,
+                                           lin.launches)
     m = sched.metrics_json()
     wit = witness.witness_snapshot()
     check(wit["acyclic"] and wit["violation_count"] == 0,
@@ -3476,7 +3577,7 @@ def drive_qos_rounds(phase: str, rng: np.random.Generator, device,
     k1_err = k1_calls_err(k1_calls.args, cfg.max_ins)
     check(k1_err == 0, f"K1 differs from its plain version at a "
           f"{phase} call: max abs err {k1_err}")
-    k2_worst = max((k2_err(nv, ov) for nv, ov in k2_calls.args), default=0)
+    k2_worst = max((resolve_err(*a) for a in k2_calls.args), default=0)
     check(k2_worst == 0, f"K2 differs from its plain version at a "
           f"{phase} resolve: max abs err {k2_worst}")
     plain_check_s = time.perf_counter() - t
@@ -3488,12 +3589,16 @@ def drive_qos_rounds(phase: str, rng: np.random.Generator, device,
           f"{replays} per-doc replays")
     check(k2_launches == batches and k2_launches > 0,
           f"K2 launched {k2_launches} times for {batches} resolves")
+    check(lin_launches == batches,
+          f"the linearize kernel launched {lin_launches} times for "
+          f"{batches} resolves")
     return SimpleNamespace(
         sched=sched, ctl=ctl, m=m, snap0=snap0, rounds=rounds,
         published=published, worst=worst, static_s=static_s,
         flush_s=flush_s, waits_s=waits_s, profile=profile, setup_s=setup_s,
         edit_s=edit_s, verify_s=verify_s, launches=launches,
-        k2_launches=k2_launches, fused_calls=fused_calls, replays=replays,
+        k2_launches=k2_launches, lin_launches=lin_launches,
+        fused_calls=fused_calls, replays=replays,
         batches=batches, k1_err=k1_err, k2_worst=k2_worst,
         k1_checked=len(k1_calls.args), k2_checked=len(k2_calls.args),
         plain_check_s=plain_check_s,
@@ -3545,6 +3650,7 @@ def run_scheduler_qos(rng: np.random.Generator, device, cfg: ServeConfig,
             "tenants": QOS_TENANTS, "static_deadline_s": run.static_s,
             "interval_s": QOS_INTERVAL_S, "launches": run.launches,
             "k2_launches": run.k2_launches,
+            "lin_launches": run.lin_launches,
             "fused_device_calls": run.fused_calls,
             "per_doc_replays": run.replays, "resolves": run.batches,
             "rounds": rounds, "qos": snap,
@@ -3732,6 +3838,7 @@ def run_scheduler_obs(rng: np.random.Generator, device, cfg: ServeConfig,
             "flush_docs": scfg.flush_docs, "sample_rate": OBS_SAMPLE_RATE,
             "obs_seed": bundle["seed"], "launches": run.launches,
             "k2_launches": run.k2_launches,
+            "lin_launches": run.lin_launches,
             "fused_device_calls": run.fused_calls,
             "per_doc_replays": run.replays, "resolves": run.batches,
             "rounds": rounds,
@@ -3870,6 +3977,7 @@ def run_replicated(rng: np.random.Generator, device,
     httpds: list = []
     k1, k2, k3, x8 = (kernels.apply_ops_window, kernels.xform_positions,
                       kernels.materialize_runs, kernels.zone_tape_run)
+    lin = kernels.resolve_rows     # its count: the linearize launches
     syncs: List[int] = []
     real_sync = ff.FusedDocSession.sync
 
@@ -4002,14 +4110,14 @@ def run_replicated(rng: np.random.Generator, device,
 
         t_ph = time.perf_counter()
         ff.FusedDocSession.sync = counted_sync
-        k1.launches = k2.launches = x8.launches = 0
+        k1.launches = k2.launches = x8.launches = lin.launches = 0
         m0 = [s.metrics_json() for s in scheds]
         rounds = []
         handoff_ms: List[float] = []
         heal_s = None
         profile = None
         with Spy(ff, "apply_ops_window", keep=True) as k1_calls, \
-                Spy(kernels, "xform_positions", keep=True) as k2_calls, \
+                Spy(kernels, "resolve_rows", keep=True) as k2_calls, \
                 KeptRuns(kernels, "zone_tape_run") as x8_calls, \
                 ThreadPoolExecutor(REPL_CLIENT_THREADS) as pool:
             for r in range(REPL_ROUNDS):
@@ -4098,8 +4206,8 @@ def run_replicated(rng: np.random.Generator, device,
                     "k1_launches": len(k1_calls.args) - n_k1,
                     "k2_launches": len(k2_calls.args) - n_k2, **ver})
         ff.FusedDocSession.sync = real_sync
-        launches, k2_launches, x8_launches = (k1.launches, k2.launches,
-                                              x8.launches)
+        launches, k2_launches, x8_launches, lin_launches = (
+            k1.launches, k2.launches, x8.launches, lin.launches)
         traffic_phase_s = time.perf_counter() - t_ph
 
         # the history strip through the endpoint, on the card
@@ -4152,7 +4260,7 @@ def run_replicated(rng: np.random.Generator, device,
         k1_err = k1_calls_err(k1_calls.args, cfg.max_ins)
         check(k1_err == 0, f"K1 differs from its plain version at a "
               f"replicated call: max abs err {k1_err}")
-        k2_worst = max((k2_err(nv, ov) for nv, ov in k2_calls.args),
+        k2_worst = max((resolve_err(*a) for a in k2_calls.args),
                        default=0)
         check(k2_worst == 0, f"K2 differs from its plain version at a "
               f"replicated resolve: max abs err {k2_worst}")
@@ -4181,6 +4289,9 @@ def run_replicated(rng: np.random.Generator, device,
         check(k2_launches == batches and k2_launches > 0,
               f"replicated: K2 launched {k2_launches} times for {batches} "
               "resolves")
+        check(lin_launches == batches,
+              f"replicated: the linearize kernel launched {lin_launches} "
+              f"times for {batches} resolves")
         host_fallbacks = sum(m["totals"]["host_fallbacks"] for m in ms)
         check(host_fallbacks == 0, f"replicated: {host_fallbacks} host "
               "fallbacks (length-fence failures)")
@@ -4228,6 +4339,7 @@ def run_replicated(rng: np.random.Generator, device,
             "denied": sum(m["totals"]["denied"] for m in ms),
             "fence_failures": host_fallbacks,
             "launches": launches, "k2_launches": k2_launches,
+            "lin_launches": lin_launches,
             "k3_launches": k3_launches, "x8_launches": x8_launches,
             "x8_max_abs_err": x8_worst,
             "fused_calls": fused_calls, "per_doc_replays": replays,
@@ -4308,12 +4420,13 @@ class Served:
         self.k1 = self.stack.enter_context(
             Spy(ff, "apply_ops_window", keep=True))
         self.k2 = self.stack.enter_context(
-            Spy(kernels, "xform_positions", keep=True))
+            Spy(kernels, "resolve_rows", keep=True))
         self.x8 = self.stack.enter_context(KeptRuns(kernels, "zone_tape_run"))
         self.k3 = self.stack.enter_context(
             Spy(kernels, "materialize_runs", keep=True))
         for k in (kernels.apply_ops_window, kernels.xform_positions,
-                  kernels.zone_tape_run, kernels.materialize_runs):
+                  kernels.zone_tape_run, kernels.materialize_runs,
+                  kernels.resolve_rows):
             k.launches = 0
         return self
 
@@ -4322,7 +4435,8 @@ class Served:
         self.launches = {"k1": k.apply_ops_window.launches,
                          "k2": k.xform_positions.launches,
                          "x8": k.zone_tape_run.launches,
-                         "k3": k.materialize_runs.launches}
+                         "k3": k.materialize_runs.launches,
+                         "lin": k.resolve_rows.launches}
         self.stack.close()
         self.server.serve = self.real_serve
         self.ff.FusedDocSession.sync = self.real_sync
@@ -4363,6 +4477,9 @@ class Served:
               and (n["k2"] > 0 or not self.need_k2),
               f"{phase}: K2 launched {n['k2']} times for {resolves} "
               f"resolves ({len(self.k2.args)} calls)")
+        check(n["lin"] == resolves,
+              f"{phase}: the linearize kernel launched {n['lin']} times "
+              f"for {resolves} resolves")
         check(n["x8"] == len(self.x8.runs)
               and (n["x8"] > 0 or not self.need_x8),
               f"{phase}: X8 launched {n['x8']} times for "
@@ -4380,7 +4497,7 @@ class Served:
             by_mi.setdefault(int(a[6]), []).append(a)   # chars, max_ins)
         k1_err = max((k1_calls_err(calls, mi)
                       for mi, calls in by_mi.items()), default=0)
-        k2_worst = max((k2_err(nv, ov) for nv, ov in self.k2.args),
+        k2_worst = max((resolve_err(*a) for a in self.k2.args),
                        default=0)
         x8_worst = max((zone_err(after, zk.run_zone_plain(before, xs,
                                                           plen))
@@ -4393,6 +4510,7 @@ class Served:
             check(err == 0, f"{name} differs from its plain version at a "
                   f"{phase} call: max abs err {err}")
         return {"launches": n["k1"], "k2_launches": n["k2"],
+                "lin_launches": n["lin"],
                 "x8_launches": n["x8"], "k3_launches": n["k3"],
                 "fused_calls": fused, "per_doc_replays": replays,
                 "resolves": resolves, "planned_docs": planned,
@@ -4695,7 +4813,7 @@ def run_cli_phase(device: Optional[str] = None) -> dict:
                      "ops_per_sec": report["ops_per_sec"],
                      "flush_ms": {q: 1e3 * lat[q] for q in ("p50", "p99")},
                      "config": report["config"], **kern})
-        for key in ("launches", "k2_launches", "x8_launches",
+        for key in ("launches", "k2_launches", "lin_launches", "x8_launches",
                     "k3_launches"):
             totals[key] += kern[key]
         for key in ("k1_max_abs_err", "k2_max_abs_err", "x8_max_abs_err",
@@ -5187,6 +5305,27 @@ def main(argv=None) -> int:
              "bound_by": "bytes", **{k: k2[k] for k in timed},
              "shape": k2["shape"],
              "library": {"call": "torch.cumsum(nv, 1)", **k2["library"]}},
+            {"name": "linearize_rows", "route": "cuda",
+             "source": "diamond_types_tpu_torch/csrc/linearize.cu",
+             "replaces": "none: diamond_types_tpu/tpu/linearize.py "
+                         "fugue_linearize_jax is XLA ops",
+             "launched_by": "kernels.resolve_rows, one launch a resolve "
+                            "(K2 after it)",
+             "launches": serve["lin_launches"],
+             "launches_by_path": {"serve": serve["lin_launches"],
+                                  "scheduler": sched["lin_launches"],
+                                  "window": sched_w["lin_launches"],
+                                  "scheduler_hydrated":
+                                      hsched["lin_launches"],
+                                  "scheduler_qos": qsched["lin_launches"],
+                                  "scheduler_obs": osched["lin_launches"],
+                                  "replicated": rsched["lin_launches"],
+                                  **{p: r["lin_launches"] for p, r in above}},
+             "max_abs_err": max(k2["max_abs_err"],
+                                *(r["max_abs_err"]
+                                  for r in k2["linearize"].values())),
+             "bound_by": "launch and barriers (bytes bound below)",
+             **k2["linearize"]},
             {"name": "materialize_runs", "route": "cuda",
              "source": "diamond_types_tpu_torch/csrc/materialize.cu",
              "replaces": "diamond_types_tpu/tpu/pallas_kernels.py:211",

@@ -79,7 +79,7 @@ DISPATCH_BASE = {
     "sync_doc",
     "synchronize",
     "apply_ops_window", "xform_positions", "materialize_runs",
-    "zone_tape_run", "replay_batch_kernel",
+    "zone_tape_run", "replay_batch_kernel", "resolve_rows",
     "checkout_batch_device", "texts_at_versions",
 }
 

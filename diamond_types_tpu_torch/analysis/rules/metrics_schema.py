@@ -48,6 +48,12 @@ copied, so the rule can never drift from the schema itself):
                                family zero-fills from that tuple)
   .enter_phase("phase")        phase in FLUSH_PHASES (the FlushClock
                                call that starts a phase)
+  .record_transform(shard, key=n, ...)  each keyword in
+                               serve.metrics.TRANSFORM_KEYS (the port's
+                               transform counters; record_transform
+                               raises on another one, and the
+                               dt_serve_linearize_total family
+                               zero-fills from LINEARIZE_PATHS)
 
 plus the exemplar join: a module defining `_EXEMPLAR_FAMILIES` (the
 prom histogram -> TimeSeries mapping) must only name families some
@@ -72,7 +78,8 @@ from ...qos.classes import QOS_CLASSES
 from ...qos.metrics import QOS_CLASS_KEYS, QOS_CTL_KEYS
 from ...read.metrics import READ_KEYS
 from ...replicate.metrics import _GROUPS, _LATENCY_NAMES
-from ...serve.metrics import FLUSH_PHASES, HYDRATION_KEYS, _SHARD_KEYS
+from ...serve.metrics import (FLUSH_PHASES, HYDRATION_KEYS, TRANSFORM_KEYS,
+                              _SHARD_KEYS)
 from ...storage.tier import TIER_KEYS
 from ...wire.frames import WIRE_CHANNELS, WIRE_KEYS
 
@@ -216,6 +223,15 @@ def check_metrics_schema(ctx: FileContext, summary) -> List[Violation]:
                     violate(node.lineno,
                             f"flush phase {a0!r} is not in "
                             f"serve.metrics.FLUSH_PHASES {FLUSH_PHASES}")
+            elif name == "record_transform":
+                for kw in node.keywords:
+                    if kw.arg is not None and kw.arg not in TRANSFORM_KEYS:
+                        violate(node.lineno,
+                                f"transform counter {kw.arg!r} is not in "
+                                f"serve.metrics.TRANSFORM_KEYS "
+                                f"{TRANSFORM_KEYS} — record_transform "
+                                f"raises on it and no prom family "
+                                f"carries it")
             elif name == "observe_latency" and args:
                 a0 = _const_str(args[0])
                 if a0 is not None and a0 not in _LATENCY_NAMES:

@@ -16,6 +16,12 @@ what bounds it.
      `xform_positions_pallas`): the device transform's position scans over
      a bucket's doc-order columns `[b, n]`, one launch per bucket, one warp
      per row.
+  `resolve_rows` (`csrc/linearize.cu`, from no Pallas kernel: the JAX
+     package's `fugue_linearize_jax` is XLA ops): one resolve's device
+     half on one buffer, the linearize kernel (the device plan's
+     Fugue-tree order of a bucket's `[b, n]` rows and the doc-order
+     visibility columns K2 reads, one launch per bucket, one block per
+     row), then K2.
   K3 `materialize_runs` (`csrc/materialize.cu`, from `materialize_pallas`):
      the text assembly of the device checkout (a batch of documents) and
      of the history path (a batch of versions sharing one order and
@@ -40,7 +46,9 @@ plain PyTorch version only for CPU tensors. It never falls back: a failed
 build or launch raises. `<wrapper>.launches` counts the wrapper's calls
 that launched on the card: one per call, however many kernels the call
 launches (K3's two). It is counted under a lock, so it stays exact when
-several threads launch (the serve layer's flush workers).
+several threads launch (the serve layer's flush workers). `resolve_rows`
+counts its linearize launches, and its K2 launch counts on
+`xform_positions`.
 """
 
 from __future__ import annotations
@@ -58,7 +66,7 @@ from typing import Dict, Iterable, NamedTuple, Optional, Tuple
 import torch
 
 from .batch import _apply_ops_batched
-from .linearize import materialize
+from .linearize import fugue_linearize, materialize
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -68,6 +76,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel name -> its source in csrc/
 SOURCES = {"apply_ops": "apply_ops.cu",
            "xform_positions": "xform_positions.cu",
+           "linearize": "linearize.cu",
            "materialize": "materialize.cu",
            "zone_tape": "zone_tape.cu"}
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -155,6 +164,11 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     elif name == "xform_positions":
         lib.dt_xform_positions.argtypes = [p, p, p, p, p, i, i, p]
         lib.dt_xform_positions.restype = i
+    elif name == "linearize":
+        lib.dt_linearize_rows.argtypes = [p, p, p, p, p, i, i, p]
+        lib.dt_linearize_rows.restype = i
+        lib.dt_linearize_scratch_words.argtypes = [i]
+        lib.dt_linearize_scratch_words.restype = ctypes.c_longlong
     elif name == "materialize":
         ll = ctypes.c_longlong
         lib.dt_materialize_runs.argtypes = [p, p, p, p, p, p, p,
@@ -399,16 +413,123 @@ def xform_positions(nv: torch.Tensor, ov: torch.Tensor
     peak = torch.empty_like(new_len)
     if b == 0:
         return pos, new_len, peak
-    lib = _lib("xform_positions")
-    rc = _launch_on(nv.device, lib.dt_xform_positions, nv.data_ptr(),
-                    ov.data_ptr(), pos.data_ptr(), new_len.data_ptr(),
-                    peak.data_ptr(), b, n)
-    _raise_on(lib, rc, "xform_positions launch")
-    count_launch("xform_positions")
+    _launch_xform(nv.device, nv.data_ptr(), ov.data_ptr(), pos.data_ptr(),
+                  new_len.data_ptr(), peak.data_ptr(), b, n)
     return pos, new_len, peak
 
 
+def _launch_xform(device: torch.device, nv: int, ov: int, pos: int,
+                  new_len: int, peak: int, b: int, n: int) -> None:
+    """K2 on `device`'s current stream, on device addresses."""
+    lib = _lib("xform_positions")
+    rc = _launch_on(device, lib.dt_xform_positions, nv, ov, pos, new_len,
+                    peak, b, n)
+    _raise_on(lib, rc, "xform_positions launch")
+    count_launch("xform_positions")
+
+
 xform_positions.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The device plan's linearizer, and one resolve's device half
+# ---------------------------------------------------------------------------
+
+LINEARIZE_MAX_N = 4096    # csrc/linearize.cu's widest row in shared memory
+# the linearizer's [7, b, n] input columns, in order
+LINEARIZE_COLUMNS = ("parent", "side", "key_pos", "key_agent", "key_seq",
+                     "new_vis", "old_vis")
+
+
+def linearize_scratch_words(n: int) -> int:
+    """The width rule: int32 words of global scratch the linearize kernel
+    takes for each row of n nodes. Rows up to LINEARIZE_MAX_N sort and
+    rank in one block's shared memory and take none; a wider row keeps its
+    keys, its sort slots and its tour's cells twice over (4n + P + 12(n +
+    1) words, P the power of two at or above n) in the resolve buffer.
+    Both are the same kernel, launched once a resolve
+    (`dt_linearize_scratch_words` in csrc/linearize.cu)."""
+    if n <= LINEARIZE_MAX_N:
+        return 0
+    return 4 * n + (1 << (n - 1).bit_length()) + 12 * (n + 1)
+
+
+def linearize_rows_plain(cols: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """The linearize kernel's plain version, on [7, b, n] int32 columns
+    (`LINEARIZE_COLUMNS`; parent == n is the virtual root, padding nodes
+    carry parent n, side 1, INT32_MAX keys and zero visibility):
+    `fugue_linearize` over the tree columns, then the two gathers of the
+    visibility columns into document order. Returns (perm, nv_doc,
+    ov_doc), each [b, n]."""
+    parent, side, kp, ka, ks, nv, ov = cols.unbind(0)
+    perm = fugue_linearize(parent, side, kp, ka, ks)
+    pl = perm.long()
+    return perm, nv.gather(1, pl), ov.gather(1, pl)
+
+
+def resolve_words(b: int, n: int) -> int:
+    """int32 words of one resolve's buffer: the seven [b, n] input columns
+    (`LINEARIZE_COLUMNS`), then perm, nv_doc, ov_doc and pos, each [b, n],
+    then new_len and peak, each [b], then the linearize kernel's scratch,
+    b rows of `linearize_scratch_words(n)` (none up to
+    LINEARIZE_MAX_N)."""
+    return 11 * b * n + 2 * b + b * linearize_scratch_words(n)
+
+
+def resolve_results(buf, b: int, n: int) -> tuple:
+    """(perm, pos [b, n], new_len, peak [b]): views of a resolve buffer (a
+    flat tensor or NumPy array) that `resolve_rows` has filled."""
+    bn = b * n
+    return (buf[7 * bn:8 * bn].reshape(b, n),
+            buf[10 * bn:11 * bn].reshape(b, n),
+            buf[11 * bn:11 * bn + b], buf[11 * bn + b:11 * bn + 2 * b])
+
+
+def resolve_rows(buf: torch.Tensor, b: int, n: int) -> str:
+    """One resolve's device half, in place on `buf`: a flat int32 buffer
+    of `resolve_words(b, n)` words (b, n >= 1) whose first 7bn hold the
+    linearizer's columns. The linearizer writes perm, nv_doc and ov_doc,
+    then K2 reads the doc-order columns and writes pos, new_len and peak,
+    each into its place in the buffer (`resolve_results` reads them).
+    Returns the path it took: "kernel" or "plain".
+
+    A CUDA buffer takes the kernel path at any width: the linearize
+    kernel (`csrc/linearize.cu`; rows wider than LINEARIZE_MAX_N in the
+    buffer's scratch) and K2, two launches on the current stream at
+    addresses offset into the buffer; nothing waits. `resolve_rows.launches`
+    counts the linearize launches, `xform_positions.launches` K2's. That
+    path makes two tensor calls (the buffer's device and address), because
+    every call leaves the interpreter and, beside the serve tier's other
+    threads, waits to win the GIL back; the caller owns the buffer's size,
+    type and contiguity. A CPU buffer runs the plain chain:
+    `linearize_rows_plain`, then `xform_positions` (K2's plain version on
+    the CPU)."""
+    device = buf.device
+    bn = b * n
+    if _launch_device(device):
+        ptr = buf.data_ptr()
+        doc = ptr + 4 * 7 * bn                 # perm, nv_doc, ov_doc, pos
+        scratch = ptr + 4 * (11 * bn + 2 * b) if n > LINEARIZE_MAX_N \
+            else None
+        lib = _lib("linearize")
+        rc = _launch_on(device, lib.dt_linearize_rows, ptr, doc,
+                        doc + 4 * bn, doc + 8 * bn, scratch, b, n)
+        _raise_on(lib, rc, "linearize launch")
+        count_launch("resolve_rows")
+        _launch_xform(device, doc + 4 * bn, doc + 8 * bn, doc + 12 * bn,
+                      ptr + 4 * 11 * bn, ptr + 4 * (11 * bn + b), b, n)
+        return "kernel"
+    perm, nv_doc, ov_doc = linearize_rows_plain(buf[:7 * bn].view(7, b, n))
+    pos, new_len, peak = xform_positions(nv_doc, ov_doc)
+    buf[7 * bn:11 * bn].view(4, b, n).copy_(
+        torch.stack([perm, nv_doc, ov_doc, pos]))
+    buf[11 * bn:11 * bn + 2 * b].copy_(torch.cat([new_len, peak]))
+    return "plain"
+
+
+resolve_rows.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -12,9 +12,19 @@ device, batched over the bucket:
            -> visibility-granular splits -> Fugue tree arrays
            (parent/side/keys) + old/new visible-length columns
   device resolve_positions(...)    [outside the oplog guard]
-           `fugue_linearize` over the bucket's [b, n] rows, then the
-           position scans of kernel K2 (`kernels.xform_positions`) in one
-           launch for the whole bucket
+           the bucket's [b, n] columns padded into one pinned buffer and
+           uploaded once; the linearize kernel (Fugue-tree order and the
+           doc-order visibility columns) and the position scans of kernel
+           K2, one launch each for the whole bucket
+           (`kernels.resolve_rows`); one download and one wait
+
+The resolve leaves the interpreter a handful of times, whatever the
+bucket: every torch call releases the GIL and must win it back from the
+serve tier's other threads (the pump, the flush workers, the clients), so
+on the serve path its cost grows with the number of calls, not with the
+device work. Every card resolve takes the kernel, at any width; CPU
+tensors run the plain chain instead (`fugue_linearize`, two gathers and
+K2's plain version) on the same buffer.
 
 Old visibility is a pure LV threshold: a fused session's frontier is always
 the oplog version at log length `synced_to`, so `lv < synced_to` iff the
@@ -50,8 +60,8 @@ from ..listmerge.columnar import (UnsupportedTail, agent_key_columns,
                                   old_delete_intervals, visibility_cuts)
 from . import kernels, resolve_device
 from .flush_fuse import TailPlan, _empty_plan, _pow2
-from .linearize import (UNDERWATER, build_tree_np, fugue_linearize,
-                        resolve_pos_keys, split_runs_at_anchors)
+from .linearize import (UNDERWATER, build_tree_np, resolve_pos_keys,
+                        split_runs_at_anchors)
 
 INT32_MAX = np.iinfo(np.int32).max
 
@@ -156,51 +166,63 @@ def xform_shape_class(extracts: Sequence[TailExtract]) -> Tuple[int, int]:
             _pow2(max(max(ex.n for ex in extracts), 1)))
 
 
-def resolve_positions(extracts: Sequence[TailExtract],
-                      device: Optional[Union[str, torch.device]] = None
-                      ) -> List[Optional[TailPlan]]:
-    """Device half: every extract's document order and positions in one
-    batched pass (`fugue_linearize`, then one K2 launch on CUDA, or K2's
-    plain version on the CPU), then TailPlans assembled on the host. Runs
-    outside the oplog guard: extracts are self-contained. `device=None`
-    means CUDA and raises without it.
-
-    A doc whose device length disagrees with its host visibility sum
-    comes back as None; the caller host-plans it. Padding rows carry
-    parent = root, side 1, INT32_MAX keys and zero visibility, so they
+def pack_columns(extracts: Sequence[TailExtract], buf: np.ndarray, bp: int,
+                 n: int) -> None:
+    """Pad the extracts' tree and visibility columns into the first 7 bp n
+    words of a resolve buffer (`kernels.resolve_words`), as the [7, bp, n]
+    `kernels.LINEARIZE_COLUMNS`. An extract's root (parent == k) becomes
+    n. Nodes past an extract's k and rows past the extracts are padding:
+    parent n, side 1, INT32_MAX keys and zero visibility, so they
     linearize last and contribute no positions."""
-    device = resolve_device(device)
-    if not extracts:
-        return []
-    bp, n = xform_shape_class(extracts)
-    parent = np.full((bp, n), n, np.int32)
-    side = np.ones((bp, n), np.int32)
-    kp = np.full((bp, n), INT32_MAX, np.int32)
-    ka = np.full((bp, n), INT32_MAX, np.int32)
-    ks = np.full((bp, n), INT32_MAX, np.int32)
-    ov = np.zeros((bp, n), np.int32)
-    nv = np.zeros((bp, n), np.int32)
+    cols = buf[:7 * bp * n].reshape(7, bp, n)
+    cols[0] = n
+    cols[1] = 1
+    cols[2:5] = INT32_MAX
+    cols[5:] = 0
     for i, ex in enumerate(extracts):
         k = ex.n
-        parent[i, :k] = np.where(ex.parent == k, n, ex.parent)
-        side[i, :k] = ex.side
-        kp[i, :k] = ex.key_pos
-        ka[i, :k] = ex.key_agent
-        ks[i, :k] = ex.key_seq
-        ov[i, :k] = ex.old_vis
-        nv[i, :k] = ex.new_vis
-    parent, side, kp, ka, ks, ov, nv = (
-        torch.from_numpy(a).to(device)
-        for a in (parent, side, kp, ka, ks, ov, nv))
+        cols[0, i, :k] = np.where(ex.parent == k, n, ex.parent)
+        for c, name in enumerate(kernels.LINEARIZE_COLUMNS[1:], 1):
+            cols[c, i, :k] = getattr(ex, name)
+
+
+def resolve_positions(extracts: Sequence[TailExtract],
+                      device: Optional[Union[str, torch.device]] = None
+                      ) -> Tuple[List[Optional[TailPlan]], Optional[str]]:
+    """Device half: every extract's document order and positions in one
+    batched pass, then TailPlans assembled on the host. Runs outside the
+    oplog guard: extracts are self-contained. `device=None` means CUDA and
+    raises without it. Returns (plans, one per extract; the linearizer
+    path `kernels.resolve_rows` took, "kernel" or "plain", or None where
+    there was nothing to resolve).
+
+    The columns are padded into one buffer (`pack_columns`), pinned on a
+    card, which goes up in one copy; `kernels.resolve_rows` launches the
+    linearizer and K2 on it (the CPU runs the plain chain), and the whole
+    buffer comes back in one copy and one wait on the stream. On a card
+    that is seven torch calls and two launches a resolve.
+
+    A doc whose device length disagrees with its host visibility sum
+    comes back as None; the caller host-plans it."""
+    device = resolve_device(device)
+    if not extracts:
+        return [], None
+    bp, n = xform_shape_class(extracts)
+    words = kernels.resolve_words(bp, n)
+    on_card = device.type == "cuda"
+    host = torch.empty(words, dtype=torch.int32, pin_memory=on_card)
+    buf = host.numpy()
+    pack_columns(extracts, buf, bp, n)
     # untagged, as in the JAX package: the resolve's seven [bp, n] columns
-    note_transfer(sum(a.nbytes for a in (parent, side, kp, ka, ks, ov,
-                                          nv)))
-    perm = fugue_linearize(parent, side, kp, ka, ks)
-    pl = perm.long()
-    pos, new_len, peak = kernels.xform_positions(nv.gather(1, pl),
-                                                 ov.gather(1, pl))
-    perm_d, pos_d, len_d, peak_d = (x.cpu().numpy()
-                                    for x in (perm, pos, new_len, peak))
+    note_transfer(4 * 7 * bp * n)
+    if on_card:
+        dev = host.to(device, non_blocking=True)
+        path = kernels.resolve_rows(dev, bp, n)
+        host.copy_(dev, non_blocking=True)
+        torch.cuda.current_stream(device).synchronize()
+    else:
+        path = kernels.resolve_rows(host, bp, n)
+    perm_d, pos_d, len_d, peak_d = kernels.resolve_results(buf, bp, n)
 
     plans: List[Optional[TailPlan]] = []
     for i, ex in enumerate(extracts):
@@ -209,7 +231,7 @@ def resolve_positions(extracts: Sequence[TailExtract],
                                         int(len_d[i]), int(peak_d[i])))
         except LengthMismatch:
             plans.append(None)
-    return plans
+    return plans, path
 
 
 def _assemble_plan(ex: TailExtract, perm: np.ndarray, pos: np.ndarray,
@@ -276,8 +298,8 @@ def plan_tails_device(sessions: Sequence, oplog_lock=None
     plans: List[Optional[TailPlan]] = [
         h if isinstance(h, TailPlan) else None for h in halves]
     if extracts:
-        resolved = resolve_positions([h for _, h in extracts],
-                                     device=sessions[extracts[0][0]].device)
+        resolved, _path = resolve_positions(
+            [h for _, h in extracts], device=sessions[extracts[0][0]].device)
         for (i, _), plan in zip(extracts, resolved):
             plans[i] = plan
     for i, plan in enumerate(plans):

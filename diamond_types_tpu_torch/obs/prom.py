@@ -15,6 +15,9 @@ Naming scheme:
   dt_serve_oplog_wait_seconds_total   blocked before taking the oplog
                                       lock (its holds: the oplog_hold
                                       latency histogram)
+  dt_serve_linearize_total{path}      device-plan resolves by the
+                                      linearizer they ran (zero-filled
+                                      over LINEARIZE_PATHS)
   dt_repl_<group>_<key>_total         replication counters
   dt_rebalance_<counter>_total /      elastic-mesh migrations (zero-
   dt_rebalance_override_table_size    filled) + override-table gauge
@@ -269,6 +272,15 @@ def _render_serve(b: _Builder, serve: dict) -> None:
                   labels={"phase": phase})
         b.add("dt_serve_oplog_wait_seconds_total", "counter",
               phases.get("oplog_wait_s", 0.0))
+    transform = serve.get("transform")
+    if transform is not None:
+        # resolves by linearizer (ServeMetrics v6), zero-filled over
+        # LINEARIZE_PATHS so both paths exist from the first scrape
+        from ..serve.metrics import LINEARIZE_PATHS
+        for path in LINEARIZE_PATHS:
+            b.add("dt_serve_linearize_total", "counter",
+                  transform.get(f"linearized_{path}", 0),
+                  labels={"path": path})
     for name, snap in sorted((serve.get("latencies") or {}).items()):
         b.histogram(f"dt_{name}_latency_seconds", snap)
 

@@ -659,7 +659,9 @@ def resolve_windows(wins: List[dict], clock=None) -> int:
     Per-document transform counters are recorded per bank, as the JAX
     package's per-bank resolve records them; `batches` counts the real
     resolve calls, so a flush window over one card records one where the
-    JAX window records one per shard. Runs in the "resolve" phase of
+    JAX window records one per shard, and `linearized_kernel` /
+    `linearized_plain` count them by the linearizer they ran (the path
+    `xform.resolve_positions` reports). Runs in the "resolve" phase of
     `clock` (the flush window's own), else of the first window's clock.
     Returns the number of calls."""
     if clock is None and wins:
@@ -679,9 +681,11 @@ def resolve_windows(wins: List[dict], clock=None) -> int:
                                   (bank.device, []))[1].append((st, row))
             else:
                 st["host_docs"] += 1
+    paths = {"kernel": 0, "plain": 0}
     for device, rows in by_dev.values():
-        resolved = xform.resolve_positions([row[2] for _st, row in rows],
-                                           device=device)
+        resolved, path = xform.resolve_positions(
+            [row[2] for _st, row in rows], device=device)
+        paths[path] += 1
         for (st, row), plan in zip(rows, resolved):
             row[2] = plan
             st["fallbacks" if plan is None else "device_docs"] += 1
@@ -692,5 +696,7 @@ def resolve_windows(wins: List[dict], clock=None) -> int:
                 metrics.record_transform(win["bank"].shard_id, **st)
         if by_dev:
             metrics.record_transform(wins[0]["bank"].shard_id,
-                                     batches=len(by_dev))
+                                     batches=len(by_dev),
+                                     linearized_kernel=paths["kernel"],
+                                     linearized_plain=paths["plain"])
     return len(by_dev)

@@ -21,11 +21,14 @@ acquisitions; and the wait from admit to flush start (`admit_wait`). A
 phase's seconds are wall time on the flushing thread, waits for the
 interpreter (GIL) included: what the flush pays, not what it computes.
 `per_shard` `flush_wall_s` (every phase) and `device_sync_s` (the fence)
-are derived from the phase counters.
+are derived from the phase counters. Since version 6: the transform
+block's `linearized_kernel` and `linearized_plain`, resolve calls by the
+linearizer they ran (the linearize kernel on a card, or the plain chain
+on the CPU).
 
 Schema (snapshot()):
 
-  {"version": 5, "uptime_s": s, "shards": N, "flush_docs": B,
+  {"version": 6, "uptime_s": s, "shards": N, "flush_docs": B,
    "max_pending": P,
    "totals": {"submits", "coalesced", "rejects", "denied", "fenced",
               "flushes", "flushed_docs", "flushed_ops", "builds",
@@ -46,6 +49,8 @@ Schema (snapshot()):
               "staged_bytes_per_window",
               "shards_hist": {"2": n, ...}},  # shards per window
    "transform": {"device_docs", "host_docs", "fallbacks", "batches",
+                 "linearized_kernel",         # resolves by linearizer
+                 "linearized_plain",
                  "device_ratio"},             # device tail planning
    "hydration": {"prefetches", "warm_hits", "hydrations", ...},
                                     # the residency tier (HYDRATION_KEYS;
@@ -121,6 +126,15 @@ HYDRATION_KEYS = (
     "remote_fill_errors",   # remote snapshot fetch/apply failures
                             # (doc stays a legitimate fresh-empty doc)
 )
+
+
+# the counters `record_transform` takes: per-document planning outcomes,
+# resolve calls (`batches`), and resolve calls by the linearizer they ran
+# (`linearized_<path>` for each of LINEARIZE_PATHS: the linearize kernel,
+# or the plain chain)
+LINEARIZE_PATHS = ("kernel", "plain")
+TRANSFORM_KEYS = ("device_docs", "host_docs", "fallbacks", "batches") \
+    + tuple(f"linearized_{p}" for p in LINEARIZE_PATHS)
 
 
 # the phases of one bank flush, in the order a flush runs them:
@@ -219,8 +233,9 @@ class ServeMetrics:
     # residency tier's `hydration` block and
     # `latencies.hydration_cold_start`; 4: the follower-read `read` block;
     # 5: the `flush_phases` block, `latencies.oplog_hold` and
-    # `latencies.admit_wait`, per_shard times derived from the phases)
-    SCHEMA_VERSION = 5
+    # `latencies.admit_wait`, per_shard times derived from the phases;
+    # 6: the transform block's `linearized_kernel` and `linearized_plain`)
+    SCHEMA_VERSION = 6
 
     def __init__(self, n_shards: int, flush_docs: int,
                  max_pending: int) -> None:
@@ -251,6 +266,7 @@ class ServeMetrics:
         self.xform_host_docs = 0     # tails the extractor host-planned
         self.xform_fallbacks = 0     # device cross-check -> host re-plan
         self.xform_batches = 0       # batched xform dispatches
+        self.xform_linearized = dict.fromkeys(LINEARIZE_PATHS, 0)
         self.max_depth_seen = 0
         self.queue_bound_violations = 0
         self.queue_depth: List[int] = [0] * n_shards
@@ -343,15 +359,19 @@ class ServeMetrics:
 
     def record_transform(self, shard: int, device_docs: int = 0,
                          host_docs: int = 0, fallbacks: int = 0,
-                         batches: int = 0) -> None:
+                         batches: int = 0, linearized_kernel: int = 0,
+                         linearized_plain: int = 0) -> None:
         """One bucket's device-transform planning outcome: how many tails
         resolved their merge positions on the device vs. fell to the host
-        tracker walk."""
+        tracker walk; resolve calls, and those calls by the linearizer
+        they ran."""
         with self._lock:
             self.xform_device_docs += device_docs
             self.xform_host_docs += host_docs
             self.xform_fallbacks += fallbacks
             self.xform_batches += batches
+            self.xform_linearized["kernel"] += linearized_kernel
+            self.xform_linearized["plain"] += linearized_plain
         if self.ts is not None and device_docs:
             self.ts.inc("serve.xform_device_docs", device_docs)
 
@@ -486,6 +506,8 @@ class ServeMetrics:
                     "host_docs": self.xform_host_docs,
                     "fallbacks": self.xform_fallbacks,
                     "batches": self.xform_batches,
+                    **{f"linearized_{p}": v
+                       for p, v in self.xform_linearized.items()},
                     "device_ratio": round(
                         self.xform_device_docs
                         / max(self.xform_device_docs + self.xform_host_docs

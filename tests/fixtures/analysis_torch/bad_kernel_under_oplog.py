@@ -45,3 +45,7 @@ class DocStore:
     def strip(self, plan_kernels, ol, idxs):
         with self.lock:
             return plan_kernels.texts_at_versions(ol, idxs)
+
+    def resolve(self, kernels, buf, b, n):
+        with self.lock:
+            kernels.resolve_rows(buf, b, n)

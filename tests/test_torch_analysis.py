@@ -45,7 +45,8 @@ COPIED = ("analysis/rules/__init__.py", "analysis/rules/fencing.py",
 # the port's dispatch names beyond JAX's (rules/locks.py DISPATCH_BASE)
 PORT_DISPATCH = {"synchronize", "apply_ops_window", "xform_positions",
                  "materialize_runs", "zone_tape_run", "replay_batch_kernel",
-                 "checkout_batch_device", "texts_at_versions"}
+                 "checkout_batch_device", "texts_at_versions",
+                 "resolve_rows"}
 
 
 def _rows(report):
@@ -60,19 +61,22 @@ def port_tree():
 
 # ---- the copies ---------------------------------------------------------------
 
-# the port's addition to metrics_schema.py: its flush phases (the
-# serve.metrics.FLUSH_PHASES import and the record_phases / enter_phase
-# checks, with their lines in the docstring's table)
+# the port's addition to metrics_schema.py: its flush phases and transform
+# counters (the serve.metrics.FLUSH_PHASES and TRANSFORM_KEYS imports and
+# the record_phases / enter_phase / record_transform checks, with their
+# lines in the docstring's table)
 PHASE_CHECK = "analysis/rules/metrics_schema.py"
 PHASE_FIXTURE = REPO / "tests" / "fixtures" / "analysis_torch" / \
     "bad_phase_drift.py"
+TRANSFORM_FIXTURE = REPO / "tests" / "fixtures" / "analysis_torch" / \
+    "bad_transform_drift.py"
 
 
 @pytest.mark.parametrize("rel", COPIED)
 def test_rule_module_is_a_byte_identical_copy(rel):
     """A byte-identical copy; metrics_schema.py keeps every line of JAX's,
-    in order, but the import it extends, and adds the flush-phase
-    checks."""
+    in order, but the import it extends, and adds the flush-phase and
+    transform-counter checks."""
     port, jax = (REPO / PORT / rel).read_bytes(), (REPO / JAX / rel).read_bytes()
     if rel != PHASE_CHECK:
         assert port == jax
@@ -88,6 +92,7 @@ def test_rule_module_is_a_byte_identical_copy(rel):
                       if tag in ("insert", "replace") for k in range(i1, i2))
     assert 'name == "record_phases"' in added
     assert 'name == "enter_phase"' in added
+    assert 'name == "record_transform"' in added
 
 
 def test_phase_drift_fires_only_in_the_port():
@@ -101,6 +106,19 @@ def test_phase_drift_fires_only_in_the_port():
     assert [v["line"] for v in t["violations"]] == [14, 15]
     assert ["'replay'" in t["violations"][0]["message"],
             "'fence_wait'" in t["violations"][1]["message"]] == [True, True]
+
+
+def test_transform_counter_drift_fires_only_in_the_port():
+    """A port-only check: a `record_transform` keyword outside
+    TRANSFORM_KEYS is drift; the declared counters (the linearizer's
+    `linearized_kernel` and `linearized_plain` among them) and a dict
+    splat pass. JAX's rule has no such check."""
+    path = [str(TRANSFORM_FIXTURE)]
+    assert jlint.run_lint(paths=path)["ok"]
+    t = tlint.run_lint(paths=path)
+    assert [(v["rule"], v["line"]) for v in t["violations"]] == \
+        [("metrics-schema-drift", 14)]
+    assert "'linearized_gpu'" in t["violations"][0]["message"]
 
 
 def test_lint_differs_only_in_its_package_list_and_docstrings():
@@ -164,7 +182,7 @@ def test_port_dispatch_names_fire_only_in_the_port():
     t = tlint.run_lint(paths=path)
     assert {v["rule"] for v in t["violations"]} == {"device-under-lock"}
     assert [v["line"] for v in t["violations"]] == \
-        [19, 23, 27, 31, 35, 39, 43, 47]
+        [19, 23, 27, 31, 35, 39, 43, 47, 51]
     named = {v["message"].split("`")[1].split("(")[0]
              for v in t["violations"]}
     assert named == PORT_DISPATCH

@@ -109,11 +109,15 @@ def _report(out: str) -> dict:
 
 
 def _stable(r: dict) -> dict:
-    """The report's keys that do not depend on the host's speed."""
+    """The report's keys that do not depend on the host's speed, but the
+    port's own counters (the transform block's linearizer counts, which
+    `test_serve_bench_counts_resolves_by_linearizer` checks)."""
     totals = {k: v for k, v in r["metrics"]["totals"].items()
               if k != "pallas_fallbacks"}
+    transform = {k: v for k, v in r["transform"].items()
+                 if not k.startswith("linearized_")}
     return {"parity_ok": r["parity_ok"], "slo_ok": r["slo_ok"],
-            "total_ops": r["total_ops"], "transform": r["transform"],
+            "total_ops": r["total_ops"], "transform": transform,
             "steer": r["steer"], "totals": totals,
             "fused_device_calls": r["fused_device_calls"],
             "parity_mismatches": r["parity_mismatches"]}
@@ -164,6 +168,14 @@ def test_pallas_and_real_device_flags_change_nothing(capsys):
         runs.append((sorted(r), r["config"], r["total_ops"]))
     assert all(r == runs[0] for r in runs[1:])
     assert "pallas" not in runs[0][1]
+
+
+def test_serve_bench_counts_resolves_by_linearizer(capsys):
+    """The port's serve bench reports its resolves by the linearizer they
+    ran: on the CPU, the plain chain every time."""
+    t = _device_bench([], capsys)["transform"]
+    assert t["batches"] > 0 and t["linearized_kernel"] == 0
+    assert t["linearized_plain"] == t["batches"]
 
 
 def test_steer_flag_maps_to_the_steering_switch(capsys, monkeypatch):

@@ -16,6 +16,9 @@ from diamond_types_tpu_torch.gpu import (kernels, linearize, merge_kernel,
                                          xform)
 from diamond_types_tpu_torch.native.core import merge_native
 
+from torch_parity import (LINEARIZE_KINDS, concurrent_tails, flat_extract,
+                          linearize_cols)
+
 pytestmark = pytest.mark.cuda
 
 
@@ -193,6 +196,128 @@ def test_k2_row_path_edges_on_card(b, n):
     assert torch.equal(nv, before[0]) and torch.equal(ov, before[1])
 
 
+def _resolve_buffer(cols: np.ndarray) -> torch.Tensor:
+    """A resolve buffer (`kernels.resolve_words`) holding `cols`, the rest
+    filled with -7."""
+    _, b, n = cols.shape
+    buf = torch.full((kernels.resolve_words(b, n),), -7, dtype=torch.int32)
+    buf[:cols.size].copy_(torch.from_numpy(cols.ravel()))
+    return buf
+
+
+@pytest.mark.parametrize("kind", LINEARIZE_KINDS)
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("n", [1, 2, 255, 256, 1024, 4096, 8192])
+def test_linearize_kernel_matches_plain_on_card(kind, b, n):
+    """`resolve_rows` on a card buffer (the linearize kernel, then K2)
+    fills perm, the doc-order new/old visibility, pos, new_len and peak
+    as the plain chain does on the CPU, element for element:
+    heterogeneous right-origin keys and ties in every key (mixed), ties
+    broken by index alone, underwater spines, and all-padding rows; rows
+    wider than 4,096 in the buffer's scratch. One linearize launch and
+    one K2 launch; the columns are not written."""
+    _need_card()
+    cpu = _resolve_buffer(linearize_cols(kind, b, n))
+    dev = cpu.cuda()
+    lin, k2 = kernels.resolve_rows.launches, kernels.xform_positions.launches
+    assert kernels.resolve_rows(dev, b, n) == "kernel"
+    assert (kernels.resolve_rows.launches - lin,
+            kernels.xform_positions.launches - k2) == (1, 1)
+    assert kernels.resolve_rows(cpu, b, n) == "plain"
+    out = slice(0, 11 * b * n + 2 * b)      # the columns and the outputs
+    assert torch.equal(dev.cpu()[out], cpu[out])
+
+
+def test_linearize_scratch_rule_is_the_kernels():
+    """The width rule in Python is csrc/linearize.cu's."""
+    _need_card()
+    lib = kernels._lib("linearize")
+    for n in (1, 256, 4096, 4097, 8192, 70000):
+        assert lib.dt_linearize_scratch_words(n) == \
+            kernels.linearize_scratch_words(n)
+    assert lib.dt_linearize_max_n() == kernels.LINEARIZE_MAX_N
+
+
+def _plans_equal(a, b):
+    import dataclasses
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray):
+            np.testing.assert_array_equal(x, y, err_msg=f.name)
+        else:
+            assert x == y, f.name
+
+
+class _TorchCalls(torch.overrides.TorchFunctionMode):
+    """Counts the torch calls made inside it."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        self.calls.append(getattr(func, "__name__", str(func)))
+        return func(*args, **(kwargs or {}))
+
+
+def test_resolve_positions_on_card_in_few_calls():
+    """resolve_positions on concurrent-mix tails: the linearize kernel on
+    the anchor-split trees equals the plain chain; the card's TailPlans
+    equal the CPU path's; one resolve makes at most 8 torch calls, one
+    linearize launch and one K2 launch."""
+    _need_card()
+    gpu, cpu = concurrent_tails(["cuda", "cpu"])
+    gex = [xform.extract_tail(s) for s in gpu]
+    cex = [xform.extract_tail(s) for s in cpu]
+    assert all(isinstance(e, xform.TailExtract) for e in gex)
+    bp, n = xform.xform_shape_class(gex)
+    buf = np.empty(kernels.resolve_words(bp, n), np.int32)
+    xform.pack_columns(gex, buf, bp, n)
+    host = _resolve_buffer(buf[:7 * bp * n].reshape(7, bp, n))
+    dev = host.cuda()
+    assert kernels.resolve_rows(dev, bp, n) == "kernel"
+    kernels.resolve_rows(host, bp, n)
+    assert torch.equal(dev.cpu(), host)
+    xform.resolve_positions(gex, device="cuda")      # libraries loaded
+    lin, k2 = kernels.resolve_rows.launches, kernels.xform_positions.launches
+    with _TorchCalls() as counted:
+        gplans, path = xform.resolve_positions(gex, device="cuda")
+    assert len(counted.calls) <= 8, counted.calls
+    assert path == "kernel"
+    assert kernels.resolve_rows.launches == lin + 1
+    assert kernels.xform_positions.launches == k2 + 1
+    cplans, path = xform.resolve_positions(cex, device="cpu")
+    assert path == "plain"
+    assert all(p is not None for p in gplans)
+    for g, c in zip(gplans, cplans):
+        _plans_equal(g, c)
+
+
+def test_wide_rows_take_the_kernel_on_card():
+    """Buckets padded to n 8,192 and to n 512 both resolve through the
+    linearize kernel and K2, one launch each, and count in
+    `linearized_kernel`; `linearized_plain` stays 0 on the card."""
+    _need_card()
+    from types import SimpleNamespace
+    from diamond_types_tpu_torch.serve import bank
+    from diamond_types_tpu_torch.serve.metrics import ServeMetrics
+    m = ServeMetrics(1, 8, 64)
+    bk = SimpleNamespace(device_plan=True, device=torch.device("cuda"),
+                         shard_id=0, metrics=m)
+    for k in (5000, 300):
+        lin = kernels.resolve_rows.launches
+        k2 = kernels.xform_positions.launches
+        win = {"bank": bk, "clock": None,
+               "planned": [[None, None, flat_extract(k)]]}
+        assert bank.resolve_windows([win]) == 1
+        torch.cuda.synchronize()
+        assert win["planned"][0][2].n_ops == 0
+        assert (kernels.resolve_rows.launches - lin,
+                kernels.xform_positions.launches - k2) == (1, 1)
+    t = m.snapshot()["transform"]
+    assert (t["linearized_plain"], t["linearized_kernel"]) == (0, 2)
+
+
 K3_TILE = 512     # outputs per CTA of K3's gather
 
 
@@ -334,7 +459,8 @@ def test_scheduler_on_card_launches_k1_and_k2(workers):
         return n
     ff.FusedDocSession.sync = counted
     k1, k2 = kernels.apply_ops_window, kernels.xform_positions
-    k1.launches = k2.launches = 0
+    lin = kernels.resolve_rows
+    k1.launches = k2.launches = lin.launches = 0
     try:
         for rnd in range(3):
             for d, n in serve_round(docs, 30, rnd, share=0.9):
@@ -348,6 +474,8 @@ def test_scheduler_on_card_launches_k1_and_k2(workers):
     replayed = sum(1 for n in syncs if n > 0)
     assert k1.launches == m["fused"]["device_calls"] + replayed > 0
     assert k2.launches == m["transform"]["batches"] > 0
+    assert lin.launches == m["transform"]["linearized_kernel"] == k2.launches
+    assert m["transform"]["linearized_plain"] == 0
     assert m["totals"]["host_fallbacks"] == 0
     assert m["transform"]["device_docs"] > 0
     for d, ol in ols.items():

@@ -324,7 +324,8 @@ def test_scorecards_and_their_diff_match_jax():
 
 # the port's own families, rendered from its `flush_phases` block
 PORT_ONLY_FAMILIES = ("dt_serve_flush_phase_seconds",
-                      "dt_serve_oplog_wait_seconds")
+                      "dt_serve_oplog_wait_seconds",
+                      "dt_serve_linearize")
 
 
 def _without_port_families(text: str) -> str:
@@ -348,6 +349,7 @@ def test_render_metrics_matches_jax(twins):
     m.record_phases(0, {"extract": 0.001, "fence": 0.002}, 0.0005, [0.003])
     m.record_fused(0, 2)
     m.record_window(1, 2, 1, mesh_docs=2, padded_rows=2, staged_bytes=64)
+    m.record_transform(0, device_docs=2, batches=1, linearized_kernel=1)
     m.record_hydration("hydrations", 2)
     m.observe_queue_wait(0.01)
     m.observe_admit_wait(0.008)
@@ -362,6 +364,8 @@ def test_render_metrics_matches_jax(twins):
         assert 'dt_serve_flush_phase_seconds_total{phase="serial"} 0' \
             in text
         assert "dt_serve_oplog_wait_seconds_total 0.0005" in text
+        assert 'dt_serve_linearize_total{path="kernel"} 1' in text
+        assert 'dt_serve_linearize_total{path="plain"} 0' in text
         assert "dt_oplog_hold_latency_seconds_count 1" in text
         assert "dt_admit_wait_latency_seconds_count 1" in text
         assert "dt_flush_latency_seconds_count" in text

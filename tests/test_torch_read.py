@@ -373,13 +373,14 @@ def test_metrics_read_block_matches_jax_keys():
         snaps[root] = (before, sm.snapshot())
     (jb, ja), (tb, ta) = snaps[JAX], snaps[PORT]
     assert jb["read"] is None and tb["read"] is None
-    # the port's own block (the flush's phases, schema version 5)
+    # the port's own block (the flush's phases, schema version 5; the
+    # transform block's linearizer counters, version 6)
     assert set(ta) - set(ja) == {"flush_phases"} and set(ja) <= set(ta)
     assert set(ta["read"]) == set(ja["read"])
     assert set(ta["read"]["counters"]) == set(ja["read"]["counters"])
     assert ta["read"]["counters"] == ja["read"]["counters"]
     assert set(ja["totals"]) - set(ta["totals"]) == {"pallas_fallbacks"}
-    assert ta["version"] == 5
+    assert ta["version"] == 6
 
 
 # ---- two-server acceptance ----------------------------------------------------------

@@ -60,11 +60,13 @@ PROM_ONLY_IN_JAX = {"dt_serve_pallas_fallbacks_total"}
 # the port's flush timing (serve/metrics.py, schema version 5): the key
 # paths under these prefixes and these families are the port's alone
 SERVE_ONLY_IN_PORT = ("serve.flush_phases", "serve.latencies.admit_wait",
-                      "serve.latencies.oplog_hold")
+                      "serve.latencies.oplog_hold",
+                      "serve.transform.linearized_")
 PROM_ONLY_IN_PORT = {"dt_serve_flush_phase_seconds_total",
                      "dt_serve_oplog_wait_seconds_total",
                      "dt_admit_wait_latency_seconds",
-                     "dt_oplog_hold_latency_seconds"}
+                     "dt_oplog_hold_latency_seconds",
+                     "dt_serve_linearize_total"}
 
 
 def _mod(root: str, name: str):
@@ -907,10 +909,11 @@ def _lease_view(nodes, doc):
 
 def _compare_metrics(jax_got, port_got):
     """The /metrics key sets of two runs: equal but for the serve keys
-    only JAX has and the port's flush timing."""
+    only JAX has, the port's flush timing and its linearizer counters."""
     port_only = {k for k in port_got["keys"]
                  if k.startswith(SERVE_ONLY_IN_PORT)}
     assert "serve.flush_phases.seconds.extract" in port_only
+    assert "serve.transform.linearized_plain" in port_only
     assert jax_got["keys"] - port_got["keys"] == SERVE_ONLY_IN_JAX
     assert port_got["keys"] - port_only <= jax_got["keys"]
     assert jax_got["prom"] - port_got["prom"] <= PROM_ONLY_IN_JAX

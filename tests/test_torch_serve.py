@@ -95,7 +95,14 @@ def _assert_metrics_equal(js, ts, rnd):
     jm, tm = js.metrics_json(), ts.metrics_json()
     assert {k: tm["totals"][k] for k in COUNTERS} == \
         {k: jm["totals"][k] for k in COUNTERS}, rnd
-    assert tm["transform"] == jm["transform"], rnd
+    # the port's transform block is JAX's and its linearizer counters:
+    # on the CPU every resolve runs the plain chain
+    assert {k: tm["transform"][k] for k in jm["transform"]} == \
+        jm["transform"], rnd
+    assert set(tm["transform"]) - set(jm["transform"]) == \
+        {"linearized_kernel", "linearized_plain"}
+    assert tm["transform"]["linearized_plain"] == tm["transform"]["batches"]
+    assert tm["transform"]["linearized_kernel"] == 0
     assert tm["fused"] == jm["fused"], rnd
     assert tm["router_counts"] == jm["router_counts"]
     assert jm["totals"]["pallas_fallbacks"] == 0     # JAX stayed on Pallas

@@ -218,6 +218,83 @@ def serve_round(docs: Dict[str, TwinDocs], seed: int, rnd: int,
     return out
 
 
+# ---- the device plan's linearizer --------------------------------------------
+
+LINEARIZE_KINDS = ("mixed", "ties", "underwater", "padding")
+
+
+def linearize_cols(kind: str, b: int, n: int, seed: int = 0) -> np.ndarray:
+    """[7, b, n] int32 linearizer columns (parent, side, key_pos,
+    key_agent, key_seq, new_vis, old_vis) of b random Fugue trees padded
+    to n nodes at shuffled indices; row 0 holds n nodes, the others k <= n.
+    Padding follows the contract: parent n, side 1, INT32_MAX keys, zero
+    visibility. By `kind`:
+      mixed       keys in 0..3: heterogeneous right-origin keys (key_pos),
+                  and ties in every key
+      ties        every key 0: siblings order by index alone
+      underwater  about a quarter of the nodes is the pre-zone spine, as
+                  build_tree_np makes it: right children of the root,
+                  key_pos 0, key_agent -1, key_seq their rank
+      padding     every row but the first is all padding"""
+    rng = np.random.default_rng([seed, b, n, LINEARIZE_KINDS.index(kind)])
+    cols = np.zeros((7, b, n), np.int32)
+    cols[0], cols[1], cols[2:5] = n, 1, np.iinfo(np.int32).max
+    for r in range(b):
+        k = n if r == 0 else 0 if kind == "padding" else \
+            int(rng.integers(0, n + 1))
+        label = rng.permutation(n)[:k]
+        t = np.arange(k)
+        parent = np.where((t == 0) | (rng.random(k) < 0.2), n,
+                          label[(rng.random(k) * t).astype(np.int64)])
+        side = rng.integers(0, 2, k)
+        keys = rng.integers(0, 4, (3, k)) * (kind != "ties")
+        if kind == "underwater":
+            uw = rng.random(k) < 0.25
+            parent[uw], side[uw] = n, 1
+            keys[:, uw] = [[0], [-1], [0]]
+            keys[2, uw] = np.arange(int(uw.sum()))
+        cols[0, r, label] = parent
+        cols[1, r, label] = side
+        cols[2:5, r, label] = keys
+        cols[5:7, r, label] = rng.integers(0, 9, (2, k))
+    return cols
+
+
+def concurrent_tails(devices: Sequence, n_docs: int = 6, seed: int = 20,
+                     rounds: int = 4, n_each: int = 8) -> list:
+    """Concurrent-mix tails pending in FusedDocSessions: `n_docs`
+    documents of 200-3,000 chars, forked for three agents, one concurrent
+    round, then one session a document on each of `devices` (all over the
+    same oplogs), then `rounds` concurrent rounds of `n_each` edits an
+    agent that the sessions have not seen. Returns one list of sessions
+    per device."""
+    from diamond_types_tpu_torch import OpLog
+    from diamond_types_tpu_torch.gpu.flush_fuse import FusedDocSession
+    agents = ("alice", "bob", "carol")
+    docs = serve_docs([OpLog], n_docs, seed, base_min=200, base_max=3000)
+    for tw in docs.values():
+        tw.concurrent_round(agents, 3)
+    out = [[FusedDocSession(tw.oplogs[0], max_ins=16, device=dev)
+            for tw in docs.values()] for dev in devices]
+    for _ in range(rounds):
+        for tw in docs.values():
+            tw.concurrent_round(agents, n_each, max_ins=11, max_del=9)
+    return out
+
+
+def flat_extract(k: int):
+    """A TailExtract of k runs, all right children of the root, visible
+    before and after: a tail whose plan edits nothing, at any width."""
+    from diamond_types_tpu_torch.gpu.xform import TailExtract
+    one = np.ones(k, np.int32)
+    return TailExtract(
+        parent=np.full(k, k), side=np.ones(k, np.int8),
+        key_pos=np.zeros(k, np.int64), key_agent=np.zeros(k, np.int64),
+        key_seq=np.arange(k), old_vis=one, new_vis=one,
+        aoff=np.zeros(k, np.int64), arena=np.zeros(1, np.int32),
+        doc_len=k, max_ins=4, frontier=(k - 1,), synced_to=k)
+
+
 # ---- the zone engine --------------------------------------------------------
 
 def zone_history(oplog_types: Sequence, seed: int, n_edits: int = 40,
