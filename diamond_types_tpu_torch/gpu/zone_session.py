@@ -24,6 +24,29 @@ kernel (or its plain version for a CPU session), the same YjsMod
 semantics — a session is a tape whose steps arrive over time. The session
 lives on `device`: CUDA unless the caller asks for "cpu".
 
+Divergence from the JAX session (the port's own fix): a continued sync
+writes the agent and seq keys of every slot it allocates into the carry's
+key planes before its tape runs, as `init_zone_carry` holds every slot's
+keys before a whole-document tape. The tape scatters a char's keys only in
+the APPLY sub-step that places it, and an entry's block is placed with its
+ROOT char's keys, read from the carry; the root is the block's last run
+when later runs were typed to its left, so a block longer than one
+sub-step's budget is placed before its root's keys exist. It then reads
+zero keys, ranks as the first agent, and lands before a concurrent
+sibling the YjsMod order puts first. The JAX session reads the same zeros
+and serves that wrong text (`tests/test_torch_zone_continued.py`).
+
+Counters (`take_counts`, `ZONE_COUNTS`): syncs, continued and resynced;
+resyncs by cause (`RESYNC_CAUSES`); X8 launches and the launched tapes'
+shapes: steps of each kind, snapshotting APPLY steps, chars placed, the
+ranks placed before each APPLY step, the slots swept by row steps and
+snapshots, the tapes' widths and bytes. The serve bank takes them after
+every sync (`ServeMetrics.record_zone`). With a `FlushClock`, `sync` times
+its phases: `zone_compose` (the entries composed, packed and filled into
+a tape), `zone_tape` (the key planes' and the tape's upload, the X8
+launch) and `zone_resync` (a rebuild: `prepare_zone`, its tape and
+launch).
+
 `devices` (the JAX session's `row_sharding`) spreads the version rows over
 several devices. The row count is rounded up to a multiple of
 len(devices), as JAX rounds it to the mesh, so rows, evictions and resyncs
@@ -49,9 +72,81 @@ from ..listmerge.zone_np import prepare_zone
 from ..obs.devprof import note_transfer
 from . import kernels, resolve_device
 from .steer import _pow2
-from .zone_kernel import (BIG32, OP_APPLY, OP_FORK, OP_MAX, ZoneTape,
-                          _fill_tape, assemble_text, entry_steps,
+from .zone_kernel import (BIG32, OP_APPLY, OP_BEGIN, OP_FORK, OP_MAX,
+                          ZoneTape, _fill_tape, assemble_text, entry_steps,
                           init_zone_carry, pack_zone_tape, tape_xs)
+
+
+# why a sync rebuilt the carry: a run anchored at a frontier with no
+# tracked row, an entry whose inserts overflow the slot capacity, an agent
+# registered since the last build, or no state row left to take
+RESYNC_CAUSES = ("untracked_frontier", "slot_capacity", "new_agent",
+                 "rows_dry")
+
+# the counters a session keeps until `take_counts` (module docstring):
+#   syncs, continued, resynced   sync() calls that had new ops, and of
+#                                them those that ran no rebuild / one or
+#                                more
+#   resync_<cause>               rebuilds by cause (RESYNC_CAUSES)
+#   launches                     X8 launches (builds and rebuilds too)
+#   steps_<kind>                 tape steps of each kind launched
+#   apply_snap                   APPLY steps that snapshot their row
+#   chars                        chars placed (n summed over APPLY steps)
+#   ranks_before                 ranks placed before each APPLY step (m),
+#                                summed over APPLY steps
+#   <kind>_slots, snap_slots     slots swept by BEGIN / FORK / MAX steps
+#                                and by snapshots: the tape's width W
+#                                summed over those steps
+#   width                        W summed over launches
+#   tape_bytes                   the launched tapes' columns, in bytes
+ZONE_COUNTS = (("syncs", "continued", "resynced")
+               + tuple(f"resync_{c}" for c in RESYNC_CAUSES)
+               + ("launches", "steps_begin", "steps_fork", "steps_max",
+                  "steps_apply", "apply_snap", "chars", "ranks_before",
+                  "begin_slots", "fork_slots", "max_slots", "snap_slots",
+                  "width", "tape_bytes"))
+
+
+class _NoClock:
+    """A `FlushClock` stand-in for a sync outside a bank flush."""
+
+    @staticmethod
+    def enter_phase(phase) -> None:
+        pass
+
+
+_NO_CLOCK = _NoClock()
+
+
+def _steps_shape(steps: List[dict], m: int) -> tuple:
+    """`DeviceZoneSession._tally`'s shape of a tape from its step dicts
+    (`_fill_tape`'s input), on a carry with `m` ranks placed: a loop over
+    a continued sync's few steps."""
+    kinds = [0, 0, 0, 0]
+    snaps = before = 0
+    m0 = m
+    for s in steps:
+        op = s["op"]
+        kinds[op] += 1
+        if op == OP_APPLY:
+            before += m
+            m += s["n_chars"]
+            snaps += s["snap"]
+    return (kinds[OP_BEGIN], kinds[OP_FORK], kinds[OP_MAX], kinds[OP_APPLY],
+            snaps, m - m0, before)
+
+
+def _tape_shape(tape: ZoneTape, m: int) -> tuple:
+    """The same shape from a tape's columns (a build's or a rebuild's
+    long tape). Every row is launched, the one row of a tape with no step
+    too; only APPLY rows place chars or snapshot."""
+    n = np.count_nonzero(tape.ch_slot >= 0, axis=1)
+    kinds = np.bincount(tape.op, minlength=OP_APPLY + 1)
+    apply = tape.op == OP_APPLY
+    before = int(kinds[OP_APPLY]) * m + int((np.cumsum(n) - n)[apply].sum())
+    return (int(kinds[OP_BEGIN]), int(kinds[OP_FORK]), int(kinds[OP_MAX]),
+            int(kinds[OP_APPLY]), int(np.count_nonzero(tape.snap_flag)),
+            int(n.sum()), before)
 
 
 class DeviceZoneSession:
@@ -85,13 +180,20 @@ class DeviceZoneSession:
         self.merges = 0
         self._lru: Dict[Tuple[int, ...], int] = {}
         self._clock = 0
+        self.counts = dict.fromkeys(ZONE_COUNTS, 0)
         self.resync()
 
     # ---- full (re)build --------------------------------------------------
 
-    def resync(self) -> None:
+    def resync(self, cause: Optional[str] = None,
+                clock=_NO_CLOCK) -> None:
         """Rebuild device state from scratch, pinning one state row per
-        agent head so every active branch is immediately tracked."""
+        agent head so every active branch is immediately tracked. `cause`
+        (one of RESYNC_CAUSES; None for a build or a caller's own) is
+        counted; the rebuild runs in `clock`'s "zone_resync" phase."""
+        clock.enter_phase("zone_resync")
+        if cause is not None:
+            self.counts[f"resync_{cause}"] += 1
         self.resyncs += 1
         ol = self.oplog
         # pin each agent's last version (if it lands in the zone)
@@ -132,6 +234,7 @@ class DeviceZoneSession:
         self.carry = init_zone_carry(W_cap, prep.plen, n_rows, agent_k,
                                      seq_k, device=self.device)
         self.state_blocks = None
+        self._m = prep.plen        # ranks placed: the carry's m, on the host
         self._run_tape(tape)
 
         # row registry: pinned agent-head rows + their frontiers
@@ -183,17 +286,70 @@ class DeviceZoneSession:
                 row.to(torch.uint8)
         self._on_lead(build)
 
-    def _run_tape(self, tape: ZoneTape) -> None:
+    def _run_tape(self, tape: ZoneTape, shape: Optional[tuple] = None
+                  ) -> None:
         """Continue the resident carry with `tape`, in place: one launch
         for the whole tape, on `self.device`. (The JAX session can cut it
         into slices, DT_SESSION_SLICE, for its TPU runtime's per-program
         time limit; the card has none.) The tape's upload is counted by
         `note_transfer`, untagged as in the JAX package; the port's tape
-        is unpadded, so it moves fewer bytes than JAX's pow2-padded one."""
+        is unpadded, so it moves fewer bytes than JAX's pow2-padded one.
+        The launch and its tape's `shape` (`_steps_shape`; taken from the
+        tape's columns when None) are counted (`ZONE_COUNTS`)."""
         xs = tape_xs(tape, self.device)
-        note_transfer(sum(v.nbytes for v in xs.values()))
+        nbytes = sum(v.nbytes for v in xs.values())
+        note_transfer(nbytes)
+        self._tally(shape if shape is not None
+                    else _tape_shape(tape, self._m), int(tape.W), nbytes)
         self._on_lead(lambda: kernels.zone_tape_run(self.carry, xs,
                                                     tape.plen))
+
+    def _tally(self, shape: tuple, W: int, nbytes: int) -> None:
+        """Add one launch to the counters, and advance the host's copy of
+        the carry's placed-rank count by its chars. `shape` is (BEGIN,
+        FORK, MAX, APPLY steps, snapshotting APPLY steps, chars, ranks
+        placed before each APPLY step summed)."""
+        begin, fork, mx, apply, snaps, chars, before = shape
+        c = self.counts
+        c["launches"] += 1
+        c["steps_begin"] += begin
+        c["steps_fork"] += fork
+        c["steps_max"] += mx
+        c["steps_apply"] += apply
+        c["apply_snap"] += snaps
+        c["chars"] += chars
+        c["ranks_before"] += before
+        c["begin_slots"] += W * begin
+        c["fork_slots"] += W * fork
+        c["max_slots"] += W * mx
+        c["snap_slots"] += W * snaps
+        c["width"] += W
+        c["tape_bytes"] += nbytes
+        self._m += chars
+
+    def take_counts(self) -> Dict[str, int]:
+        """The counters since the last take (`ZONE_COUNTS`), zeroed."""
+        out, self.counts = self.counts, dict.fromkeys(ZONE_COUNTS, 0)
+        return out
+
+    def _write_keys(self, tape: ZoneTape, w0: int) -> None:
+        """The agent and seq keys of the slots [w0, W_used), which this
+        sync allocated and its `tape` places (each once, in its char
+        columns), into the carry's key planes: every slot's keys are in
+        place before the tape's first step reads any (module docstring,
+        the divergence)."""
+        w1 = self.W_used
+        if w1 <= w0:
+            return
+        slots = tape.ch_slot.ravel()
+        new = slots >= w0
+        keys = np.empty((2, w1 - w0), dtype=np.int32)
+        at = slots[new] - w0
+        keys[0, at] = tape.ch_agent.ravel()[new]
+        keys[1, at] = tape.ch_seq.ravel()[new]
+        keys = torch.from_numpy(keys)
+        self.carry.agent_k[:, w0:w1] = keys[0]
+        self.carry.seq_k[:, w0:w1] = keys[1]
 
     def _take_row(self, exclude) -> Optional[int]:
         """A free state row, evicting the least-recently-used tracked
@@ -279,19 +435,30 @@ class DeviceZoneSession:
             self.W_used += n
         return True
 
-    def sync(self) -> int:
+    def sync(self, clock=_NO_CLOCK) -> int:
         """Fold every op appended to the oplog since the last sync into
         the device state. Returns the number of micro-steps executed
-        (0 = nothing new). Resyncs transparently when needed."""
-        ol = self.oplog
-        if self.synced_to >= len(ol):
+        (0 = nothing new). Resyncs transparently when needed. Its phases
+        run on `clock` (a bank flush's `FlushClock`), which is left in
+        the last one."""
+        if self.synced_to >= len(self.oplog):
             return 0
+        resyncs = self.resyncs
+        steps = self._sync(clock)
+        c = self.counts
+        c["syncs"] += 1
+        c["resynced" if self.resyncs != resyncs else "continued"] += 1
+        return steps
+
+    def _sync(self, clock) -> int:
+        clock.enter_phase("zone_compose")
+        ol = self.oplog
         # agent NAME RANKS are relative to the registered-name set; a new
         # agent shifts existing ranks, and the carry's key planes hold the
         # old epoch's ranks — rebuild before they can disagree
         if tuple(ol.cg.agent_assignment.agent_names) != self._agent_epoch:
-            self.resync()
-            return self.sync()
+            self.resync("new_agent", clock)
+            return self._sync(clock)
         g = ol.cg.graph
         # split the new span into entries (same-parents runs)
         steps: List[dict] = []
@@ -306,6 +473,7 @@ class DeviceZoneSession:
             spans.append((v, take, parents))
             v = take
 
+        w0 = self.W_used
         for (s, e, parents) in spans:
             key = tuple(sorted(parents))
             # source rows: the exact frontier if tracked, else the per-tip
@@ -317,15 +485,18 @@ class DeviceZoneSession:
                 if not srcs or any(r is None for r in srcs):
                     # untracked frontier — including parents == [] (a
                     # concurrent root-anchored op): rebuild
-                    self.resync()
-                    return self.sync()
+                    self.resync("untracked_frontier", clock)
+                    return self._sync(clock)
             # apply on a FRESH row (fork + max joins): source rows stay
             # tracked — two branches forking the same frontier is the
             # normal realtime shape and must not force a rebuild
             row = self._take_row(exclude=set(srcs))
-            if row is None or not self._alloc_slots((s, e)):
-                self.resync()
-                return self.sync()
+            if row is None:
+                self.resync("rows_dry", clock)
+                return self._sync(clock)
+            if not self._alloc_slots((s, e)):
+                self.resync("slot_capacity", clock)
+                return self._sync(clock)
             pre_ops = [(OP_FORK, srcs[0], row)] + \
                 [(OP_MAX, r, row) for r in srcs[1:]]
             ce = compose_entry(ol, (s, e))
@@ -334,10 +505,13 @@ class DeviceZoneSession:
             self._touch_key((e - 1,))
 
         if steps:
-            self._run_tape(_fill_tape(steps, self.W_cap, self.plen,
-                                      self.n_rows_eff,
-                                      self.pool[:self.W_used], self.MB,
-                                      self.MC, self.MD))
+            tape = _fill_tape(steps, self.W_cap, self.plen, self.n_rows_eff,
+                              self.pool[:self.W_used], self.MB, self.MC,
+                              self.MD)
+            shape = _steps_shape(steps, self._m)
+            clock.enter_phase("zone_tape")
+            self._write_keys(tape, w0)
+            self._run_tape(tape, shape)
             self.merges += 1
         self.synced_to = end
         return len(steps)

@@ -38,7 +38,11 @@ per (cap, max_ins) group. The ladder, most-fused first:
 
 Zone-session flush (`fused=False`): every item of a bucket is a per-doc
 `sync_doc`, whose `DeviceZoneSession.sync` continues the resident carry
-with one X8 launch (`kernels.zone_tape_run`) per sync, or resyncs.
+with one X8 launch (`kernels.zone_tape_run`) per sync, or resyncs. It runs
+in the flush's "serial" phase, and times its own phases on the flush's
+clock ("zone_compose", "zone_tape", "zone_resync"); after each sync the
+bank hands the session's counters (`DeviceZoneSession.take_counts`) to
+`ServeMetrics.record_zone`.
 
 Unlike the JAX package's bank, no rung catches a fault and drops to
 another: a kernel error, a failed session build, a zone session's fault or
@@ -380,16 +384,23 @@ class SessionBank:
 
     # ---- merge path ------------------------------------------------------
 
-    def sync_doc(self, doc_id: str, oplog) -> dict:
+    def sync_doc(self, doc_id: str, oplog, clock=None) -> dict:
         """Fold the doc's appended ops into its shard-resident state. A
         fence failure (`FenceMismatch`, fused sessions) evicts the session
         and serves the doc from the host engine; any other exception,
-        a zone session's included, propagates."""
+        a zone session's included, propagates. A zone session's sync
+        times its phases on `clock` (the flush's `FlushClock`), which is
+        then back in "serial", and its counters go to the metrics."""
         self._bump("syncs")
         t0 = time.perf_counter()
         sess = self.session(doc_id, oplog)
+        zone = isinstance(sess, DeviceZoneSession)
         try:
-            steps = sess.sync()
+            if zone and clock is not None:
+                steps = sess.sync(clock)
+                clock.enter_phase("serial")
+            else:
+                steps = sess.sync()
         except flush_fuse.FenceMismatch as e:
             self.evict(doc_id)
             self._bump("host_fallbacks")
@@ -412,6 +423,10 @@ class SessionBank:
         if seen is not None and sess.resyncs > seen:
             self._bump("resyncs", sess.resyncs - seen)
             self._resyncs_seen[doc_id] = sess.resyncs
+        if zone:
+            counts = sess.take_counts()
+            if self.metrics is not None:
+                self.metrics.record_zone(self.shard_id, counts)
         if self.metrics is not None:
             self.metrics.observe_footprint(self.shard_id,
                                            self.footprint_slots())
@@ -564,7 +579,7 @@ class SessionBank:
                     # overflowing or poisoned docs — and stalling
                     # oplog readers here is the documented cost of
                     # falling off the fused path.
-                    self.sync_doc(it.doc_id, win["ols"][it.doc_id])  # dt-lint: ignore[device-under-lock]
+                    self.sync_doc(it.doc_id, win["ols"][it.doc_id], clock)  # dt-lint: ignore[device-under-lock]
             clock.enter_phase("adopt")
             if self.metrics is not None:
                 self.metrics.observe_footprint(self.shard_id,

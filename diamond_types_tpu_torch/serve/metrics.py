@@ -24,11 +24,14 @@ interpreter (GIL) included: what the flush pays, not what it computes.
 are derived from the phase counters. Since version 6: the transform
 block's `linearized_kernel` and `linearized_plain`, resolve calls by the
 linearizer they ran (the linearize kernel on a card, or the plain chain
-on the CPU).
+on the CPU). Since version 7: the zone-session bank's `zone` block
+(`ZONE_COUNTS`, `gpu/zone_session.py`: syncs continued and resynced,
+resyncs by cause, X8 launches and the launched tapes' shapes; all zero on
+the fused engine) and the zone sync's three phases.
 
 Schema (snapshot()):
 
-  {"version": 6, "uptime_s": s, "shards": N, "flush_docs": B,
+  {"version": 7, "uptime_s": s, "shards": N, "flush_docs": B,
    "max_pending": P,
    "totals": {"submits", "coalesced", "rejects", "denied", "fenced",
               "flushes", "flushed_docs", "flushed_ops", "builds",
@@ -61,6 +64,7 @@ Schema (snapshot()):
                     "count": {<FLUSH_PHASES>: n},    # flushes timing it
                     "oplog_wait_s": s,   # blocked before taking the lock
                     "oplog_hold_s": s, "oplog_holds": n},
+   "zone": {<ZONE_COUNTS>: n},      # zone sessions (record_zone)
    "max_depth_seen": d,
    "queue_bound_violations": 0,     # depth observed above max_pending
    "latencies": {"flush": hist,     # obs.hist snapshot w/ p50/p90/p99
@@ -81,6 +85,7 @@ import threading
 import time
 from typing import Dict, List, Optional, Sequence
 
+from ..gpu.zone_session import ZONE_COUNTS
 from ..obs.hist import Histogram
 from ..obs.trace import NOOP_SPAN
 
@@ -146,10 +151,17 @@ TRANSFORM_KEYS = ("device_docs", "host_docs", "fallbacks", "batches") \
 #   fence    the length fetch that completes the replay
 #   adopt    commit the fenced rows, count syncs, evict failed rows
 #   serial   the per-doc rung for items that could not fuse (its own
-#            pack and fence count here, not above)
+#            pack and fence count here, not above); on the zone engine
+#            every item, less the zone phases below
+#   zone_compose  a zone sync's entries composed, packed and filled into
+#            its micro-tape (`DeviceZoneSession.sync`)
+#   zone_tape     the micro-tape's and the new slots' keys' upload and
+#            the X8 launch
+#   zone_resync   a zone session's rebuild: `prepare_zone`, the rebuild
+#            tape and its launch
 # The wait to take the oplog lock is in no phase (`oplog_wait_s`).
 FLUSH_PHASES = ("extract", "resolve", "plan", "pack", "fence", "adopt",
-                "serial")
+                "serial", "zone_compose", "zone_tape", "zone_resync")
 _SPAN_NAMES = {p: f"bank.{p}" for p in FLUSH_PHASES}
 
 
@@ -234,8 +246,9 @@ class ServeMetrics:
     # `latencies.hydration_cold_start`; 4: the follower-read `read` block;
     # 5: the `flush_phases` block, `latencies.oplog_hold` and
     # `latencies.admit_wait`, per_shard times derived from the phases;
-    # 6: the transform block's `linearized_kernel` and `linearized_plain`)
-    SCHEMA_VERSION = 6
+    # 6: the transform block's `linearized_kernel` and `linearized_plain`;
+    # 7: the `zone` block and the zone sync's phases)
+    SCHEMA_VERSION = 7
 
     def __init__(self, n_shards: int, flush_docs: int,
                  max_pending: int) -> None:
@@ -291,6 +304,8 @@ class ServeMetrics:
         self.oplog_wait_s = 0.0
         self.oplog_hold_s = 0.0
         self.oplog_holds = 0
+        # the zone-session bank's counters (record_zone)
+        self.zone: Dict[str, int] = dict.fromkeys(ZONE_COUNTS, 0)
         # obs.recorder.FlightRecorder, wired by
         # MergeScheduler.attach_obs; only rare events touch it
         self.recorder = None
@@ -392,6 +407,15 @@ class ServeMetrics:
             self.oplog_holds += len(oplog_holds)
         for h in oplog_holds:
             self.oplog_hold_latency.record(h)
+
+    def record_zone(self, shard: int, counts: Dict[str, int]) -> None:
+        """A zone session's counters since its last take (`ZONE_COUNTS`
+        keys; `DeviceZoneSession.take_counts`), added to the `zone`
+        block; an undeclared key raises."""
+        with self._lock:
+            z = self.zone
+            for k, n in counts.items():
+                z[k] += n
 
     def observe_queue(self, shard: int, depth: int) -> None:
         with self._lock:
@@ -524,6 +548,7 @@ class ServeMetrics:
                     "oplog_hold_s": round(self.oplog_hold_s, 6),
                     "oplog_holds": self.oplog_holds,
                 },
+                "zone": dict(self.zone),
                 "max_depth_seen": self.max_depth_seen,
                 "queue_bound_violations": self.queue_bound_violations,
                 "latencies": {"flush": flush_hist,

@@ -374,7 +374,7 @@ def test_metrics_hydration_block_matches_jax_keys():
     assert tmetrics.HYDRATION_KEYS == jmetrics.HYDRATION_KEYS
     m = tmetrics.ServeMetrics(2, 4, 64)
     snap0 = m.snapshot()
-    assert snap0["version"] == 6
+    assert snap0["version"] == 7
     assert tuple(snap0["hydration"]) == jmetrics.HYDRATION_KEYS
     assert set(snap0["hydration"].values()) == {0}
     m.record_hydration("prefetches")

@@ -57,11 +57,12 @@ COPIED = ("replicate/faults.py", "replicate/metrics.py",
 # rung's fallback counter)
 SERVE_ONLY_IN_JAX = {"serve.totals.pallas_fallbacks"}
 PROM_ONLY_IN_JAX = {"dt_serve_pallas_fallbacks_total"}
-# the port's flush timing (serve/metrics.py, schema version 5): the key
-# paths under these prefixes and these families are the port's alone
+# the port's flush timing (serve/metrics.py, schema version 5), its
+# linearizer counters (6) and its zone-session counters (7): the key paths
+# under these prefixes and these families are the port's alone
 SERVE_ONLY_IN_PORT = ("serve.flush_phases", "serve.latencies.admit_wait",
                       "serve.latencies.oplog_hold",
-                      "serve.transform.linearized_")
+                      "serve.transform.linearized_", "serve.zone")
 PROM_ONLY_IN_PORT = {"dt_serve_flush_phase_seconds_total",
                      "dt_serve_oplog_wait_seconds_total",
                      "dt_admit_wait_latency_seconds",

@@ -386,7 +386,8 @@ def clock_modules(monkeypatch, root: str, clock: FakeClock,
 # the port's own leaf spans, one a phase of a bank flush
 # (serve/metrics.py FLUSH_PHASES): the JAX package has none
 PORT_ONLY_SPANS = ("bank.extract", "bank.resolve", "bank.plan", "bank.pack",
-                   "bank.fence", "bank.adopt", "bank.serial")
+                   "bank.fence", "bank.adopt", "bank.serial",
+                   "bank.zone_compose", "bank.zone_tape", "bank.zone_resync")
 
 
 def span_forest(spans: List[dict], drop: Sequence[str] = ()) -> list:
