@@ -246,6 +246,7 @@ def _pack_native(prep: ZonePrep, MB: int, MC: int, MD: int):
     #6 — the pure-Python pack was ~280 ms of git-makefile zone prep).
     Array-identical to the Python packer below (pinned by
     tests/test_zone_kernel.py); None when the native library is absent."""
+    from ..native.core import addr
     ctx = prep.native_ctx
     if ctx is None:
         return None
@@ -270,17 +271,18 @@ def _pack_native(prep: ZonePrep, MB: int, MC: int, MD: int):
     # fast path: the composer's output is still cached on the ctx from
     # prepare_zone's compose_plan call — pack straight from it, no
     # column round-trip. -2 = cache stale/absent -> marshal below.
+    # The arrays go as raw addresses (`native.core.addr`); the composed
+    # columns' pointers are unread (None) when packing from the cache.
+    i64, i32, u8 = np.int64, np.int32, np.uint8
     if prep.compose_serial:
-        d64 = np.zeros(1, np.int64)
-        d32 = np.zeros(1, np.int32)
-        du8 = np.zeros(1, np.uint8)
         T = lib.dt_zone_pack(
-            ctx._ptr, len(acts), ak, aa, ab, n, d64, d64, d64, du8, d64,
-            d32, d64, d32, d64, d32, d32, d64, d64, d64, d64,
-            len(ins_lv0), ins_lv0, ins_cum, prep.plen, agent_k, seq_k,
-            MB, MC, MD, prep.compose_serial)
+            ctx._ptr, len(acts), addr(ak, i64), addr(aa, i64),
+            addr(ab, i64), n, *[None] * 15, len(ins_lv0),
+            addr(ins_lv0, i64), addr(ins_cum, i64), prep.plen,
+            addr(agent_k, i64), addr(seq_k, i64), MB, MC, MD,
+            prep.compose_serial)
         if T >= 0:
-            return _pack_fetch(prep, lib, ctx, int(T), MB, MC, MD)
+            return _pack_fetch(prep, ctx, int(T), MB, MC, MD)
     ces = prep.get_composed()
     as_i64 = lambda a: np.ascontiguousarray(a, dtype=np.int64)  # noqa: E731
     counts = np.zeros(n * 5, dtype=np.int64)
@@ -328,48 +330,24 @@ def _pack_native(prep: ZonePrep, MB: int, MC: int, MD: int):
     do1 = cat([as_i64([b for _, b in ce.del_own]) for ce in ces], np.int64)
 
     T = lib.dt_zone_pack(
-        ctx._ptr, len(acts), ak, aa, ab, n, counts, flat_q, ch_lv, ch_kind,
-        ch_anchor, ch_q, ch_orrown, blk_root_q, blk_root_lv, blk_start,
-        blk_len, db0, db1, do0, do1, len(ins_lv0), ins_lv0, ins_cum,
-        prep.plen, agent_k, seq_k, MB, MC, MD, 0)
+        ctx._ptr, len(acts), addr(ak, i64), addr(aa, i64), addr(ab, i64),
+        n, addr(counts, i64), addr(flat_q, i64), addr(ch_lv, i64),
+        addr(ch_kind, u8), addr(ch_anchor, i64), addr(ch_q, i32),
+        addr(ch_orrown, i64), addr(blk_root_q, i32),
+        addr(blk_root_lv, i64), addr(blk_start, i32), addr(blk_len, i32),
+        addr(db0, i64), addr(db1, i64), addr(do0, i64), addr(do1, i64),
+        len(ins_lv0), addr(ins_lv0, i64), addr(ins_cum, i64), prep.plen,
+        addr(agent_k, i64), addr(seq_k, i64), MB, MC, MD, 0)
     if T < 0:
         return None
-    return _pack_fetch(prep, lib, ctx, int(T), MB, MC, MD)
+    return _pack_fetch(prep, ctx, int(T), MB, MC, MD)
 
 
-def _pack_fetch(prep, lib, ctx, T: int, MB: int, MC: int, MD: int):
-    Tp = max(1, int(T))
-    # np.empty everywhere: dt_zone_pack_fetch writes every cell, pads
-    # included (pad-initializing the ~100 MB tape in numpy was a
-    # measurable share of the whole pack)
-    out = ZoneTape(
-        op=np.empty(Tp, np.int32), arg_a=np.empty(Tp, np.int32),
-        arg_b=np.empty(Tp, np.int32), snap_flag=np.empty(Tp, np.int32),
-        blk_cursor=np.empty((Tp, MB), np.int32),
-        blk_prev=np.empty((Tp, MB), np.int32),
-        blk_root=np.empty((Tp, MB), np.int32),
-        blk_start=np.empty((Tp, MB), np.int32),
-        blk_len=np.empty((Tp, MB), np.int32),
-        ch_slot=np.empty((Tp, MC), np.int32),
-        ch_ol_static=np.empty((Tp, MC), np.int32),
-        ch_ol_coord=np.empty((Tp, MC), np.int32),
-        ch_orr_own=np.empty((Tp, MC), np.int32),
-        ch_blk=np.empty((Tp, MC), np.int32),
-        ch_agent=np.empty((Tp, MC), np.int32),
-        ch_seq=np.empty((Tp, MC), np.int32),
-        del_kind=np.empty((Tp, MD), np.int32),
-        del_a=np.empty((Tp, MD), np.int32),
-        del_b=np.empty((Tp, MD), np.int32),
-        W=prep.W, plen=prep.plen,
-        n_idx=max(1, prep.plan.indexes_used),
-        pool=prep.pool.astype(np.int32), total_steps=int(T))
-    lib.dt_zone_pack_fetch(
-        ctx._ptr, out.op, out.arg_a, out.arg_b, out.snap_flag,
-        out.blk_cursor, out.blk_prev, out.blk_root, out.blk_start,
-        out.blk_len, out.ch_slot, out.ch_ol_static, out.ch_ol_coord,
-        out.ch_orr_own, out.ch_blk, out.ch_agent, out.ch_seq,
-        out.del_kind, out.del_a, out.del_b, MB, MC, MD)
-    return out
+def _pack_fetch(prep, ctx, T: int, MB: int, MC: int, MD: int) -> ZoneTape:
+    from ..native.core import fetch_zone_tape
+    return ZoneTape(**fetch_zone_tape(ctx._ptr, T, MB, MC, MD), W=prep.W,
+                    plen=prep.plen, n_idx=max(1, prep.plan.indexes_used),
+                    pool=prep.pool.astype(np.int32))
 
 
 def pack_zone_tape(prep: ZonePrep, max_blocks: int = 8,

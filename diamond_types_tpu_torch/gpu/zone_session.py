@@ -36,16 +36,30 @@ zero keys, ranks as the first agent, and lands before a concurrent
 sibling the YjsMod order puts first. The JAX session reads the same zeros
 and serves that wrong text (`tests/test_torch_zone_continued.py`).
 
+Who builds a continued sync's micro-tape: Python walks the new span into
+entries, takes their rows and slots and makes every resync decision; the
+entries are then composed by the C++ composer (`dt_compose_plan`) and
+packed by the C++ zone packer (`dt_zone_pack`) on a scratch native
+context the session owns (`native.core.MicroTapeContext`), loaded with
+the sync's own op runs alone. The Python composer (`listmerge/compose.py`),
+`entry_steps` and `_fill_tape` build the same tape, array for array, when
+the native engine is off (DT_TPU_NO_NATIVE, or the library cannot be
+built) or refuses the entries. The C++ refuses only what the Python
+composer refuses too (a reverse insert run, a delete past the end), so
+such a sync then raises from the Python path, as it did before the C++
+path. ctypes leaves the GIL while the C++ runs.
+
 Counters (`take_counts`, `ZONE_COUNTS`): syncs, continued and resynced;
-resyncs by cause (`RESYNC_CAUSES`); X8 launches and the launched tapes'
-shapes: steps of each kind, snapshotting APPLY steps, chars placed, the
-ranks placed before each APPLY step, the slots swept by row steps and
-snapshots, the tapes' widths and bytes. The serve bank takes them after
-every sync (`ServeMetrics.record_zone`). With a `FlushClock`, `sync` times
-its phases: `zone_compose` (the entries composed, packed and filled into
-a tape), `zone_tape` (the key planes' and the tape's upload, the X8
-launch) and `zone_resync` (a rebuild: `prepare_zone`, its tape and
-launch).
+resyncs by cause (`RESYNC_CAUSES`); the continued syncs whose micro-tape
+each path built (`prep_native`, `prep_python`); X8 launches and the
+launched tapes' shapes: steps of each kind, snapshotting APPLY steps,
+chars placed, the ranks placed before each APPLY step, the slots swept by
+row steps and snapshots, the tapes' widths and bytes. The serve bank takes
+them after every sync (`ServeMetrics.record_zone`). With a `FlushClock`,
+`sync` times its phases: `zone_compose` (the entries' rows and slots
+taken, the entries composed and packed into a tape), `zone_tape` (the key
+planes' and the tape's upload, the X8 launch) and `zone_resync` (a
+rebuild: `prepare_zone`, its tape and launch).
 
 `devices` (the JAX session's `row_sharding`) spreads the version rows over
 several devices. The row count is rounded up to a multiple of
@@ -67,9 +81,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..listmerge import plan2
 from ..listmerge.compose import compose_entry
 from ..listmerge.zone_np import prepare_zone
 from ..obs.devprof import note_transfer
+from ..text.op import INS, OpRun
 from . import kernels, resolve_device
 from .steer import _pow2
 from .zone_kernel import (BIG32, OP_APPLY, OP_BEGIN, OP_FORK, OP_MAX,
@@ -88,6 +104,9 @@ RESYNC_CAUSES = ("untracked_frontier", "slot_capacity", "new_agent",
 #                                them those that ran no rebuild / one or
 #                                more
 #   resync_<cause>               rebuilds by cause (RESYNC_CAUSES)
+#   prep_native, prep_python     continued syncs whose micro-tape the C++
+#                                composer and packer built / the Python
+#                                ones (`_micro_tape`)
 #   launches                     X8 launches (builds and rebuilds too)
 #   steps_<kind>                 tape steps of each kind launched
 #   apply_snap                   APPLY steps that snapshot their row
@@ -101,6 +120,7 @@ RESYNC_CAUSES = ("untracked_frontier", "slot_capacity", "new_agent",
 #   tape_bytes                   the launched tapes' columns, in bytes
 ZONE_COUNTS = (("syncs", "continued", "resynced")
                + tuple(f"resync_{c}" for c in RESYNC_CAUSES)
+               + ("prep_native", "prep_python")
                + ("launches", "steps_begin", "steps_fork", "steps_max",
                   "steps_apply", "apply_snap", "chars", "ranks_before",
                   "begin_slots", "fork_slots", "max_slots", "snap_slots",
@@ -118,28 +138,10 @@ class _NoClock:
 _NO_CLOCK = _NoClock()
 
 
-def _steps_shape(steps: List[dict], m: int) -> tuple:
-    """`DeviceZoneSession._tally`'s shape of a tape from its step dicts
-    (`_fill_tape`'s input), on a carry with `m` ranks placed: a loop over
-    a continued sync's few steps."""
-    kinds = [0, 0, 0, 0]
-    snaps = before = 0
-    m0 = m
-    for s in steps:
-        op = s["op"]
-        kinds[op] += 1
-        if op == OP_APPLY:
-            before += m
-            m += s["n_chars"]
-            snaps += s["snap"]
-    return (kinds[OP_BEGIN], kinds[OP_FORK], kinds[OP_MAX], kinds[OP_APPLY],
-            snaps, m - m0, before)
-
-
 def _tape_shape(tape: ZoneTape, m: int) -> tuple:
-    """The same shape from a tape's columns (a build's or a rebuild's
-    long tape). Every row is launched, the one row of a tape with no step
-    too; only APPLY rows place chars or snapshot."""
+    """`DeviceZoneSession._tally`'s shape of a tape from its columns, on a
+    carry with `m` ranks placed. Every row is launched, the one row of a
+    tape with no step too; only APPLY rows place chars or snapshot."""
     n = np.count_nonzero(tape.ch_slot >= 0, axis=1)
     kinds = np.bincount(tape.op, minlength=OP_APPLY + 1)
     apply = tape.op == OP_APPLY
@@ -181,6 +183,7 @@ class DeviceZoneSession:
         self._lru: Dict[Tuple[int, ...], int] = {}
         self._clock = 0
         self.counts = dict.fromkeys(ZONE_COUNTS, 0)
+        self._micro = None         # the native MicroTapeContext, at first use
         self.resync()
 
     # ---- full (re)build --------------------------------------------------
@@ -224,15 +227,17 @@ class DeviceZoneSession:
         self.W_used = prep.W
         self.pool = np.zeros(W_cap, dtype=np.int32)
         self.pool[:prep.W] = prep.pool
-        agent_k = np.zeros(W_cap, dtype=np.int32)
-        seq_k = np.zeros(W_cap, dtype=np.int32)
-        agent_k[:prep.W] = prep.agent_k
-        seq_k[:prep.W] = prep.seq_k
+        # every slot's (agent name rank, seq), as the native packer reads
+        # them; `_alloc_slots` fills each new run's
+        self.agent_k = np.zeros(W_cap, dtype=np.int64)
+        self.seq_k = np.zeros(W_cap, dtype=np.int64)
+        self.agent_k[:prep.W] = prep.agent_k
+        self.seq_k[:prep.W] = prep.seq_k
 
         tape = pack_zone_tape(prep, self.MB, self.MC, self.MD)
         tape.W = W_cap     # slot ids are absolute: only the width differs
-        self.carry = init_zone_carry(W_cap, prep.plen, n_rows, agent_k,
-                                     seq_k, device=self.device)
+        self.carry = init_zone_carry(W_cap, prep.plen, n_rows, self.agent_k,
+                                     self.seq_k, device=self.device)
         self.state_blocks = None
         self._m = prep.plen        # ranks placed: the carry's m, on the host
         self._run_tape(tape)
@@ -286,21 +291,19 @@ class DeviceZoneSession:
                 row.to(torch.uint8)
         self._on_lead(build)
 
-    def _run_tape(self, tape: ZoneTape, shape: Optional[tuple] = None
-                  ) -> None:
+    def _run_tape(self, tape: ZoneTape) -> None:
         """Continue the resident carry with `tape`, in place: one launch
         for the whole tape, on `self.device`. (The JAX session can cut it
         into slices, DT_SESSION_SLICE, for its TPU runtime's per-program
         time limit; the card has none.) The tape's upload is counted by
         `note_transfer`, untagged as in the JAX package; the port's tape
         is unpadded, so it moves fewer bytes than JAX's pow2-padded one.
-        The launch and its tape's `shape` (`_steps_shape`; taken from the
-        tape's columns when None) are counted (`ZONE_COUNTS`)."""
+        The launch and its tape's shape (`_tape_shape`) are counted
+        (`ZONE_COUNTS`)."""
         xs = tape_xs(tape, self.device)
         nbytes = sum(v.nbytes for v in xs.values())
         note_transfer(nbytes)
-        self._tally(shape if shape is not None
-                    else _tape_shape(tape, self._m), int(tape.W), nbytes)
+        self._tally(_tape_shape(tape, self._m), int(tape.W), nbytes)
         self._on_lead(lambda: kernels.zone_tape_run(self.carry, xs,
                                                     tape.plen))
 
@@ -332,22 +335,16 @@ class DeviceZoneSession:
         out, self.counts = self.counts, dict.fromkeys(ZONE_COUNTS, 0)
         return out
 
-    def _write_keys(self, tape: ZoneTape, w0: int) -> None:
+    def _write_keys(self, w0: int) -> None:
         """The agent and seq keys of the slots [w0, W_used), which this
-        sync allocated and its `tape` places (each once, in its char
-        columns), into the carry's key planes: every slot's keys are in
-        place before the tape's first step reads any (module docstring,
-        the divergence)."""
+        sync allocated and its tape places, into the carry's key planes:
+        every slot's keys are in place before the tape's first step reads
+        any (module docstring, the divergence)."""
         w1 = self.W_used
         if w1 <= w0:
             return
-        slots = tape.ch_slot.ravel()
-        new = slots >= w0
-        keys = np.empty((2, w1 - w0), dtype=np.int32)
-        at = slots[new] - w0
-        keys[0, at] = tape.ch_agent.ravel()[new]
-        keys[1, at] = tape.ch_seq.ravel()[new]
-        keys = torch.from_numpy(keys)
+        keys = torch.from_numpy(np.stack(
+            [self.agent_k[w0:w1], self.seq_k[w0:w1]]).astype(np.int32))
         self.carry.agent_k[:, w0:w1] = keys[0]
         self.carry.seq_k[:, w0:w1] = keys[1]
 
@@ -411,28 +408,30 @@ class DeviceZoneSession:
         j = np.searchsorted(self.ins_lv0, lvs, side="right") - 1
         return self.plen + self.ins_cum[j] + (lvs - self.ins_lv0[j])
 
-    def _alloc_slots(self, entry_span) -> bool:
-        """Extend the slot map/pool with the entry's insert runs. Returns
+    def _alloc_slots(self, pieces) -> bool:
+        """Extend the slot map, the pool and the key arrays with the insert
+        runs among an entry's op `pieces` (`OpStore.iter_range`). Returns
         False when capacity would overflow (caller resyncs)."""
-        from ..text.op import INS
-        new = []
-        for piece in self.oplog.ops.iter_range(entry_span):
-            if piece.kind == INS:
-                new.append((piece.lv, len(piece),
-                            self.oplog.ops.content_slice(piece.lv,
-                                                         len(piece))))
-        total = sum(n for _, n, _ in new)
+        ins = [p for p in pieces if p.kind == INS]
+        lens = np.fromiter((len(p) for p in ins), np.int64, len(ins))
+        total = int(lens.sum())
         if self.W_used + total > self.W_cap:
             return False
-        for (lv, n, content) in new:
-            slot0 = self.W_used
-            self._lv0_list.append(lv)
-            self._cum_list.append(slot0 - self.plen)
-            self._slot_arrays_dirty = True
-            arr = np.frombuffer(content.encode("utf-32-le"),
-                                dtype=np.int32)
-            self.pool[slot0:slot0 + n] = arr
-            self.W_used += n
+        if not ins:
+            return True
+        w = self.W_used
+        get = self.oplog.ops.get_run_content
+        self.pool[w:w + total] = np.frombuffer(
+            "".join(get(p) for p in ins).encode("utf-32-le"), dtype=np.int32)
+        lv0 = np.fromiter((p.lv for p in ins), np.int64, len(ins))
+        self.agent_k[w:w + total], self.seq_k[w:w + total] = self._keys(
+            np.repeat(lv0 - (np.cumsum(lens) - lens), lens)
+            + np.arange(total))
+        self._lv0_list.extend(lv0.tolist())
+        self._cum_list.extend((w - self.plen + np.cumsum(lens) - lens)
+                              .tolist())
+        self._slot_arrays_dirty = True
+        self.W_used = w + total
         return True
 
     def sync(self, clock=_NO_CLOCK) -> int:
@@ -461,7 +460,6 @@ class DeviceZoneSession:
             return self._sync(clock)
         g = ol.cg.graph
         # split the new span into entries (same-parents runs)
-        steps: List[dict] = []
         end = len(ol)
         spans: List[Tuple[int, int, Tuple[int, ...]]] = []
         v = self.synced_to
@@ -474,6 +472,12 @@ class DeviceZoneSession:
             v = take
 
         w0 = self.W_used
+        runs0 = len(self._lv0_list)
+        # (start, end, source rows, row) an entry, and the entries' op
+        # pieces: the rows and slots are decided here, the entries
+        # composed after the loop (`_micro_tape`)
+        entries: List[Tuple[int, int, List[int], int]] = []
+        pieces: List[OpRun] = []
         for (s, e, parents) in spans:
             key = tuple(sorted(parents))
             # source rows: the exact frontier if tracked, else the per-tip
@@ -494,27 +498,80 @@ class DeviceZoneSession:
             if row is None:
                 self.resync("rows_dry", clock)
                 return self._sync(clock)
-            if not self._alloc_slots((s, e)):
+            entry_pieces = list(ol.ops.iter_range((s, e)))
+            if not self._alloc_slots(entry_pieces):
                 self.resync("slot_capacity", clock)
                 return self._sync(clock)
-            pre_ops = [(OP_FORK, srcs[0], row)] + \
-                [(OP_MAX, r, row) for r in srcs[1:]]
-            ce = compose_entry(ol, (s, e))
-            steps.extend(self._pack_entry(ce, row, pre_ops))
+            pieces.extend(entry_pieces)
+            entries.append((s, e, srcs, row))
             self.row_of[(e - 1,)] = row
             self._touch_key((e - 1,))
 
-        if steps:
-            tape = _fill_tape(steps, self.W_cap, self.plen, self.n_rows_eff,
-                              self.pool[:self.W_used], self.MB, self.MC,
-                              self.MD)
-            shape = _steps_shape(steps, self._m)
+        n_steps = 0
+        if entries:
+            tape = self._micro_tape(entries, pieces, runs0)
+            n_steps = tape.total_steps
             clock.enter_phase("zone_tape")
-            self._write_keys(tape, w0)
-            self._run_tape(tape, shape)
+            self._write_keys(w0)
+            self._run_tape(tape)
             self.merges += 1
         self.synced_to = end
-        return len(steps)
+        return n_steps
+
+    def _micro_tape(self, entries, pieces, runs0: int) -> ZoneTape:
+        """The sync's micro-tape, each entry a FORK of its first source
+        row into its row, a MAX of each other source into it, then its
+        APPLY sub-steps. Composed and packed in C++ (`_native_tape`) when
+        the native engine is enabled and takes the entries, else by the
+        Python composer and packer (`_python_tape`): array-identical
+        tapes. Counted as `prep_native` / `prep_python`."""
+        from ..native import native_enabled
+        if native_enabled():
+            tape = self._native_tape(entries, pieces, runs0)
+            if tape is not None:
+                self.counts["prep_native"] += 1
+                return tape
+        self.counts["prep_python"] += 1
+        return self._python_tape(entries)
+
+    def _native_tape(self, entries, pieces, runs0: int
+                     ) -> Optional[ZoneTape]:
+        """`dt_compose_plan` + `dt_zone_pack` on the session's scratch
+        context, loaded with this sync's op `pieces` alone. Every LV is
+        rebased to the sync's first, and so is the slot map passed: its
+        runs from `runs0` on, this sync's, since the packer maps only the
+        entries' own inserts to slots. None when the C++ refuses."""
+        from ..native.core import MicroTapeContext
+        base = entries[0][0]
+        acts = []
+        for k, (_s, _e, srcs, row) in enumerate(entries):
+            acts.append((plan2.FORK, srcs[0], row))
+            acts.extend((plan2.MAX, row, r) for r in srcs[1:])  # dst, src
+            acts.append((plan2.APPLY, k, row))
+        if self._micro is None:
+            self._micro = MicroTapeContext()
+        cols = self._micro.pack(
+            [(r.lv - base, r.kind, r.fwd, r.start, r.end) for r in pieces],
+            [(s - base, e - base) for s, e, _, _ in entries], acts,
+            [lv - base for lv in self._lv0_list[runs0:]],
+            self._cum_list[runs0:], self.plen, self.agent_k, self.seq_k,
+            self.MB, self.MC, self.MD)
+        if cols is None:
+            return None
+        return ZoneTape(**cols, W=self.W_cap, plen=self.plen,
+                        n_idx=self.n_rows_eff, pool=self.pool[:self.W_used])
+
+    def _python_tape(self, entries) -> ZoneTape:
+        """The same tape from `compose_entry`, `_pack_entry` and
+        `_fill_tape`."""
+        steps: List[dict] = []
+        for (s, e, srcs, row) in entries:
+            pre_ops = [(OP_FORK, srcs[0], row)] + \
+                [(OP_MAX, r, row) for r in srcs[1:]]
+            ce = compose_entry(self.oplog, (s, e))
+            steps.extend(self._pack_entry(ce, row, pre_ops))
+        return _fill_tape(steps, self.W_cap, self.plen, self.n_rows_eff,
+                          self.pool[:self.W_used], self.MB, self.MC, self.MD)
 
     def _pack_entry(self, ce, row: int, pre_ops: List[tuple]
                     ) -> List[dict]:

@@ -10,14 +10,16 @@ from .core import (NativeContext, merge_native,  # noqa: F401
                    transform_native)
 
 
-def native_ctx_or_none(oplog):
-    """The oplog's native context, or None when the native engine is
-    disabled (DT_TPU_NO_NATIVE) or the library cannot be built here: the
-    one gate of every native fast path that needs a per-oplog context
+def native_enabled() -> bool:
+    """False when the native engine is disabled (DT_TPU_NO_NATIVE) or the
+    library cannot be built here: the one gate of every native fast path
     (composer, tape packer, tracker merge, collision count)."""
-    if os.environ.get("DT_TPU_NO_NATIVE"):
+    return not os.environ.get("DT_TPU_NO_NATIVE") and native_available()
+
+
+def native_ctx_or_none(oplog):
+    """The oplog's native context, or None when `native_enabled` says no."""
+    if not native_enabled():
         return None
     from .core import get_native_ctx
-    if not native_available():
-        return None
     return get_native_ctx(oplog)

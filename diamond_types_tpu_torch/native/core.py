@@ -9,7 +9,10 @@ insert-run table (`zone_ins_runs`) and the collision count of the last
 transform; `content_columns`, `get_native_ctx`, `merge_native`,
 `transform_native`, `native_available` and the engine's event counters
 (`native_counters`, `reset_native_counters`). The zone tape packer (`dt_zone_pack`) is bound here
-too and called from `gpu/zone_kernel.py`. The codec half (slice 10):
+too and called from `gpu/zone_kernel.py`, its tape fetched by
+`fetch_zone_tape`; `MicroTapeContext`, a zone session's scratch context,
+composes and packs a continued sync's micro-tape with it. The codec half
+(slice 10):
 `crc32c_native`, `lz4_compress_native`, the fresh-load decoder
 `decode_file_native` (raising `NativeParseError` on corrupt input), the
 batched graph rebuild `graph_rebuild_native` and the writer
@@ -56,7 +59,11 @@ def _configure(lib) -> None:
     lib.dt_add_agent.argtypes = [vp, ct.c_char_p]
     lib.dt_load_graph.argtypes = [vp, i64] + [a64] * 5
     lib.dt_load_agent_runs.argtypes = [vp, i64] + [a64] * 4
-    lib.dt_load_ops.argtypes = [vp, i64, a64, au8, au8, a64, a64, a64]
+    # dt_load_ops, dt_compose_plan, dt_zone_pack and dt_zone_pack_fetch
+    # take their arrays as raw addresses (`addr`): a zone session calls
+    # them on every continued sync with some fifty arrays, and numpy's
+    # ndpointer check costs microseconds an array
+    lib.dt_load_ops.argtypes = [vp, i64] + [vp] * 6
     lib.dt_load_ins_arena.argtypes = [vp, i64, a32]
     lib.dt_merge_into_doc.argtypes = [vp, a32, i64, a64, i64, a64, i64]
     lib.dt_merge_into_doc.restype = i64
@@ -79,7 +86,7 @@ def _configure(lib) -> None:
         np.ctypeslib.ndpointer(np.uint64, flags="C"), i64]
     lib.dt_get_counters.restype = i64
     lib.dt_reset_counters.argtypes = []
-    lib.dt_compose_plan.argtypes = [vp, i64, a64, a64]
+    lib.dt_compose_plan.argtypes = [vp, i64, vp, vp]
     lib.dt_compose_plan.restype = i64
     lib.dt_compose_counts.argtypes = [vp, a64]
     lib.dt_compose_serial.argtypes = [vp]
@@ -93,16 +100,16 @@ def _configure(lib) -> None:
     lib.dt_zone_ins_runs.argtypes = [vp, i64, a64, a64, a64, a64, a64]
     lib.dt_zone_ins_runs.restype = i64
     lib.dt_zone_pack.argtypes = [
-        vp, i64, a64, a64, a64,              # actions
-        i64, a64,                            # counts
-        a64, a64, au8, a64, a32, a64,        # queries and char columns
-        a32, a64, a32, a32,                  # block columns
-        a64, a64, a64, a64,                  # delete columns
-        i64, a64, a64, i64,                  # slot map
-        a64, a64,                            # keys
+        vp, i64, vp, vp, vp,                 # actions
+        i64, vp,                             # counts
+        vp, vp, vp, vp, vp, vp,              # queries and char columns
+        vp, vp, vp, vp,                      # block columns
+        vp, vp, vp, vp,                      # delete columns
+        i64, vp, vp, i64,                    # slot map
+        vp, vp,                              # keys
         i64, i64, i64, i64]                  # MB MC MD compose serial
     lib.dt_zone_pack.restype = i64
-    lib.dt_zone_pack_fetch.argtypes = [vp] + [a32] * 19 + [i64, i64, i64]
+    lib.dt_zone_pack_fetch.argtypes = [vp] + [vp] * 19 + [i64, i64, i64]
     # the codec: checksum, compressor, fresh-load decoder, graph rebuild
     # and writer
     lib.dt_crc32c.argtypes = [au8, i64, i64]
@@ -146,6 +153,16 @@ def native_available() -> bool:
         _unavailable = str(e)
         return False
     return True
+
+
+def addr(a: np.ndarray, dtype) -> int:
+    """The address of `a`'s data, for an argument bound as a raw address
+    (`_configure`). `a` is C-contiguous `dtype`, and the caller keeps it
+    alive through the call."""
+    if a.dtype != dtype or not a.flags.c_contiguous:
+        raise TypeError(f"want a C-contiguous {np.dtype(dtype)} array, "
+                        f"got {a.dtype}")
+    return a.ctypes.data
 
 
 def _span_cols(spans):
@@ -209,7 +226,10 @@ class NativeContext:
         st = np.asarray([r.start for r in runs], dtype=np.int64)
         en = np.asarray([r.end for r in runs], dtype=np.int64)
         cp, arena, arena_chars = content_columns(ol)
-        lib.dt_load_ops(self._ptr, len(runs), lv, kind, fwd, st, en, cp)
+        lib.dt_load_ops(self._ptr, len(runs), addr(lv, np.int64),
+                        addr(kind, np.uint8), addr(fwd, np.uint8),
+                        addr(st, np.int64), addr(en, np.int64),
+                        addr(cp, np.int64))
         lib.dt_load_ins_arena(self._ptr, arena_chars,
                               np.ascontiguousarray(arena))
         self._built_len = len(ol)
@@ -310,7 +330,9 @@ class NativeContext:
         input."""
         self.sync()
         s0, s1 = _span_cols(spans)
-        return self._lib.dt_compose_plan(self._ptr, len(spans), s0, s1) == 0
+        return self._lib.dt_compose_plan(
+            self._ptr, len(spans), addr(s0, np.int64),
+            addr(s1, np.int64)) == 0
 
     def compose_plan(self, spans):
         """The native entry composer (`listmerge/compose.py` in C++):
@@ -322,7 +344,8 @@ class NativeContext:
         if n == 0:
             return []
         s0, s1 = _span_cols(spans)
-        if lib.dt_compose_plan(self._ptr, n, s0, s1) != 0:
+        if lib.dt_compose_plan(self._ptr, n, addr(s0, np.int64),
+                               addr(s1, np.int64)) != 0:
             return None
         counts = np.empty(n * 5, dtype=np.int64)
         lib.dt_compose_counts(self._ptr, counts)
@@ -446,6 +469,104 @@ class NativeContext:
         lib.dt_get_doc(self._ptr, out)
         doc = out[:n].tobytes().decode("utf-32-le")
         return doc, _read_frontier(lib.dt_get_out_frontier, self._ptr, 64)
+
+
+# a zone tape's columns in `dt_zone_pack_fetch`'s order, with each one's
+# width in steps' units: 0 = one a step, else MB, MC or MD
+TAPE_COLUMNS = (("op", 0), ("arg_a", 0), ("arg_b", 0), ("snap_flag", 0),
+                ("blk_cursor", "MB"), ("blk_prev", "MB"), ("blk_root", "MB"),
+                ("blk_start", "MB"), ("blk_len", "MB"), ("ch_slot", "MC"),
+                ("ch_ol_static", "MC"), ("ch_ol_coord", "MC"),
+                ("ch_orr_own", "MC"), ("ch_blk", "MC"), ("ch_agent", "MC"),
+                ("ch_seq", "MC"), ("del_kind", "MD"), ("del_a", "MD"),
+                ("del_b", "MD"))
+
+
+class MicroTapeContext:
+    """A scratch C++ context of a zone session's own (gpu/zone_session.py)
+    that composes and packs a continued sync's micro-tape: loaded with only
+    the sync's op runs, their LVs rebased to the sync's first, so the
+    composer's dense run index is the size of the sync, not of the
+    history. Freed with its owner."""
+
+    def __init__(self) -> None:
+        self._lib = _load()
+        self._ptr = self._lib.dt_ctx_new()
+        self._keys = (None, None, 0, 0)          # agent_k, seq_k, addresses
+
+    def __del__(self):
+        try:
+            self._lib.dt_ctx_free(self._ptr)
+        except Exception:
+            pass
+
+    def pack(self, runs, spans, actions, ins_lv0, ins_cum, plen: int,
+             agent_k: np.ndarray, seq_k: np.ndarray, MB: int, MC: int,
+             MD: int) -> Optional[dict]:
+        """Load the op `runs` ((lv, kind, fwd, start, end) each), compose
+        the entry `spans` ((start, end) each) with `dt_compose_plan`, pack
+        `actions` ((plan2 kind, a, b) each) over them with `dt_zone_pack`
+        from the compose cache, and fetch the tape: its columns by name
+        (`TAPE_COLUMNS`, int32, [T] or [T, M], T at least 1) and
+        `total_steps`. None on input the C++ refuses (a reverse insert
+        run, a negative pack). Every LV given (runs, spans, `ins_lv0`) is
+        on the same rebased scale: the slot formula is invariant under
+        that shift. `agent_k` and `seq_k` are the slots' int64 keys."""
+        lib = self._lib
+        ptr = self._ptr
+        rc = np.array(runs, dtype=np.int64).reshape(-1, 5)
+        n, k, a, r = len(rc), len(spans), len(actions), len(ins_lv0)
+        # every int64 input in one block, one address: lv, start, end and
+        # cp of the runs (cp zeros: the composer reads no content), span
+        # starts and ends, action columns, the slot map
+        blk = np.concatenate([
+            rc[:, [0, 3, 4]].T.ravel(), np.zeros(n, np.int64),
+            np.array(spans, dtype=np.int64).reshape(-1, 2).T.ravel(),
+            np.array(actions, dtype=np.int64).reshape(-1, 3).T.ravel(),
+            np.asarray(ins_lv0, dtype=np.int64),
+            np.asarray(ins_cum, dtype=np.int64)])
+        u8 = np.ascontiguousarray(rc[:, 1:3].T, dtype=np.uint8)
+        at, at8 = blk.ctypes.data, u8.ctypes.data
+        off = (np.cumsum([0, n, n, n, n, k, k, a, a, a, r]) * 8
+               + at).tolist()
+        lib.dt_load_ops(ptr, n, off[0], at8, at8 + n, off[1], off[2],
+                        off[3])
+        if lib.dt_compose_plan(ptr, k, off[4], off[5]) != 0:
+            return None
+        serial = lib.dt_compose_serial(ptr)      # the cache just composed
+        if self._keys[0] is not agent_k or self._keys[1] is not seq_k:
+            self._keys = (agent_k, seq_k, addr(agent_k, np.int64),
+                          addr(seq_k, np.int64))
+        # from the compose cache: the composed columns' pointers unread
+        T = lib.dt_zone_pack(
+            ptr, a, off[6], off[7], off[8], k, *[None] * 15, r, off[9],
+            off[10], plen, self._keys[2], self._keys[3], MB, MC, MD, serial)
+        if T < 0:
+            return None
+        return fetch_zone_tape(ptr, int(T), MB, MC, MD)
+
+
+def fetch_zone_tape(ptr, T: int, MB: int, MC: int, MD: int) -> dict:
+    """The `T` steps `dt_zone_pack` left on the context `ptr`: the tape's
+    columns by name (`TAPE_COLUMNS`, int32, [Tp] or [Tp, M], Tp = max(1,
+    T)), views into one block, and `total_steps`."""
+    Tp = max(1, T)
+    width = {0: 1, "MB": MB, "MC": MC, "MD": MD}
+    sizes = [Tp * width[w] for _name, w in TAPE_COLUMNS]
+    # np.empty: dt_zone_pack_fetch writes every cell, pads included
+    # (pad-initializing a whole document's ~100 MB tape in numpy was a
+    # measurable share of its pack)
+    out = np.empty(sum(sizes), dtype=np.int32)
+    starts = np.cumsum([0] + sizes[:-1]).tolist()
+    base = out.ctypes.data
+    _load().dt_zone_pack_fetch(ptr, *(base + 4 * s for s in starts), MB,
+                               MC, MD)
+    cols = {}
+    for (name, w), size, s in zip(TAPE_COLUMNS, sizes, starts):
+        col = out[s:s + size]
+        cols[name] = col if w == 0 else col.reshape(Tp, width[w])
+    cols["total_steps"] = T
+    return cols
 
 
 def get_native_ctx(oplog) -> NativeContext:

@@ -5,11 +5,12 @@ block they feed (`ServeMetrics.record_zone`), and the zone sync's phases
 `FlushClock`, with their `bank.*` spans in a traced flush.
 
 As in `test_torch_flush_phases.py`, the scheduler, the metrics' clock and
-the tracer run on a `FakeClock`, and the zone sync's work is costed: each
-entry composed, each rebuild's `prepare_zone` and each X8 launch advances
-the clock by a fixed amount, and nothing else takes time. So each phase's
-seconds are exactly the costs of the calls made in it. Sessions live on
-the CPU, where X8's plain version runs.
+the tracer run on a `FakeClock`, and the zone sync's work is costed:
+each entry the Python composer composes, each micro-tape the native
+composer and packer build, each rebuild's `prepare_zone` and each X8
+launch advances the clock by a fixed amount, and nothing else takes time.
+So each phase's seconds are exactly the costs of the calls made in it.
+Sessions live on the CPU, where X8's plain version runs.
 """
 
 import numpy as np
@@ -19,6 +20,8 @@ from diamond_types_tpu_torch import OpLog
 from diamond_types_tpu_torch.gpu import kernels
 from diamond_types_tpu_torch.gpu import zone_kernel as zk
 from diamond_types_tpu_torch.gpu import zone_session as zs
+from diamond_types_tpu_torch.native import native_enabled
+from diamond_types_tpu_torch.native.core import MicroTapeContext
 from diamond_types_tpu_torch.obs import Observability
 from diamond_types_tpu_torch.serve import MergeScheduler
 from diamond_types_tpu_torch.serve.metrics import ServeMetrics
@@ -32,7 +35,7 @@ pytestmark = pytest.mark.serve
 
 ROOT = "diamond_types_tpu_torch"
 CPU = {"device": "cpu"}
-COMPOSE_S = 0.002        # compose_entry, an entry
+COMPOSE_S = 0.002        # compose_entry an entry; the native pack a sync
 PREP_S = 0.005           # prepare_zone, a rebuild
 TAPE_S = 0.003           # kernels.zone_tape_run, a launch
 ABS = 1e-5               # the snapshot rounds seconds to 1 us
@@ -55,6 +58,7 @@ def clock(monkeypatch):
         monkeypatch.setattr(owner, name, costed)
 
     cost(zs, "compose_entry", "compose", COMPOSE_S)
+    cost(MicroTapeContext, "pack", "compose", COMPOSE_S)
     cost(zs, "prepare_zone", "prep", PREP_S)
     cost(kernels, "zone_tape_run", "tape", TAPE_S)
     c.calls = calls
@@ -81,7 +85,8 @@ def _round(sched, docs, clock, seed, rnd):
 
 
 def test_zone_phases_are_the_costs_of_their_calls(clock):
-    """Over rounds of concurrent edits: every entry composed is charged to
+    """Over rounds of concurrent edits: every entry composed, and every
+    micro-tape composed and packed natively, is charged to
     `zone_compose`, every continued sync's launch to `zone_tape`, every
     rebuild (its `prepare_zone` and its launch) to `zone_resync`, and the
     first builds, which the bank runs before the sync, stay in `serial`.
@@ -101,6 +106,7 @@ def test_zone_phases_are_the_costs_of_their_calls(clock):
     assert z["launches"] == clock.calls["tape"] \
         == builds + resyncs + z["continued"]
     assert clock.calls["prep"] == builds + resyncs
+    assert clock.calls["compose"] >= z["continued"] > 0
     assert ph["zone_compose"] == pytest.approx(
         COMPOSE_S * clock.calls["compose"], abs=ABS)
     assert ph["zone_tape"] == pytest.approx(TAPE_S * z["continued"], abs=ABS)
@@ -152,7 +158,9 @@ def test_session_counts_match_its_tapes(monkeypatch):
     tapes and the carry itself: steps of each kind, snapshots, chars,
     the ranks placed before each APPLY step (the carry's `m` read before
     the launch), the slots row steps and snapshots sweep, widths and
-    bytes. The host's copy of `m` is the carry's after every sync."""
+    bytes. The host's copy of `m` is the carry's after every sync. Every
+    continued sync's micro-tape is counted once, as built by the native
+    path where the library is built."""
     want = dict.fromkeys(zs.ZONE_COUNTS, 0)
     real = kernels.zone_tape_run
 
@@ -188,6 +196,9 @@ def test_session_counts_match_its_tapes(monkeypatch):
         assert sess._m == int(sess.carry.m[0])
     got = sess.take_counts()
     assert got["syncs"] == 8 and got["resynced"] > 0
+    assert got["prep_native"] + got["prep_python"] == got["continued"] > 0
+    assert got["prep_native"] == (got["continued"] if native_enabled()
+                                  else 0)
     for k in zs.ZONE_COUNTS[zs.ZONE_COUNTS.index("launches"):]:
         assert got[k] == want[k], k
     assert sess.take_counts() == dict.fromkeys(zs.ZONE_COUNTS, 0)
@@ -197,12 +208,15 @@ def test_record_zone_adds_counts_and_rejects_an_undeclared_key():
     """`record_zone` sums every shard's counts into the `zone` block; a key
     outside ZONE_COUNTS raises."""
     m = ServeMetrics(2, 4, 64)
-    m.record_zone(0, {"syncs": 2, "continued": 2, "launches": 2})
+    m.record_zone(0, {"syncs": 2, "continued": 2, "launches": 2,
+                      "prep_native": 1, "prep_python": 1})
     m.record_zone(1, {"syncs": 1, "resynced": 1,
                       "resync_slot_capacity": 1, "launches": 1})
+    m.record_zone(1, {"syncs": 1, "continued": 1, "prep_native": 1})
     z = m.snapshot()["zone"]
     assert set(z) == set(zs.ZONE_COUNTS)
     assert (z["syncs"], z["continued"], z["resynced"], z["launches"],
-            z["resync_slot_capacity"]) == (3, 2, 1, 3, 1)
+            z["resync_slot_capacity"]) == (4, 3, 1, 3, 1)
+    assert (z["prep_native"], z["prep_python"]) == (2, 1)
     with pytest.raises(KeyError):
         m.record_zone(0, {"replays": 1})
