@@ -72,8 +72,7 @@ package), in phases, each printing one JSON line:
                 equal to the kernel's plain version on its inputs (K1's
                 calls stacked by (n, cap) for the plain version). Prints
                 per round wall ms, docs and ops per second, and the flush
-                latency p50/p99, occupancy, builds, evictions and steering
-                counters.
+                latency p50/p99, occupancy, builds and evictions.
                 Then the same documents and edits (the same generator
                 seed) once more with `mesh_window=True` (line
                 "scheduler_window"): each `pump()` folds every due bucket
@@ -1233,7 +1232,6 @@ def run_scheduler(rng: np.random.Generator, device, cfg: ServeConfig,
 
     from diamond_types_tpu_torch.gpu import flush_fuse as ff
     from diamond_types_tpu_torch.gpu import kernels, xform
-    from diamond_types_tpu_torch.gpu.steer import STEER
     from diamond_types_tpu_torch.parallel import arena
     from diamond_types_tpu_torch.serve import MergeScheduler
     from diamond_types_tpu_torch.serve import scheduler as sched_mod
@@ -1242,7 +1240,6 @@ def run_scheduler(rng: np.random.Generator, device, cfg: ServeConfig,
     ols = build_docs(rng, cfg)
     by_id = {ol.doc_id: ol for ol in ols}
     tips = [host_branch(ol) for ol in ols]
-    STEER.reset(table=True)
     arena.reset_arenas()
     sched = MergeScheduler(
         scfg.shards, resolve=by_id.__getitem__, engine="device", fused=True,
@@ -1454,7 +1451,7 @@ def run_scheduler(rng: np.random.Generator, device, cfg: ServeConfig,
             "flush_size_hist": m["flush_size_hist"],
             "flush_reasons": m["flush_reasons"],
             "totals": m["totals"], "transform": m["transform"],
-            "steer": STEER.snapshot(), "profile": profile,
+            "profile": profile,
             "caps": sorted({s.cap for b in sched.banks
                             for s in b.sessions.values()})}
 
@@ -1504,7 +1501,7 @@ def run_serve_benches(device, scfg: SchedulerConfig, seed: int) -> dict:
                     "flush_ms": {q: 1e3 * lat[q] for q in ("p50", "p99")},
                     "k1_launches": k1.launches, "k2_launches": k2.launches,
                     "lin_launches": lin.launches,
-                    "transform": r["transform"], "steer": r["steer"],
+                    "transform": r["transform"],
                     "slo_ok": r["slo_ok"], "devprof": r["devprof"],
                     "obs": r["obs"], "config": r["config"]})
     return {"phase": "serve_bench", "runs": out}
@@ -3040,7 +3037,6 @@ def run_scheduler_hydrated(rng: np.random.Generator, device,
     from diamond_types_tpu_torch.serve import scheduler as sched_mod
     from diamond_types_tpu_torch.storage import tier
     from diamond_types_tpu_torch.gpu import kernels
-    from diamond_types_tpu_torch.gpu.steer import STEER
     from diamond_types_tpu_torch.parallel import arena
     from diamond_types_tpu_torch.serve import MergeScheduler
     from diamond_types_tpu_torch.serve.bank import SessionBank
@@ -3101,7 +3097,6 @@ def run_scheduler_hydrated(rng: np.random.Generator, device,
             r = 0
             for mesh_window, n_rounds in ((False, hcfg.rounds),
                                           (True, hcfg.window_rounds)):
-                STEER.reset(table=True)
                 arena.reset_arenas()
                 hyd = Hydrator(store, workers=hcfg.workers,
                                warm_max=hcfg.warm_max, oplog_lock=guard,
@@ -3369,7 +3364,6 @@ def drive_qos_rounds(phase: str, rng: np.random.Generator, device,
     from diamond_types_tpu_torch.analysis import witness
     from diamond_types_tpu_torch.gpu import flush_fuse as ff
     from diamond_types_tpu_torch.gpu import kernels
-    from diamond_types_tpu_torch.gpu.steer import STEER
     from diamond_types_tpu_torch.qos import QosController, tenant_of
     from diamond_types_tpu_torch.serve import MergeScheduler
 
@@ -3384,7 +3378,6 @@ def drive_qos_rounds(phase: str, rng: np.random.Generator, device,
                for ol, c in zip(ols, rng.permutation(names))}
     by_id = {ol.doc_id: ol for ol in ols}
     tips = [host_branch(ol) for ol in ols]
-    STEER.reset(table=True)
     witness.witness_enable()
     witness.witness_reset()
     guard = witness.make_lock("smoke.oplog", "oplog")

@@ -23,13 +23,9 @@ window's rows across shards through the same K1 name and the same fence,
 committing views of its output instead of clones (`adopt_results(...,
 clone=False)`) and tagging them for its arena (`_arena_tag`).
 
-Steering (`steer.STEER`) is bookkeeping here: each window asks `snap` for
-the class the JAX package would launch and notes that class warm (cache
-`"kernel"` for the rung, `"fused"` for the per-doc sync, the JAX package's
-key for its per-doc rung), so the warm table and counters match the JAX
-package's. The launch itself stays at the pow2 floor: with no compile and
-no graph capture to save, padding further would only cost copies and
-kernel work. A CUDA-graph capture keyed by these classes is later work.
+Every launch runs at the pow2 floor of its batch and op counts: K1 is one
+kernel for every shape, so padding further would only cost copies and
+kernel work.
 
 Contract violations (an op longer than `max_ins` reaching the device)
 poison that DOCUMENT's length to -1. `adopt_results` commits only rows whose
@@ -58,7 +54,7 @@ from ..obs.devprof import note_transfer
 from ..text.op import INS
 from . import resolve_device
 from .kernels import apply_ops_window
-from .steer import STEER, _pow2, cap_class
+from .steer import _pow2, cap_class
 
 DEFAULT_CAP = 1 << 10
 DEFAULT_MAX_INS = 16
@@ -231,8 +227,7 @@ class FusedDocSession:
 
     def sync(self) -> int:
         """Per-doc path: plan, then replay this doc alone through K1 (its
-        plain version on a CPU session), its class noted under the per-doc
-        rung's steering key "fused". Resyncs on capacity overflow. Raises
+        plain version on a CPU session). Resyncs on capacity overflow. Raises
         `FenceMismatch` on a poisoned or mismatched result (the caller
         evicts the session and serves the doc from the host); any other
         exception is a fault and propagates."""
@@ -338,9 +333,10 @@ _TRANSFER_RUNG = {"kernel": "pallas"}
 
 def _replay(sessions: List[FusedDocSession], plans: List[TailPlan],
             cache: str, clock=None) -> Tuple[List[bool], float]:
-    """Pack a bucket, note its steered class warm under `cache`, launch K1
-    once over it, and fence the results. All sessions share (cap, max_ins,
-    device). Returns (ok-per-session, seconds blocked on the length fetch,
+    """Pack a bucket at its pow2 floor, launch K1 once over it, and fence
+    the results. All sessions share (cap, max_ins, device). `cache` names
+    the rung ("kernel" or "fused") only for the transfer tag of its plan
+    arrays. Returns (ok-per-session, seconds blocked on the length fetch,
     which is the completion fence).
 
     `clock` (a `serve.metrics.FlushClock`, its "pack" phase running) is
@@ -357,10 +353,7 @@ def _replay(sessions: List[FusedDocSession], plans: List[TailPlan],
     args = pack_bucket(sessions, plans)
     note_transfer(sum(a.nbytes for a in args[2:]),
                   rung=_TRANSFER_RUNG.get(cache, cache), purpose="plan")
-    mi, cap = s0.max_ins, s0.cap
-    bp, n = STEER.snap(cache, args[0].shape[0], args[2].shape[1], mi, cap)
-    STEER.note_warm(cache, mi, cap, bp, n)
-    out_docs, out_lens = apply_ops_window(*args, mi)
+    out_docs, out_lens = apply_ops_window(*args, s0.max_ins)
     if clock is not None:
         clock.enter_phase("fence")
     t_fence = time.perf_counter()
@@ -376,6 +369,6 @@ def kernel_fused_replay(sessions: List[FusedDocSession],
                         clock=None) -> Tuple[List[bool], float]:
     """The kernel rung, the counterpart of `pallas_fused_replay`: the
     bucket's window in ONE launch of K1 on CUDA sessions (K1's plain
-    version on CPU sessions), its class noted under "kernel". `clock`:
-    the flush's phase timer, as `_replay` takes it."""
+    version on CPU sessions). `clock`: the flush's phase timer, as
+    `_replay` takes it."""
     return _replay(sessions, plans, "kernel", clock)

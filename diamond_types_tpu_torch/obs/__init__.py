@@ -6,7 +6,7 @@ One `Observability` bundle per server process ties together:
   hist.py       log-bucketed latency histograms (p50/p90/p99)
   recorder.py   flight recorder — bounded ring of structured events
   prom.py       Prometheus/OpenMetrics exposition of the /metrics JSON
-  devprof.py    wall-vs-device flush timing, jit-cache hits, transfers
+  devprof.py    wall-vs-device flush timing, transfers
   timeseries.py windowed ring: live rate()/quantile() per family
   slo.py        multi-window burn-rate SLO engine (/debug/slo)
   exemplars.py  last sampled trace id per histogram bucket
@@ -28,7 +28,7 @@ hot paths pay one branch, zero allocations.
 from __future__ import annotations
 
 from .attrib import HotAttribution, SpaceSaving
-from .devprof import PROFILER, DeviceProfiler, note_jit_lookup, note_transfer
+from .devprof import PROFILER, DeviceProfiler, note_transfer
 from .exemplars import ExemplarStore
 from .hist import BOUNDS, Histogram, HistogramSet
 from .incident import INCIDENT_KINDS, AnomalyDetector, IncidentStore
@@ -50,7 +50,7 @@ __all__ = [
     "Histogram", "HistogramSet", "BOUNDS",
     "FlightRecorder",
     "CONTENT_TYPE", "OPENMETRICS_CONTENT_TYPE", "render_metrics",
-    "PROFILER", "DeviceProfiler", "note_jit_lookup", "note_transfer",
+    "PROFILER", "DeviceProfiler", "note_transfer",
     "TimeSeries", "SloEngine", "Objective", "default_objectives",
     "ExemplarStore", "HotAttribution", "SpaceSaving",
     "OpJourney", "JOURNEY_STAGES",

@@ -1,5 +1,5 @@
-"""Device-time profiling: wall vs. device seconds per flush, compile
-cache hit/miss counts, and host<->device transfer bytes.
+"""Device-time profiling: wall vs. device seconds per flush, and
+host<->device transfer bytes.
 
 A process-wide `PROFILER` singleton (disabled by default) keeps its
 hooks (in gpu/, parallel/mesh.py and serve/) down to one attribute
@@ -7,8 +7,8 @@ check when profiling is off. serve/driver.py enables it
 for its runs (`run_serve_bench`) so the report can say how much of each
 flush was spent waiting on the device (the length fetch that fences a
 replay, or a `torch.cuda.synchronize` after a per-doc sync) versus host
-bookkeeping. The port never notes a jit-cache lookup: it has no jit.
-The always-on per-phase times of a flush are ServeMetrics' (`flush_phases`).
+bookkeeping. The always-on per-phase times of a flush are ServeMetrics'
+(`flush_phases`).
 """
 
 from __future__ import annotations
@@ -21,7 +21,6 @@ class DeviceProfiler:
     def __init__(self, enabled: bool = False) -> None:
         self.enabled = enabled
         self._lock = threading.Lock()
-        self._jit: Dict[str, list] = {}
         self._shard: Dict[int, dict] = {}
         self.transfers = 0
         self.transfer_bytes = 0
@@ -34,7 +33,6 @@ class DeviceProfiler:
 
     def reset(self) -> None:
         with self._lock:
-            self._jit = {}
             self._shard = {}
             self.transfers = 0
             self.transfer_bytes = 0
@@ -44,13 +42,6 @@ class DeviceProfiler:
             self._window = {"dispatches": 0, "docs": 0, "shards": 0,
                             "staged_bytes": 0,
                             "wall_s": 0.0, "device_s": 0.0}
-
-    def note_jit(self, cache: str, hit: bool) -> None:
-        if not self.enabled:
-            return
-        with self._lock:
-            c = self._jit.setdefault(cache, [0, 0])
-            c[0 if hit else 1] += 1
 
     def observe_flush(self, shard: int, wall_s: float,
                       device_s: float) -> None:
@@ -127,8 +118,6 @@ class DeviceProfiler:
 
     def snapshot(self) -> dict:
         with self._lock:
-            jit = {k: {"hits": v[0], "misses": v[1]}
-                   for k, v in sorted(self._jit.items())}
             per_shard = {
                 str(k): {"flushes": v["flushes"],
                          "wall_s": round(v["wall_s"], 6),
@@ -165,7 +154,6 @@ class DeviceProfiler:
                       for (r, p), v
                       in sorted(self._transfer_detail.items())}
             return {"enabled": self.enabled,
-                    "jit_cache": jit,
                     "flush_wall_s": round(wall, 6),
                     "device_sync_s": round(dev, 6),
                     "device_fraction": round(dev / wall, 4) if wall else 0.0,
@@ -178,11 +166,6 @@ class DeviceProfiler:
 
 
 PROFILER = DeviceProfiler(enabled=False)
-
-
-def note_jit_lookup(cache: str, hit: bool) -> None:
-    if PROFILER.enabled:
-        PROFILER.note_jit(cache, hit)
 
 
 def note_transfer(nbytes: int, rung: str = "", purpose: str = "") -> None:

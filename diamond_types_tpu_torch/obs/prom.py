@@ -416,23 +416,6 @@ def _render_obs(b: _Builder, obs: dict) -> None:
         if k in rec:
             b.add(f"dt_recorder_events_{k}_total", "counter", rec[k])
     dp = obs.get("devprof") or {}
-    # zero-fill the known jit families (the HYDRATION_KEYS idiom): the
-    # "xform"/"pallas" rows exist from the first scrape, not only after
-    # the first transform/Pallas dispatch seeds the cache
-    jit: dict = {k: {} for k in ("fused", "mesh", "micro", "tip",
-                                 "xform", "pallas")} if dp else {}
-    jit.update(dp.get("jit_cache") or {})
-    for cache, hm in sorted(jit.items()):
-        lb = {"cache": cache}
-        hits = hm.get("hits", 0)
-        misses = hm.get("misses", 0)
-        b.add("dt_devprof_jit_hits_total", "counter", hits, labels=lb)
-        b.add("dt_devprof_jit_misses_total", "counter", misses,
-              labels=lb)
-        # zero-filled hit-rate gauge per cache (0.0 until a lookup)
-        b.add("dt_devprof_jit_hit_rate", "gauge",
-              round(hits / (hits + misses), 4) if hits + misses
-              else 0.0, labels=lb)
     if dp:
         b.add("dt_devprof_flush_wall_seconds_total", "counter",
               dp.get("flush_wall_s", 0.0))
@@ -514,7 +497,7 @@ def _render_obs(b: _Builder, obs: dict) -> None:
                 b.add("dt_ts_p99_seconds", "gauge", row["p99_300s"],
                       labels=lb)
     # edit-to-visibility journey tier: zero-filled stage counters (the
-    # jit-family idiom above — every stage row exists from the first
+    # HYDRATION_KEYS idiom: every stage row exists from the first
     # scrape) plus the per-peer convergence-lag rollup. The aggregate
     # peer="all" row keeps the lag family present before any peer has
     # adverted, so scrapers see a stable family set.

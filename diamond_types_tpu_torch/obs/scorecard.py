@@ -121,10 +121,9 @@ def build_scorecard(*, scenario: dict, wall_s: float, virtual_s: float,
         # they diff clean; `incidents.count` is band-gated.
         card["incidents"] = dict(incidents)
     if serve is not None:
-        # device flush-pipeline block (shape steering + staging): jit
-        # hit rate, staged bytes per mesh window, dispatch fan-in.
-        # Absent on host-engine runs (and pre-steer baselines) so the
-        # new bands skip instead of gating — missing-path semantics.
+        # device flush-pipeline block: staged bytes per mesh window,
+        # dispatch fan-in. Absent on host-engine runs so the serve.*
+        # bands skip instead of gating — missing-path semantics.
         card["serve"] = dict(serve)
     if latencies is not None:
         card["latencies"] = latencies
@@ -184,18 +183,12 @@ DEFAULT_BANDS: Dict[str, Band] = {
     # is a health regression even when the boolean gates still pass.
     # Generous absolute slack — a chaos tape legitimately opens a few.
     "incidents.count": Band("lower", rel=0.5, abs_=4.0),
-    # device flush pipeline (shape steering + device-resident staging,
-    # scorecard `serve` block): hit rate must not drop more than 5
-    # points; staged bytes per window must not grow past the band;
-    # dispatch fan-in (device calls per window) must not balloon.
-    # Absent entirely on host-engine scorecards — never gates there.
-    # The staged band is sized to catch STATE-staging regressions
-    # (losing device residency multiplies the figure ~5x), while
-    # letting steering's padded plan arrays through — padding a window
-    # up to a warm class grows the host-built plan upload by up to
-    # `max_waste` (4x cells) by design, and that is the trade the
-    # steer A/B makes on purpose (plan kilobytes for compile seconds).
-    "serve.jit_cache_hit_rate": Band("higher", rel=0.0, abs_=0.05),
+    # device flush pipeline (scorecard `serve` block): staged bytes per
+    # window must not grow past the band; dispatch fan-in (device calls
+    # per window) must not balloon. Absent entirely on host-engine
+    # scorecards — never gates there. The staged band is sized to catch
+    # STATE-staging regressions (losing device residency multiplies the
+    # figure ~5x).
     "serve.staged_bytes_per_window": Band("lower", rel=1.0,
                                           abs_=16384.0),
     "serve.device_calls_per_window": Band("lower", rel=0.50, abs_=1.0),

@@ -2,7 +2,7 @@
 the flush window.
 
 Port of the JAX package's `parallel/arena.py`. `mesh_fused_replay` builds
-a window's `[bp, cap]` input rows one of three ways:
+a window's `[bp, cap]` input rows one of two ways:
 
   * **Arena fast path**: after a window commits, its K1 outputs are
     parked as the arena of the `(mesh, cap, max_ins)` class and every
@@ -10,12 +10,8 @@ a window's `[bp, cap]` input rows one of three ways:
     NEXT window presents the same session list at the same padded batch,
     the parked outputs are handed back as that window's K1 inputs: no
     stack, no copy, no allocation.
-  * **Device-side gather** (the `DEVICE_STAGE` default): the sessions'
-    rows are stacked on their device; only the op plan arrays cross from
-    the host.
-  * **Host staging** (`DEVICE_STAGE.enabled = False`, the A/B control
-    arm): every row round-trips through host numpy and is counted in the
-    window's staged bytes.
+  * **Device-side gather** (any other window): the sessions' rows are
+    stacked on their device; only the op plan arrays cross from the host.
 
 The JAX arena donates the parked arrays to the next program. K1 never
 writes its inputs and returns fresh outputs, so here nothing is donated:
@@ -43,18 +39,6 @@ import threading
 from typing import Dict, List, Optional, Tuple
 
 _arena_lock = threading.Lock()
-
-
-class _StageFlag:
-    """Process-global device-staging switch (`--no-device-stage` clears
-    it for the A/B control arm: host-numpy staging, every state byte
-    counted)."""
-
-    def __init__(self) -> None:
-        self.enabled = True
-
-
-DEVICE_STAGE = _StageFlag()
 
 
 class WindowArena:

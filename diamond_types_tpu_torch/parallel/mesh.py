@@ -7,16 +7,11 @@ scheduler's shards use (`serve_mesh`), or the first cards (`make_mesh`);
 one H100 gives `[cuda:0]`.
 
 Serve half. A window's super-batch is split by device (each session's rows
-stay on its own card) and K1 is launched once per device slice
-(`mesh_flush_fn`), so a window over one card is one K1 launch per
-`(cap, max_ins)` class. With no jit there is no program cache:
-`mesh_flush_fn` only notes the steered class warm for steering's
-bookkeeping (cache `"mesh"`), and each slice launches at its pow2 floor, as
-the port's other replay rungs do. `mesh_fused_replay` counts its
+stay on its own card) and `mesh_fused_replay` launches K1 once per device
+slice at its pow2 floor, as the port's other replay rungs do, so a window
+over one card is one K1 launch per `(cap, max_ins)` class. It counts its
 host-to-device copies with `obs.devprof.note_transfer` under the JAX
-package's tags: the window's op arrays once a call as `mesh.plan`, and the
-rows staged through host numpy (`DEVICE_STAGE` off) as `mesh.stage`. Both
-count the floor's bytes.
+package's tag `mesh.plan`: the window's op arrays, once a call.
 
 Graph half. `sharded_replay` replays `[b, n]` op tapes from empty documents
 with one K1 launch per device slice of the padded rows;
@@ -34,7 +29,7 @@ more than one card: they are untested.
 from __future__ import annotations
 
 import time
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +37,7 @@ import torch
 from ..gpu import flush_fuse as _ff
 from ..gpu import graph_kernels as _gk
 from ..gpu import resolve_device
-from ..gpu.steer import STEER, _pow2
+from ..gpu.steer import _pow2
 from ..obs.devprof import note_transfer
 from . import arena as _arena
 
@@ -114,21 +109,6 @@ def pad_batch_to_mesh(pos, dlen, ilen, chars, n_devices: int):
     return _pad(pos), _pad(dlen), _pad(ilen), _pad(chars), bp
 
 
-def mesh_flush_fn(mesh: Sequence[torch.device], b: int, n: int, mi: int,
-                  cap: int) -> Callable[[list], list]:
-    """The window's replay over `mesh`: notes the class `(b, n)` warm
-    under steering's `"mesh"` cache and returns a function that takes one
-    `(docs, lens, pos, dlen, ilen, chars)` tuple per device slice and
-    launches K1 once per slice, returning one `(out_docs, out_lens)` per
-    slice. K1 is reached through `flush_fuse.apply_ops_window`, the name
-    every replay rung launches through."""
-    STEER.note_warm("mesh", mi, cap, b, n)
-
-    def run(slices: list) -> list:
-        return [_ff.apply_ops_window(*args, mi) for args in slices]
-    return run
-
-
 def _device_slices(mesh: Sequence[torch.device], sessions
                    ) -> List[Tuple[torch.device, List[int]]]:
     """The window's rows grouped by their session's device, in mesh
@@ -144,30 +124,18 @@ def _device_slices(mesh: Sequence[torch.device], sessions
 
 
 def _stage_rows(sessions, idx: List[int], bp: int, cap: int,
-                dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """One slice's `[bp, cap]` input rows and `[bp]` lengths, padding rows
-    zero with length -1: gathered on the device (`DEVICE_STAGE`), or
-    round-tripped through host numpy. Returns (docs, lens, host bytes)."""
+                dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One slice's `[bp, cap]` input rows and `[bp]` lengths, gathered on
+    the device, padding rows zero with length -1."""
     pad = bp - len(idx)
-    if _arena.DEVICE_STAGE.enabled:
-        docs = torch.stack([sessions[i].docs for i in idx])
-        lens = torch.stack([sessions[i].lens for i in idx])
-        if pad:
-            docs = torch.cat([docs, torch.zeros((pad, cap),
-                                                dtype=torch.int32,
-                                                device=dev)])
-            lens = torch.cat([lens, torch.full((pad,), -1,
-                                               dtype=torch.int32,
-                                               device=dev)])
-        return docs, lens, 0
-    docs_h = np.zeros((bp, cap), np.int32)
-    lens_h = np.full(bp, -1, np.int32)
-    for r, i in enumerate(idx):
-        docs_h[r] = sessions[i].docs.cpu().numpy()
-        lens_h[r] = int(sessions[i].lens)
-    return (torch.from_numpy(docs_h).to(dev),
-            torch.from_numpy(lens_h).to(dev),
-            docs_h.nbytes + lens_h.nbytes)
+    docs = torch.stack([sessions[i].docs for i in idx])
+    lens = torch.stack([sessions[i].lens for i in idx])
+    if pad:
+        docs = torch.cat([docs, torch.zeros((pad, cap), dtype=torch.int32,
+                                            device=dev)])
+        lens = torch.cat([lens, torch.full((pad,), -1, dtype=torch.int32,
+                                           device=dev)])
+    return docs, lens
 
 
 def mesh_fused_replay(mesh: Sequence[torch.device], sessions, plans,
@@ -178,11 +146,10 @@ def mesh_fused_replay(mesh: Sequence[torch.device], sessions, plans,
 
     Each slice pads to its pow2 batch class with inert rows (zero ops,
     length -1) and every slice's op tape to the window's pow2 op class.
-    Steering records the class the JAX mesh would dispatch
-    (`STEER.snap("mesh", ..., multiple=len(mesh))`); the launch stays at
-    the floor. Input rows come from the class's arena when the same
-    sessions recur, else from a device-side gather, or from host staging
-    with `DEVICE_STAGE` off (`parallel/arena.py`). The length fence is
+    K1 is launched through `flush_fuse.apply_ops_window`, the name every
+    replay rung launches through. Input rows come from the class's arena
+    when the same sessions recur, else from a device-side gather
+    (`parallel/arena.py`). The length fence is
     `flush_fuse.adopt_results`, committing each good row as a view of the
     output with no clone; the outputs are then parked as the class's
     arena.
@@ -192,8 +159,8 @@ def mesh_fused_replay(mesh: Sequence[torch.device], sessions, plans,
     for the commits and the arena.
 
     Returns (ok per session, seconds blocked on the length fetch, padded
-    rows launched, host-to-device bytes staged: the plan arrays, plus
-    the rows with host staging). A kernel fault propagates."""
+    rows launched, host-to-device bytes staged: the plan arrays). A kernel
+    fault propagates."""
     b = len(sessions)
     if b < 1 or b != len(plans):
         raise ValueError(f"{b} sessions for {len(plans)} plans")
@@ -203,9 +170,6 @@ def mesh_fused_replay(mesh: Sequence[torch.device], sessions, plans,
             raise ValueError("a window class must share cap and max_ins")
     slices = _device_slices(mesh, sessions)
     n = _pow2(max(max(p.n_ops for p in plans), 1))
-    bp_steer, n_steer = STEER.snap("mesh", pad_batch_count(b, len(mesh)),
-                                   n, mi, cap, multiple=len(mesh))
-    run = mesh_flush_fn(mesh, bp_steer, n_steer, mi, cap)
     sizes = [pad_batch_count(len(idx), 1) for _, idx in slices]
     bp = sum(sizes)
     staged = 0
@@ -215,24 +179,16 @@ def mesh_fused_replay(mesh: Sequence[torch.device], sessions, plans,
         staged += sum(a.nbytes for a in arrs)
         ops.append([torch.from_numpy(a).to(dev) for a in arrs])
     note_transfer(staged, rung="mesh", purpose="plan")
-    reuse = _arena.acquire(mesh, cap, mi, sessions, bp) \
-        if _arena.DEVICE_STAGE.enabled else None
+    reuse = _arena.acquire(mesh, cap, mi, sessions, bp)
     if reuse is not None:
         docs_l, lens_l = reuse
     else:
-        docs_l, lens_l = [], []
-        row_bytes = 0
-        for (dev, idx), bpd in zip(slices, sizes):
-            docs, lens, nbytes = _stage_rows(sessions, idx, bpd, cap, dev)
-            docs_l.append(docs)
-            lens_l.append(lens)
-            row_bytes += nbytes
-        if row_bytes:
-            # host staging (DEVICE_STAGE off): every resident row
-            # round-trips through numpy
-            note_transfer(row_bytes, rung="mesh", purpose="stage")
-        staged += row_bytes
-    outs = run([(d, ln, *o) for d, ln, o in zip(docs_l, lens_l, ops)])
+        rows = [_stage_rows(sessions, idx, bpd, cap, dev)
+                for (dev, idx), bpd in zip(slices, sizes)]
+        docs_l = [d for d, _ in rows]
+        lens_l = [ln for _, ln in rows]
+    outs = [_ff.apply_ops_window(d, ln, *o, mi)
+            for d, ln, o in zip(docs_l, lens_l, ops)]
     # the length fetch is the completion fence
     if clock is not None:
         clock.enter_phase("fence")
@@ -248,9 +204,8 @@ def mesh_fused_replay(mesh: Sequence[torch.device], sessions, plans,
                                 out_lens, g, clone=False)
         for i, good in zip(idx, oks):
             ok[i] = good
-    if _arena.DEVICE_STAGE.enabled:
-        _arena.adopt(mesh, cap, mi, [o[0] for o in outs],
-                     [o[1] for o in outs], sessions, ok, bp)
+    _arena.adopt(mesh, cap, mi, [o[0] for o in outs], [o[1] for o in outs],
+                 sessions, ok, bp)
     return ok, device_s, bp, staged
 
 

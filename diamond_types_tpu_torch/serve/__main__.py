@@ -4,7 +4,7 @@ differs from the host merge, or when an SLO objective is burning.
 
     python -m diamond_types_tpu_torch.serve [--mode trace|concurrent|flash]
         [--shards 4] [--docs 8] [--device-plan] [--mesh-window]
-        [--no-device-stage] [--no-fused] [--device cpu]
+        [--no-fused] [--device cpu]
         [--no-telemetry] [--no-journey] ...
 
 Sessions live on CUDA unless `--device cpu` asks for the CPU.
@@ -56,11 +56,6 @@ def main(argv=None) -> int:
                     help="flush windows: every due shard's bucket in one "
                     "K1 launch per shape class and device, and one K2 "
                     "resolve per device (default: one call per shard)")
-    ap.add_argument("--device-stage",
-                    action=argparse.BooleanOptionalAction, default=True,
-                    help="the window's device-side row gather and arenas "
-                    "(--no-device-stage: host-numpy staging every window, "
-                    "the A/B control arm)")
     ap.add_argument("--warmup", action="store_true",
                     help="launch K1 once per warm-up shape class first")
     ap.add_argument("--steady-rounds", type=int, default=0,
@@ -84,7 +79,7 @@ def main(argv=None) -> int:
         seed=args.seed, device=args.device, flush_workers=args.workers,
         warmup=args.warmup, steady_rounds=args.steady_rounds,
         device_plan=args.device_plan, mesh_window=args.mesh_window,
-        device_stage=args.device_stage, fused=args.fused,
+        fused=args.fused,
         telemetry=args.telemetry, journey=args.journey)
     print(json.dumps(report))
     # a parity pass that burned its latency budget still fails the bench

@@ -105,7 +105,7 @@ import torch
 
 from ..analysis.witness import make_lock
 from ..gpu import flush_fuse, kernels, resolve_device, xform
-from ..gpu.steer import STEER, WARMUP_SHAPE_CLASSES, _pow2, cap_class, \
+from ..gpu.steer import WARMUP_SHAPE_CLASSES, _pow2, cap_class, \
     warmup_batches
 from ..gpu.zone_session import DeviceZoneSession
 from ..obs.devprof import PROFILER
@@ -176,12 +176,11 @@ class SessionBank:
         `warmup=True` (device engine) starts a thread that builds the
         kernels and launches K1 once per (batch class of
         `warmup_batches(flush_docs)`, pow2 op class of `WARMUP_SHAPE_CLASSES`)
-        at the default capacity class, on the bank's device, noting each
-        class warm for steering; with `mesh_shards > 0` (the scheduler's
-        flush window over that many shards and `mesh_devices` devices) it
-        also launches every super-batch class such a window can assemble
-        and notes it under "mesh". `join_warmup()` waits for it and raises
-        what it raised."""
+        at the default capacity class, on the bank's device; with
+        `mesh_shards > 0` (the scheduler's flush window over that many
+        shards and `mesh_devices` devices) it also launches this device's
+        slice of every super-batch class such a window can assemble.
+        `join_warmup()` waits for it and raises what it raised."""
         if engine not in ("device", "host"):
             raise ValueError(f"unknown engine {engine!r}")
         self.shard_id = shard_id
@@ -252,16 +251,11 @@ class SessionBank:
                     torch.full((b,), length, dtype=torch.int32, device=dev),
                     z, z, z, torch.zeros((b, n, mi), dtype=torch.int32,
                                          device=dev), mi)
-            # the pow2 op classes a flush pads its tape to, as the JAX
-            # package's warm-up notes them
+            # the pow2 op classes a flush pads its tape to
             classes = sorted({_pow2(k) for k in WARMUP_SHAPE_CLASSES})
             for b in warmup_batches(self.flush_docs):
                 for n in classes:
                     launch(b, n, 0)
-                    # both replay keys: groups ("kernel") and per-doc
-                    # syncs ("fused") launch K1
-                    STEER.note_warm("kernel", mi, cap, b, n)
-                    STEER.note_warm("fused", mi, cap, b, n)
             if self.mesh_shards > 0:
                 # every padded class a window over mesh_shards shards can
                 # assemble (up to flush_docs each), as inert padding rows;
@@ -273,7 +267,6 @@ class SessionBank:
                 for bp in bps:
                     for n in classes:
                         launch(bp // nd, n, -1)
-                        STEER.note_warm("mesh", mi, cap, bp, n)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
         except Exception as e:     # re-raised by join_warmup

@@ -13,7 +13,7 @@ the host merge. Three workload shapes:
                  positions derive from a per-doc rng;
   * flash      — a migrating hot doc takes op BURSTS while the cold tail
                  trickles, so each window's max-op count (the pow2 `n`
-                 shape class) thrashes: the shape-steering stress tape.
+                 shape class) thrashes: the shape-class stress tape.
 
 Parity: for engine="device" the scheduler's answer comes from the device
 rows (`FusedDocSession.text()`, or `DeviceZoneSession.text()` with
@@ -29,10 +29,8 @@ to the scheduler, and reports the SLO verdict (`slo`, `slo_ok`), the
 profiler's snapshot (`devprof`: flush wall vs. device-wait seconds, the
 host-to-device transfers by rung and purpose), the tracer's and journey's
 state (`obs`) and a banded `scorecard`; a parity failure also carries the
-flight recorder's tail (`events_tail`). `jit_hit_rate`,
-`steady_jit_hit_rate` and `steady_jit_lookups` keep the JAX report's keys,
-but the port has no jit cache: nothing notes a lookup, `devprof`'s
-`jit_cache` stays empty, the rates are None and the lookups 0.
+flight recorder's tail (`events_tail`). The port has no jit cache, so the
+JAX report's jit hit rates have no counterpart here.
 `telemetry=False` / `journey=False` are the overhead control arms.
 """
 
@@ -43,11 +41,10 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
-from ..gpu.steer import STEER
 from ..obs import Observability
 from ..obs.devprof import PROFILER
 from ..obs.scorecard import build_scorecard
-from ..parallel.arena import DEVICE_STAGE, reset_arenas
+from ..parallel.arena import reset_arenas
 from ..text.branch import Branch
 from ..text.oplog import OpLog
 from ..text.trace import TestData, load_trace
@@ -174,32 +171,28 @@ def run_serve_bench(shards: int = 4, docs: int = 8,
                     steady_rounds: int = 0,
                     device_plan: bool = False,
                     mesh_window: bool = False,
-                    device_stage: bool = True,
                     fused: bool = True,
                     obs_sample_rate: float = 0.01,
                     telemetry: bool = True,
                     journey: bool = True) -> dict:
     """Replay the workload through a fresh scheduler; returns a JSON-able
-    report with throughput, the metrics snapshot, the steering counters
-    and the parity gate. `device` is where the sessions live: None means
-    CUDA, with shard i on `cuda:(i % device_count)` when
-    `place_on_devices`; `device="cpu"` runs the kernels' plain versions on
-    the CPU. `device_plan=True` plans flush tails through the device
-    transform (K2) — the report's `transform` block counts the tails that
-    resolved on the device. `mesh_window=True` flushes through the
-    scheduler's flush window (one K1 launch per class and device per
-    window, instead of one call per shard's bucket): the report's
-    `device_calls_per_window` is the A/B signal. `device_stage=False` is
-    the window's staging control arm (host-numpy rows every window, see
-    `parallel/arena.py`), restored when the bench returns. With
-    `steady_rounds`, every doc takes that many more lockstep rounds
-    against resident sessions after the continuous feed (the fused
-    occupancy measurement). `fused=False` keeps zone sessions
-    (`DeviceZoneSession`) and syncs each document on its own; the window
-    and device planning are fused-only. `obs_sample_rate` head-samples
-    trace roots; `telemetry=False` turns off the live time series (the SLO
-    verdict then trivially passes) and `journey=False` the journey stamps
-    (module docstring: the report's obs keys)."""
+    report with throughput, the metrics snapshot and the parity gate.
+    `device` is where the sessions live: None means CUDA, with shard i on
+    `cuda:(i % device_count)` when `place_on_devices`; `device="cpu"` runs
+    the kernels' plain versions on the CPU. `device_plan=True` plans flush
+    tails through the device transform (K2) — the report's `transform`
+    block counts the tails that resolved on the device. `mesh_window=True`
+    flushes through the scheduler's flush window (one K1 launch per class
+    and device per window, instead of one call per shard's bucket): the
+    report's `device_calls_per_window` is the A/B signal. With
+    `steady_rounds`, every doc takes that many more lockstep rounds against
+    resident sessions after the continuous feed (the fused occupancy
+    measurement). `fused=False` keeps zone sessions (`DeviceZoneSession`)
+    and syncs each document on its own; the window and device planning are
+    fused-only. `obs_sample_rate` head-samples trace roots;
+    `telemetry=False` turns off the live time series (the SLO verdict then
+    trivially passes) and `journey=False` the journey stamps (module
+    docstring: the report's obs keys)."""
     doc_ids = [f"doc{i:03d}" for i in range(docs)]
     ols: Dict[str, OpLog] = {}
     for d in doc_ids:
@@ -229,11 +222,10 @@ def run_serve_bench(shards: int = 4, docs: int = 8,
     else:
         raise ValueError(f"unknown mode {mode!r}")
 
-    # the profiler, the steering table, the staging switch and the window
-    # arenas are process-global: fresh state per bench run
+    # the profiler and the window arenas are process-global: fresh state
+    # per bench run
     PROFILER.reset()
     PROFILER.enabled = True
-    STEER.reset(table=True)
     reset_arenas()
     # with flush workers on, worker threads READ oplogs (tail planning)
     # while this loop APPENDS to them — the oplog lock makes that safe,
@@ -253,18 +245,15 @@ def run_serve_bench(shards: int = 4, docs: int = 8,
     obs = Observability(sample_rate=obs_sample_rate, seed=seed,
                         telemetry=telemetry, journey=journey)
     sched.attach_obs(obs)
-    stage_was = DEVICE_STAGE.enabled
-    DEVICE_STAGE.enabled = device_stage
     try:
         if warmup:
             # measure warm flushes, not the warm-up's first launches
             sched.banks[0].join_warmup()
         report = _feed(sched, ols, doc_ids, feeders, oplog_lock, mode,
                        seed, steady_rounds)
-        report.update(_obs_report(obs, report, mode, seed, device_stage))
+        report.update(_obs_report(obs, report, mode, seed))
     finally:
         sched.stop_workers()
-        DEVICE_STAGE.enabled = stage_was
         PROFILER.enabled = False
     return {"config": {
         "shards": shards, "docs": docs, "engine": engine, "mode": mode,
@@ -277,7 +266,6 @@ def run_serve_bench(shards: int = 4, docs: int = 8,
         "warmup": warmup, "steady_rounds": steady_rounds,
         "device_plan": sched.device_plan,
         "mesh_window": sched.mesh_window,
-        "device_stage": device_stage,
         "telemetry": telemetry, "journey": journey}, **report}
 
 
@@ -366,7 +354,6 @@ def _feed(sched, ols, doc_ids, feeders, oplog_lock, mode: str, seed: int,
         "device_calls_per_window": m["window"]["device_calls_per_window"],
         # host->device staging per flush window (0 without the window)
         "staged_bytes_per_window": m["window"]["staged_bytes_per_window"],
-        "steer": STEER.snapshot(),
         # the transform rung's engagement: tails whose merge positions
         # resolved on the device vs. the host tracker walk
         "transform": m["transform"],
@@ -374,8 +361,7 @@ def _feed(sched, ols, doc_ids, feeders, oplog_lock, mode: str, seed: int,
     }
 
 
-def _obs_report(obs, report: dict, mode: str, seed: int,
-                device_stage: bool) -> dict:
+def _obs_report(obs, report: dict, mode: str, seed: int) -> dict:
     """The report's observability keys, after the parity check: the SLO
     verdict over the run's telemetry (a bench that passes parity but
     burned its latency budget fails), the profiler's snapshot, the
@@ -387,11 +373,6 @@ def _obs_report(obs, report: dict, mode: str, seed: int,
     out = {
         "slo": slo_verdict,
         "slo_ok": slo_verdict["slo_ok"],
-        # no jit cache in the port: nothing notes a lookup (module
-        # docstring), so the JAX report's hit rates have no value here
-        "jit_hit_rate": None,
-        "steady_jit_hit_rate": None,
-        "steady_jit_lookups": 0,
         "devprof": PROFILER.snapshot(),
         "obs": {"trace": obs.tracer.stats(),
                 "ts_recorded": obs.ts.recorded,
@@ -400,8 +381,7 @@ def _obs_report(obs, report: dict, mode: str, seed: int,
     # a banded scorecard so serve-bench A/B arms gate through the same
     # engine as the JAX package's scenario runs (`diff_scorecards`)
     out["scorecard"] = build_scorecard(
-        scenario={"name": f"serve-bench-{mode}", "seed": seed,
-                  "steer": STEER.enabled, "device_stage": device_stage},
+        scenario={"name": f"serve-bench-{mode}", "seed": seed},
         wall_s=report["wall_s"], virtual_s=0.0,
         totals={"ops": report["total_ops"], "writes": report["total_ops"],
                 "reads": 0, "errors": len(mismatches)},
@@ -411,10 +391,8 @@ def _obs_report(obs, report: dict, mode: str, seed: int,
              "warning": slo_verdict["warning"]},
         ok=bool(not mismatches and slo_verdict["slo_ok"]),
         serve={
-            "jit_cache_hit_rate": None,
             "staged_bytes_per_window": report["staged_bytes_per_window"],
             "device_calls_per_window": report["device_calls_per_window"],
-            "steer_compiles": report["steer"]["compiles"],
         },
     )
     if mismatches:

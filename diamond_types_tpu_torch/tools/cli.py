@@ -235,12 +235,13 @@ def cmd_serve_bench(args) -> int:
 
     The schedulers merge on `--device` (default CUDA, which must exist;
     `--real-device` is accepted and changes nothing, since the card is
-    already the default). `--steer` / `--no-steer` set the shape-steering
-    table's switch (gpu/steer.py `STEER.enabled`) for the run. `--pallas`
-    / `--no-pallas` are accepted and change nothing: the top rung is
-    always the hand-written K1 kernel. `--dry-run` is the JAX package's
-    CI preset (host engine, 2 shards, 4 documents, 6 txns) on the CPU."""
-    from ..gpu.steer import STEER
+    already the default). `--pallas` / `--no-pallas` are accepted and
+    change nothing: the top rung is always the hand-written K1 kernel.
+    `--steer` / `--no-steer` and `--device-stage` / `--no-device-stage`
+    are accepted and change nothing: every launch runs at its pow2 shape
+    class and the flush window gathers its rows on the device.
+    `--dry-run` is the JAX package's CI preset (host engine, 2 shards, 4
+    documents, 6 txns) on the CPU."""
     from ..serve.driver import run_serve_bench
     kw = dict(shards=args.shards, docs=args.docs, txns=args.txns,
               engine=args.engine, mode=args.mode, corpus=args.corpus,
@@ -252,7 +253,7 @@ def cmd_serve_bench(args) -> int:
               warmup=args.warmup, steady_rounds=args.steady_rounds,
               mesh_window=args.mesh_window, telemetry=args.telemetry,
               journey=args.journey, device_plan=args.device_plan,
-              device_stage=args.device_stage, device=args.device)
+              device=args.device)
     if args.dry_run:
         # CI smoke preset: host engine, tiny workload, on the CPU
         kw.update(shards=2, docs=4, txns=6, engine="host",
@@ -261,12 +262,7 @@ def cmd_serve_bench(args) -> int:
         # the device first: None means CUDA, which must exist
         from ..gpu import resolve_device
         resolve_device(args.device)
-    steer_was = STEER.enabled
-    STEER.enabled = args.steer
-    try:
-        report = run_serve_bench(**kw)
-    finally:
-        STEER.enabled = steer_was
+    report = run_serve_bench(**kw)
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:
             json.dump(report, f, indent=1)
@@ -286,12 +282,7 @@ def cmd_serve_bench(args) -> int:
               f"@ {report['fused_occupancy']} docs/call, "
               f"{report['device_calls_per_window']} device calls/"
               f"window, "
-              f"jit hit rate "
-              f"{report.get('jit_hit_rate') if report.get('jit_hit_rate') is not None else 'n/a'}"
-              + (f" (steady {report['steady_jit_hit_rate']})"
-                 if report.get("steady_jit_hit_rate") is not None
-                 else "")
-              + f", staged {report.get('staged_bytes_per_window', 0)} "
+              f"staged {report.get('staged_bytes_per_window', 0)} "
               f"B/window, "
               f"parity {'OK' if report['parity_ok'] else 'MISMATCH'}, "
               + ("slo OK" if report["slo_ok"] else
@@ -957,26 +948,6 @@ def cmd_obs_watch(args) -> int:
                     print(f"  lag {peer:<22s} n={row.get('n', 0):<6d} "
                           f"mean={row.get('mean_s', 0) * 1e3:8.2f}ms "
                           f"max={row.get('max_s', 0) * 1e3:8.2f}ms")
-            dp = (doc.get("obs") or {}).get("devprof") or {}
-            jit = dp.get("jit_cache") or {}
-            if dp.get("enabled") and jit:
-                # one row per jit family — the PR-13 device-resident
-                # tail transform (`xform`) and Pallas replay rung
-                # (`pallas`) surface here next to micro/tip/fused
-                print("== device (jit cache) ==")
-                for fam, row in sorted(jit.items()):
-                    h, m = row.get("hits", 0), row.get("misses", 0)
-                    rate = h / (h + m) if (h + m) else 0.0
-                    print(f"  {fam:<14s} hits={h:<8d} misses={m:<6d} "
-                          f"hit_rate={rate:6.3f}")
-                fused = dp.get("fused") or {}
-                win = dp.get("mesh_window") or {}
-                print(f"  fused calls={fused.get('device_calls', 0)} "
-                      f"occ={fused.get('occupancy', 0)} "
-                      f"dev_frac={fused.get('device_fraction', 0)}; "
-                      f"window dispatches={win.get('dispatches', 0)} "
-                      f"docs/dispatch="
-                      f"{win.get('docs_per_dispatch', 0)}")
             print(f"== events (+{len(tail)} new, cursor {since}) ==")
             for ev in tail[-args.events:]:
                 rest = {k: v for k, v in ev.items()
@@ -1354,8 +1325,7 @@ def main(argv=None) -> int:
     c.add_argument("--mode", choices=("trace", "concurrent", "flash"),
                    default="trace",
                    help="flash = flash-crowd tape whose per-window op "
-                   "bursts thrash the shape classes (the "
-                   "shape-steering A/B tape)")
+                   "bursts thrash the shape classes")
     c.add_argument("--corpus", help="crdt-testdata JSON trace file "
                    "(default: synthetic trace)")
     c.add_argument("--flush-docs", type=int, default=4)
@@ -1394,18 +1364,15 @@ def main(argv=None) -> int:
     c.add_argument("--steer",
                    action=argparse.BooleanOptionalAction,
                    default=True,
-                   help="batch-shape steering: snap each window's "
-                   "(b, n) onto the nearest warm shape class "
-                   "(gpu/steer.py STEER.enabled; bookkeeping only, K1 "
-                   "launches at the pow2 floor; --no-steer = raw pow2 "
-                   "classes)")
+                   help="accepted for the JAX package's command line "
+                   "and changes nothing: K1 launches at the pow2 shape "
+                   "class")
     c.add_argument("--device-stage",
                    action=argparse.BooleanOptionalAction,
                    default=True,
-                   help="device-resident mesh staging + donated-"
-                   "buffer window arenas (parallel/arena.py; "
-                   "--no-device-stage = host-numpy staging every "
-                   "window, the PR-20 A/B control arm)")
+                   help="accepted for the JAX package's command line "
+                   "and changes nothing: the flush window gathers its "
+                   "rows on the device")
     c.add_argument("--warmup", action="store_true",
                    help="launch K1 once per warm-up shape class before "
                    "feeding")

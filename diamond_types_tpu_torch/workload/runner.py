@@ -207,10 +207,6 @@ def run_scenario(sc: Optional[Scenario], data_dir: Optional[str] = None,
     counts = _Counts()
     read_latency = Histogram()
     t_start = time.monotonic()
-    # shape-steer counters are process-global and unconditional; the
-    # start snapshot turns them into per-run deltas for the scorecard
-    from ..gpu.steer import STEER
-    steer0 = STEER.snapshot()
     inc_opts = {**RUNNER_INCIDENT_OPTS, **(incident_opts or {})}
 
     # ---- persistence arming (replicate/faults.py + long-run mode) --------
@@ -742,28 +738,19 @@ def run_scenario(sc: Optional[Scenario], data_dir: Optional[str] = None,
         "timeline": sorted(prior_incidents, key=lambda r: r["t"]),
     }
     # device flush-pipeline block (scorecard `serve`): summed window
-    # staging + dispatch fan-in from the servers' ServeMetrics, jit
-    # hit rate from the steer counters' per-run delta. Host-engine
-    # runs never dispatch a device window, so the block stays None and
-    # the serve.* bands skip (missing-path semantics) — exactly like
-    # pre-steer baselines.
+    # staging + dispatch fan-in from the servers' ServeMetrics.
+    # Host-engine runs never dispatch a device window, so the block
+    # stays None and the serve.* bands skip (missing-path semantics).
     serve_block: Optional[dict] = None
     dw = sum(s["window"]["device_windows"] for s in serve_snaps if s)
     if dw > 0:
-        steer1 = STEER.snapshot()
-        looks = steer1["lookups"] - steer0["lookups"]
-        warm_hits = (steer1["hits"] + steer1["padded"]
-                     - steer0["hits"] - steer0["padded"])
         staged = sum(s["window"].get("staged_bytes", 0)
                      for s in serve_snaps if s)
         disp = sum(s["window"]["dispatches"] for s in serve_snaps if s)
         serve_block = {
-            "jit_cache_hit_rate": round(warm_hits / looks, 4)
-            if looks else 1.0,
             "staged_bytes": staged,
             "staged_bytes_per_window": round(staged / dw, 2),
             "device_calls_per_window": round(disp / dw, 4),
-            "steer_compiles": steer1["compiles"] - steer0["compiles"],
         }
     wall_s = time.monotonic() - t_start
     # under an injected-fault tape, availability degrades by DESIGN

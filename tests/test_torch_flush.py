@@ -155,6 +155,45 @@ def test_poisoned_row_fails_fence_on_both_sides(rung):
         _assert_sessions_equal(j, t, tw.oplogs[1])
 
 
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_kernel_rung_launches_k1_once_at_the_pow2_floor(monkeypatch, b):
+    """`kernel_fused_replay` launches K1 once over the bucket at
+    `(pow2(b), pow2(max n_ops))` (one row for one document): padding rows
+    replicate row 0's document and length and carry all-zero ops, and
+    every real row commits the host checkout's text."""
+    twins = [TwinDocs([OpLog()], 600 + i) for i in range(b)]
+    for i, tw in enumerate(twins):
+        tw.type_base("alice", 20 + 10 * i)
+        tw.concurrent_round(AGENTS, 1 + i % 4, max_ins=9)
+    ts = [tff.FusedDocSession(tw.oplogs[0], device="cpu", **OPTS)
+          for tw in twins]
+    for i, tw in enumerate(twins):
+        tw.concurrent_round(AGENTS, 1 + i % 3, max_ins=9)
+    plans = [s.plan_tail() for s in ts]
+    calls = []
+    real = tff.apply_ops_window
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+    monkeypatch.setattr(tff, "apply_ops_window", spy)
+    ok, _ = tff.kernel_fused_replay(ts, plans)
+    assert ok == [True] * b
+    (docs, lens, pos, dlen, ilen, chars, mi), = calls
+    bp = {1: 1, 3: 4, 8: 8}[b]
+    n = tff._pow2(max(p.n_ops for p in plans))
+    assert tuple(docs.shape) == (bp, OPTS["cap"]) and lens.shape == (bp,)
+    assert tuple(chars.shape) == (bp, n, OPTS["max_ins"])
+    assert mi == OPTS["max_ins"]
+    for a in (pos, dlen, ilen):
+        assert tuple(a.shape) == (bp, n)
+    for a in (pos, dlen, ilen, chars):
+        assert not a[b:].any()
+    assert (docs[b:] == docs[0]).all() and (lens[b:] == lens[0]).all()
+    for s, tw in zip(ts, twins):
+        assert s.text() == tw.oplogs[0].checkout_tip().snapshot()
+
+
 def test_capacity_overflow_resyncs_on_both_sides():
     twins = _docs([10], 4, UNICODE)
     js, ts = _sessions(twins)

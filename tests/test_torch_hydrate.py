@@ -42,7 +42,6 @@ from diamond_types_tpu_torch import Branch
 from diamond_types_tpu_torch import OpLog as TOpLog
 from diamond_types_tpu_torch.analysis import witness as twitness
 from diamond_types_tpu_torch.gpu import kernels
-from diamond_types_tpu_torch.gpu.steer import STEER
 from diamond_types_tpu_torch.serve import bank as tbank
 from diamond_types_tpu_torch.serve import hydrate as thydrate
 from diamond_types_tpu_torch.serve import metrics as tmetrics
@@ -565,7 +564,6 @@ def test_hydrated_device_scheduler_matches_jax(tmp_path, mesh_window):
                                       "abcdefghij ")
              for i in range(n_docs)}
     JAX_STEER.reset(table=True)
-    STEER.reset(table=True)
     twitness.witness_enable()
     twitness.witness_reset()
     sides = [_Side(pkg, str(tmp_path / pkg.name), bases, warm, mesh_window)

@@ -2,9 +2,11 @@
 the JAX package's.
 
 The modules are copies: each file must equal the JAX package's byte for
-byte, `obs/__init__.py` among them since the port has `analysis/lint`
-and `analysis/explore` (its `snapshot()` carries their `lint` and
-`explore` lookups). Then both packages' `Observability` bundles run one
+byte but the lines the port rewrote or dropped (`EXTENDED`: among them
+what reads or feeds a jit cache, which the port does not have), and
+`obs/__init__.py` is JAX's without its jit-lookup hook (its `snapshot()`
+carries the `lint` and `explore` lookups). Then both packages'
+`Observability` bundles run one
 seeded script
 on clocks advanced alike (every obs module's `time` reads a `FakeClock`),
 and everything they report must be equal: the tracer's sampling decisions
@@ -20,6 +22,7 @@ order of appearance, not by value.
 import inspect
 import json
 import random
+from dataclasses import astuple
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -63,10 +66,73 @@ PKGS = (JAX, PORT)
 
 # copies the port extends for its flush timing: the tracer's `t0_ns`/`t1_ns`
 # and `resize`, the phase families in prom, devprof's docstrings rewritten
-# for the port. Each keeps every line of JAX's file, in order, but lines of
-# its docstrings and the code lines named here, which the port rewrote.
-EXTENDED = {"obs/trace.py": ('"t0", "attrs", "_done")',),
-            "obs/prom.py": (), "obs/devprof.py": ()}
+# for the port; and copies that drop what reads or feeds a jit cache, which
+# the port does not have: devprof's jit counts, prom's three jit families
+# and the scorecard's `serve.jit_cache_hit_rate` band. Each keeps every line
+# of JAX's file, in order, but lines of its docstrings and the code lines
+# named here, which the port rewrote or dropped.
+EXTENDED = {
+    "obs/trace.py": ('"t0", "attrs", "_done")',),
+    "obs/prom.py": (
+        '# zero-fill the known jit families (the HYDRATION_KEYS idiom): the',
+        '# "xform"/"pallas" rows exist from the first scrape, not only after',
+        '# the first transform/Pallas dispatch seeds the cache',
+        'jit: dict = {k: {} for k in ("fused", "mesh", "micro", "tip",',
+        '"xform", "pallas")} if dp else {}',
+        'jit.update(dp.get("jit_cache") or {})',
+        'for cache, hm in sorted(jit.items()):',
+        'lb = {"cache": cache}',
+        'hits = hm.get("hits", 0)',
+        'misses = hm.get("misses", 0)',
+        'b.add("dt_devprof_jit_hits_total", "counter", hits, labels=lb)',
+        'b.add("dt_devprof_jit_misses_total", "counter", misses,',
+        'labels=lb)',
+        '# zero-filled hit-rate gauge per cache (0.0 until a lookup)',
+        'b.add("dt_devprof_jit_hit_rate", "gauge",',
+        'round(hits / (hits + misses), 4) if hits + misses',
+        'else 0.0, labels=lb)',
+        '# jit-family idiom above — every stage row exists from the first',
+    ),
+    "obs/devprof.py": (
+        'self._jit: Dict[str, list] = {}',
+        'self._jit = {}',
+        '',
+        'def note_jit(self, cache: str, hit: bool) -> None:',
+        'if not self.enabled:',
+        'return',
+        'with self._lock:',
+        'c = self._jit.setdefault(cache, [0, 0])',
+        'c[0 if hit else 1] += 1',
+        'jit = {k: {"hits": v[0], "misses": v[1]}',
+        'for k, v in sorted(self._jit.items())}',
+        '"jit_cache": jit,',
+        'def note_jit_lookup(cache: str, hit: bool) -> None:',
+        'if PROFILER.enabled:',
+        'PROFILER.note_jit(cache, hit)',
+        '',
+        '',
+    ),
+    "obs/scorecard.py": (
+        '# device flush-pipeline block (shape steering + staging): jit',
+        '# hit rate, staged bytes per mesh window, dispatch fan-in.',
+        '# Absent on host-engine runs (and pre-steer baselines) so the',
+        '# new bands skip instead of gating — missing-path semantics.',
+        '# device flush pipeline (shape steering + device-resident staging,',
+        '# scorecard `serve` block): hit rate must not drop more than 5',
+        '# points; staged bytes per window must not grow past the band;',
+        '# dispatch fan-in (device calls per window) must not balloon.',
+        '# Absent entirely on host-engine scorecards — never gates there.',
+        '# The staged band is sized to catch STATE-staging regressions',
+        '# (losing device residency multiplies the figure ~5x), while',
+        "# letting steering's padded plan arrays through — padding a window",
+        '# up to a warm class grows the host-built plan upload by up to',
+        '# `max_waste` (4x cells) by design, and that is the trade the',
+        '# steer A/B makes on purpose (plan kilobytes for compile seconds).',
+        '"serve.jit_cache_hit_rate": Band("higher", rel=0.0, abs_=0.05),',
+    ),
+}
+# the band the port drops with the jit cache it does not have
+JAX_ONLY_BANDS = ("serve.jit_cache_hit_rate",)
 
 
 def _docstring_lines(src: str) -> set:
@@ -105,13 +171,18 @@ def test_module_is_a_byte_identical_copy(rel):
 
 def test_bundle_differs_only_by_the_lint_and_explore_lookups():
     """`obs/__init__.py`: once the port has `analysis/lint` and
-    `analysis/explore`, the bundle differs from JAX's by nothing: the file
-    is a byte-identical copy, and `snapshot()` carries both lookups."""
+    `analysis/explore`, the bundle differs from JAX's only by the jit-cache
+    hook the port does not have: the file is JAX's without
+    `note_jit_lookup` (and its docstring's "jit-cache hits"), and
+    `snapshot()` carries both lookups."""
     rel = "obs/__init__.py"
-    assert (REPO / "diamond_types_tpu_torch" / rel).read_bytes() == \
-        (REPO / "diamond_types_tpu" / rel).read_bytes()
-    assert tobs.__all__ == jobs.__all__
-    for name in jobs.__all__:
+    jsrc = (REPO / "diamond_types_tpu" / rel).read_text()
+    assert (REPO / "diamond_types_tpu_torch" / rel).read_text() == \
+        jsrc.replace(" note_jit_lookup,", "") \
+        .replace(' "note_jit_lookup",', "").replace(", jit-cache hits", "")
+    assert tobs.__all__ == [n for n in jobs.__all__
+                            if n != "note_jit_lookup"]
+    for name in tobs.__all__:
         assert hasattr(tobs, name), name
     jo, to = jobs.Observability, tobs.Observability
     assert inspect.signature(to.__init__) == inspect.signature(jo.__init__)
@@ -301,7 +372,7 @@ def test_snapshots_match_jax(twins, monkeypatch):
 
 
 def test_scorecards_and_their_diff_match_jax():
-    def cards(score):
+    def cards(score, bands=None):
         base = dict(scenario={"name": "s", "seed": 3}, virtual_s=0.0,
                     totals={"ops": 1000, "writes": 900, "reads": 100,
                             "errors": 0},
@@ -317,8 +388,14 @@ def test_scorecards_and_their_diff_match_jax():
         new = score.build_scorecard(wall_s=3.1,
                                     latency_p99_s={"flush": 0.09},
                                     **base)
-        return old, new, score.diff_scorecards(old, new)
-    assert cards(tscore) == cards(jscore)
+        return old, new, score.diff_scorecards(old, new, bands)
+    # the port's bands are JAX's but the jit-cache one; a stored card that
+    # still carries the figure compares as before, through the rest
+    jax_bands = {k: v for k, v in jscore.DEFAULT_BANDS.items()
+                 if k not in JAX_ONLY_BANDS}
+    assert {k: astuple(v) for k, v in tscore.DEFAULT_BANDS.items()} == \
+        {k: astuple(v) for k, v in jax_bands.items()}
+    assert cards(tscore) == cards(jscore, jax_bands)
     assert not cards(tscore)[2]["ok"]
 
 
@@ -326,20 +403,23 @@ def test_scorecards_and_their_diff_match_jax():
 PORT_ONLY_FAMILIES = ("dt_serve_flush_phase_seconds",
                       "dt_serve_oplog_wait_seconds",
                       "dt_serve_linearize")
+# JAX's jit-cache families: the port has no jit cache
+JAX_ONLY_FAMILIES = ("dt_devprof_jit_",)
 
 
-def _without_port_families(text: str) -> str:
+def _without_families(text: str, families) -> str:
     return "".join(
         ln for ln in text.splitlines(keepends=True)
-        if not ln.replace("# TYPE ", "", 1).startswith(PORT_ONLY_FAMILIES))
+        if not ln.replace("# TYPE ", "", 1).startswith(families))
 
 
 def test_render_metrics_matches_jax(twins):
     """One /metrics document through both renderers: the port's serve
     metrics (with a recorded flush, its phases, window and hydration
     events), a QoS export and the port's obs snapshot. The port's text is
-    JAX's plus its own families (`PORT_ONLY_FAMILIES`); the new latency
-    histograms render through the shared loop in both."""
+    JAX's plus its own families (`PORT_ONLY_FAMILIES`) and without JAX's
+    jit-cache families (`JAX_ONLY_FAMILIES`); the new latency histograms
+    render through the shared loop in both."""
     from diamond_types_tpu_torch.qos import QosController
     t = twins[1]
     m = ServeMetrics(2, 4, 64)
@@ -357,8 +437,10 @@ def test_render_metrics_matches_jax(twins):
            "obs": t.obs.snapshot()}
     for om in (False, True):
         text = tprom.render_metrics(doc, openmetrics=om)
-        assert _without_port_families(text) \
-            == jprom.render_metrics(doc, openmetrics=om)
+        jtext = jprom.render_metrics(doc, openmetrics=om)
+        assert _without_families(text, PORT_ONLY_FAMILIES) \
+            == _without_families(jtext, JAX_ONLY_FAMILIES)
+        assert "dt_devprof_jit_" in jtext and "dt_devprof_jit_" not in text
         assert 'dt_serve_flush_phase_seconds_total{phase="fence"} 0.002' \
             in text
         assert 'dt_serve_flush_phase_seconds_total{phase="serial"} 0' \

@@ -57,6 +57,12 @@ COPIED = ("replicate/faults.py", "replicate/metrics.py",
 # rung's fallback counter)
 SERVE_ONLY_IN_JAX = {"serve.totals.pallas_fallbacks"}
 PROM_ONLY_IN_JAX = {"dt_serve_pallas_fallbacks_total"}
+# devprof's jit-cache block and its families in JAX's /metrics: the port
+# has no jit cache
+JIT_ONLY_IN_JAX = {"obs.devprof.jit_cache"}
+JIT_PROM_ONLY_IN_JAX = {"dt_devprof_jit_hits_total",
+                        "dt_devprof_jit_misses_total",
+                        "dt_devprof_jit_hit_rate"}
 # the port's flush timing (serve/metrics.py, schema version 5), its
 # linearizer counters (6) and its zone-session counters (7): the key paths
 # under these prefixes and these families are the port's alone
@@ -910,14 +916,17 @@ def _lease_view(nodes, doc):
 
 def _compare_metrics(jax_got, port_got):
     """The /metrics key sets of two runs: equal but for the serve keys
-    only JAX has, the port's flush timing and its linearizer counters."""
+    only JAX has, JAX's jit-cache block, the port's flush timing and its
+    linearizer counters."""
     port_only = {k for k in port_got["keys"]
                  if k.startswith(SERVE_ONLY_IN_PORT)}
     assert "serve.flush_phases.seconds.extract" in port_only
     assert "serve.transform.linearized_plain" in port_only
-    assert jax_got["keys"] - port_got["keys"] == SERVE_ONLY_IN_JAX
+    assert jax_got["keys"] - port_got["keys"] == \
+        SERVE_ONLY_IN_JAX | JIT_ONLY_IN_JAX
     assert port_got["keys"] - port_only <= jax_got["keys"]
-    assert jax_got["prom"] - port_got["prom"] <= PROM_ONLY_IN_JAX
+    assert jax_got["prom"] - port_got["prom"] <= \
+        PROM_ONLY_IN_JAX | JIT_PROM_ONLY_IN_JAX
     assert PROM_ONLY_IN_PORT <= port_got["prom"]
     assert port_got["prom"] - PROM_ONLY_IN_PORT <= jax_got["prom"]
 

@@ -5,8 +5,7 @@ through the JAX scheduler (`engine="device"`, `fused=True`, `device_plan`,
 `pallas=True` with the Pallas kernel interpreted) and the port's
 (sessions on `device="cpu"`, where K1 and K2 run their plain versions).
 Per round, both must give byte-identical texts equal to the host checkout,
-equal `metrics_json()` counters and transform blocks, and equal steer
-snapshots (the JAX cache "pallas" is the port's "kernel"). The router,
+and equal `metrics_json()` counters and transform blocks. The router,
 the admission queue and `run_serve_bench` are held against the JAX
 package's too. The fault tests pin what the port does NOT copy: a kernel
 or build error propagates out of `drain()`; only the length fence sends a
@@ -27,11 +26,9 @@ from diamond_types_tpu.serve.router import ShardRouter as JaxRouter
 from diamond_types_tpu.serve.scheduler import MergeScheduler as JaxScheduler
 from diamond_types_tpu.text.oplog import OpLog as JaxOpLog
 from diamond_types_tpu.tpu import flush_fuse as jff
-from diamond_types_tpu.tpu.steer import STEER as JAX_STEER
 from diamond_types_tpu_torch import OpLog
 from diamond_types_tpu_torch.gpu import flush_fuse as tff
 from diamond_types_tpu_torch.gpu import kernels
-from diamond_types_tpu_torch.gpu.steer import STEER
 from diamond_types_tpu_torch.serve import (AdmissionQueue, Backpressure,
                                            MergeScheduler, SessionBank,
                                            ShardRouter)
@@ -47,13 +44,6 @@ COUNTERS = ("submits", "coalesced", "builds", "evictions", "resyncs",
             "flushes", "flushed_docs", "flushed_ops")
 
 
-def _port_steer(snap):
-    out = dict(snap)
-    out["warm_classes"] = {{"pallas": "kernel"}.get(k, k): v
-                           for k, v in snap["warm_classes"].items()}
-    return out
-
-
 def _twin_schedulers(n_docs, seed, n_shards=2, engine="device", **kw):
     """The tape's documents and one scheduler per package over them."""
     docs = serve_docs([JaxOpLog, OpLog], n_docs, seed)
@@ -63,8 +53,6 @@ def _twin_schedulers(n_docs, seed, n_shards=2, engine="device", **kw):
                   flush_deadline_s=10.0, flush_workers=False,
                   device_plan=engine == "device")
     common.update(kw)
-    JAX_STEER.reset(table=True)
-    STEER.reset(table=True)
     js = JaxScheduler(n_shards, resolve=jols.__getitem__, fused_opts=FUSED,
                       pallas=True, **common)
     ts = MergeScheduler(n_shards, resolve=tols.__getitem__,
@@ -118,13 +106,9 @@ def test_scheduler_matches_jax_per_round():
         _round(docs, seed, rnd, (js, ts))
         _assert_texts(docs, tols, (js, ts), rnd)
         tm = _assert_metrics_equal(js, ts, rnd)
-        assert STEER.snapshot() == _port_steer(JAX_STEER.snapshot()), rnd
     assert tm["totals"]["host_fallbacks"] == 0
     assert tm["transform"]["device_docs"] > 0
     assert tm["fused"]["device_calls"] > 0
-    steer = STEER.snapshot()
-    assert steer["lookups"] > 0 and set(steer["warm_classes"]) == \
-        {"fused", "kernel"}
     # CPU sessions: plain versions ran, no kernel was launched
     assert (kernels.apply_ops_window.launches,
             kernels.xform_positions.launches) == launches
@@ -185,7 +169,6 @@ def test_serve_bench_matches_jax(mode, tmp_path):
     assert tr["fused_device_calls"] == jr["fused_device_calls"]
     assert tr["fused_occupancy"] == jr["fused_occupancy"]
     assert tr["config"]["device"] == "cpu"
-    assert tr["steer"]["lookups"] > 0
     assert {"ops_per_sec", "transform", "metrics"} <= set(tr)
 
 
@@ -322,8 +305,7 @@ def test_poisoned_row_goes_to_the_host_in_both_packages(monkeypatch,
 
 def test_per_doc_sync_replays_through_the_kernel_rung(monkeypatch):
     """FusedDocSession.sync launches through K1's wrapper at the pow2
-    floor of its tail, notes its class under the per-doc key "fused",
-    and raises FenceMismatch on a poisoned length."""
+    floor of its tail and raises FenceMismatch on a poisoned length."""
     docs = serve_docs([OpLog], 1, 10)
     tw = docs["d00"]
     sess = tff.FusedDocSession(tw.oplogs[0], device="cpu", **FUSED)
@@ -335,13 +317,10 @@ def test_per_doc_sync_replays_through_the_kernel_rung(monkeypatch):
         shapes.append((docs.shape[0], pos.shape[1]))
         return real(docs, lens, pos, *rest)
     monkeypatch.setattr(tff, "apply_ops_window", spy)
-    STEER.reset(table=True)
     tw.concurrent_round(("alice", "bob", "carol"), 3, max_ins=11)
     n_ops = sess.plan_tail().n_ops
     assert sess.sync() == n_ops > 0
     assert shapes == [(1, tff._pow2(n_ops))]
-    snap = STEER.snapshot()
-    assert snap["lookups"] == 1 and snap["warm_classes"] == {"fused": 1}
     assert sess.text() == tw.oplogs[0].checkout_tip().snapshot()
     real_plan = tff.FusedDocSession.plan_tail
 
@@ -386,13 +365,19 @@ def test_device_engine_needs_cuda_or_explicit_cpu():
 
 
 def test_warmup_notes_every_class_and_raises_its_faults(monkeypatch):
-    STEER.reset(table=True)
+    launched = []
+    real = kernels.apply_ops_window
+
+    def counted(docs, lens, pos, *rest):
+        launched.append((docs.shape[0], pos.shape[1]))
+        return real(docs, lens, pos, *rest)
+    monkeypatch.setattr(kernels, "apply_ops_window", counted)
     bank = SessionBank(0, fused_opts=dict(FUSED, device="cpu"),
                        warmup=True, flush_docs=4)
     bank.join_warmup()
     # batch classes {1, 2, 4} x the pow2 op classes {2, 4, 8} of
-    # WARMUP_SHAPE_CLASSES (as the JAX warm-up notes them), both keys
-    assert STEER.snapshot()["warm_classes"] == {"fused": 9, "kernel": 9}
+    # WARMUP_SHAPE_CLASSES (as the JAX warm-up notes them), once each
+    assert sorted(launched) == [(b, n) for b in (1, 2, 4) for n in (2, 4, 8)]
 
     def boom(*a, **k):
         raise RuntimeError("injected warm-up fault")

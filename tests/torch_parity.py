@@ -154,32 +154,6 @@ def xf_rows(ol, frm, to) -> list:
             for lv, op, pos in ol.get_xf_operations_full(frm, to)]
 
 
-# ---- shape steering ---------------------------------------------------------
-
-def steer_tape(seed: int, n: int, note_share: float = 0.4) -> list:
-    """A random sequence of `ShapeSteer` calls over small shape domains, so
-    exact hits, padding, forced pads and new classes all occur: ("note",
-    cache, mi, cap, b, n) and ("snap", cache, bp0, n0, mi, cap).
-    Cache names are the JAX package's ("fused", "pallas"); a test maps
-    "pallas" to the port's "kernel". After a snap, ("launch",) asks the
-    caller to note the returned class warm, as the replay rungs do."""
-    rng = np.random.default_rng(seed)
-    caches, mis, caps = ("fused", "pallas"), (4, 16), (256, 1024)
-    bs, ns = (1, 2, 4, 8), (2, 4, 8, 16, 32)
-    tape = []
-    for _ in range(n):
-        cache = caches[int(rng.integers(2))]
-        mi, cap = mis[int(rng.integers(2))], caps[int(rng.integers(2))]
-        b, k = bs[int(rng.integers(4))], ns[int(rng.integers(5))]
-        if rng.random() < note_share:
-            tape.append(("note", cache, mi, cap, b, k))
-        else:
-            tape.append(("snap", cache, b, k, mi, cap))
-            if rng.random() < 0.5:
-                tape.append(("launch",))
-    return tape
-
-
 # ---- the serve layer --------------------------------------------------------
 
 def serve_docs(oplog_types: Sequence, n_docs: int, seed: int,
@@ -216,6 +190,33 @@ def serve_round(docs: Dict[str, TwinDocs], seed: int, rnd: int,
         tw.concurrent_round(agents, k, max_ins=11, max_del=9)
         out.append((d, k * len(agents) + 1))
     return out
+
+
+def port_warmup_classes(monkeypatch, **sched_kw) -> Dict[str, list]:
+    """Build a one-shard port scheduler with `warmup=True` (its other
+    options from `sched_kw`), wait for its warm-up, and return the class
+    `(max_ins, cap, b, n)` of every K1 launch the warm-up made, in launch
+    order: under "shard" the per-shard rungs' classes (lengths 0), under
+    "mesh" the flush window's (inert rows, lengths -1). The launches are
+    counted by wrapping `kernels.apply_ops_window`, the name the warm-up
+    calls."""
+    from diamond_types_tpu_torch import OpLog
+    from diamond_types_tpu_torch.gpu import kernels
+    from diamond_types_tpu_torch.serve import MergeScheduler
+
+    got: Dict[str, list] = {"shard": [], "mesh": []}
+    real = kernels.apply_ops_window
+
+    def counted(docs, lens, pos, dlen, ilen, chars, mi):
+        kind = "mesh" if int(lens[0]) < 0 else "shard"
+        got[kind].append((mi, docs.shape[1], docs.shape[0], pos.shape[1]))
+        return real(docs, lens, pos, dlen, ilen, chars, mi)
+
+    monkeypatch.setattr(kernels, "apply_ops_window", counted)
+    ol = OpLog()
+    sched = MergeScheduler(1, resolve=lambda d: ol, warmup=True, **sched_kw)
+    sched.banks[0].join_warmup()
+    return got
 
 
 # ---- the device plan's linearizer --------------------------------------------
