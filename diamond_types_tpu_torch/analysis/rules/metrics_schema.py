@@ -48,6 +48,10 @@ copied, so the rule can never drift from the schema itself):
                                family zero-fills from that tuple)
   .enter_phase("phase")        phase in FLUSH_PHASES (the FlushClock
                                call that starts a phase)
+  .record_residency("timer", s)  timer in serve.metrics.RESIDENCY_TIMERS
+                               (the residency tier's timers, the port's
+                               `residency` block; record_residency raises
+                               on another one)
   .record_transform(shard, key=n, ...)  each keyword in
                                serve.metrics.TRANSFORM_KEYS (the port's
                                transform counters; record_transform
@@ -78,8 +82,8 @@ from ...qos.classes import QOS_CLASSES
 from ...qos.metrics import QOS_CLASS_KEYS, QOS_CTL_KEYS
 from ...read.metrics import READ_KEYS
 from ...replicate.metrics import _GROUPS, _LATENCY_NAMES
-from ...serve.metrics import (FLUSH_PHASES, HYDRATION_KEYS, TRANSFORM_KEYS,
-                              _SHARD_KEYS)
+from ...serve.metrics import (FLUSH_PHASES, HYDRATION_KEYS,
+                              RESIDENCY_TIMERS, TRANSFORM_KEYS, _SHARD_KEYS)
 from ...storage.tier import TIER_KEYS
 from ...wire.frames import WIRE_CHANNELS, WIRE_KEYS
 
@@ -223,6 +227,14 @@ def check_metrics_schema(ctx: FileContext, summary) -> List[Violation]:
                     violate(node.lineno,
                             f"flush phase {a0!r} is not in "
                             f"serve.metrics.FLUSH_PHASES {FLUSH_PHASES}")
+            elif name == "record_residency" and args:
+                a0 = _const_str(args[0])
+                if a0 is not None and a0 not in RESIDENCY_TIMERS:
+                    violate(node.lineno,
+                            f"residency timer {a0!r} is not in "
+                            f"serve.metrics.RESIDENCY_TIMERS "
+                            f"{RESIDENCY_TIMERS} — record_residency "
+                            f"raises on it")
             elif name == "record_transform":
                 for kw in node.keywords:
                     if kw.arg is not None and kw.arg not in TRANSFORM_KEYS:

@@ -69,7 +69,8 @@ tail (sync counts, fence failures to the host, the per-doc rung).
 
 Phases (always on): every flush is timed by a `FlushClock`
 (`serve/metrics.py`), which the window dict carries (`win["clock"]`):
-`extract_window` runs "extract", `resolve_windows` "resolve",
+`extract_window` runs "extract" (less a session build, which runs in
+"build", as it does inside "serial"), `resolve_windows` "resolve",
 `_plan_fused` "plan", a fused group's replay "pack", "fence" and "adopt",
 `adopt_window` "adopt" and, for its serial items, "serial". The oplog
 lock is taken through the clock at the three sites that take it
@@ -347,11 +348,17 @@ class SessionBank:
         self._resyncs_seen[doc_id] = sess.resyncs
         return sess
 
-    def session(self, doc_id: str, oplog):
+    def session(self, doc_id: str, oplog, clock=None):
         """Get-or-build the doc's resident session, updating LRU order
-        and enforcing both residency bounds."""
+        and enforcing both residency bounds. A miss (no session, or one
+        bound to a replaced oplog) runs in `clock`'s "build" phase, which
+        then hands back to the phase it interrupted."""
         sess = self.sessions.get(doc_id)
-        if sess is not None and sess.oplog is not oplog:
+        if sess is not None and sess.oplog is oplog:
+            self.sessions.move_to_end(doc_id)
+            return sess
+        prev = clock.enter_phase("build") if clock is not None else None
+        if sess is not None:
             # the doc's oplog was replaced (residency churn: evicted from
             # the warm tier and re-hydrated into a new OpLog): a session
             # bound to the old one would serve a frozen view forever.
@@ -359,10 +366,6 @@ class SessionBank:
             # snapshot-routed like any other).
             self.sessions.pop(doc_id)
             self._drop(doc_id, sess, why="stale-oplog")
-            sess = None
-        if sess is not None:
-            self.sessions.move_to_end(doc_id)
-            return sess
         # make room BEFORE the expensive build (the new session's exact
         # footprint is unknown until built; re-check after)
         self._evict_until_fits()
@@ -373,6 +376,8 @@ class SessionBank:
         if self.metrics is not None:
             self.metrics.observe_footprint(self.shard_id,
                                            self.footprint_slots())
+        if clock is not None:
+            clock.enter_phase(prev)
         return sess
 
     # ---- merge path ------------------------------------------------------
@@ -386,7 +391,7 @@ class SessionBank:
         then back in "serial", and its counters go to the metrics."""
         self._bump("syncs")
         t0 = time.perf_counter()
-        sess = self.session(doc_id, oplog)
+        sess = self.session(doc_id, oplog, clock)
         zone = isinstance(sess, DeviceZoneSession)
         try:
             if zone and clock is not None:
@@ -481,7 +486,7 @@ class SessionBank:
             return win
         with clock.oplog(oplog_lock):
             for it in items:
-                sess = self.session(it.doc_id, ols[it.doc_id])
+                sess = self.session(it.doc_id, ols[it.doc_id], clock)
                 half = xform.extract_tail(sess) if self.device_plan \
                     else sess.plan_tail()
                 win["planned"].append([it, sess, half])

@@ -13,7 +13,12 @@ session banks build device state from). Three jobs:
   * **resolve** — the scheduler's `resolve(doc_id) -> OpLog`: warm hit
     returns the resident oplog; a cold miss hydrates synchronously
     (bounded by `sync_wait_s`); a quarantined doc raises the typed
-    `DocQuarantined` instead of serving garbage;
+    `DocQuarantined` instead of serving garbage. A writer appends
+    through `edit(doc_id, fn)` (port-only), which re-resolves when the
+    doc was evicted between its resolve and the oplog guard. A load
+    that ran while another resolve installed the doc and evicted it to
+    its home is stale and never installed (port-only): resolve loads
+    again, a prefetch leaves the doc cold;
   * **flush gating + eviction-to-snapshot** — `flush_gate` classifies a
     taken bucket right after the lease fence: warm docs flush now,
     quarantined docs drop (never poisoning the batch), still-cold docs
@@ -76,9 +81,12 @@ class Hydrator:
         self.attempt_timeout_s = float(attempt_timeout_s)
         self.max_attempts = max(int(max_attempts), 1)
         self.sync_wait_s = float(sync_wait_s)
-        # a deferred doc that never turns warm OR quarantined within
-        # this budget is stuck (e.g. its prefetch queue overflowed
-        # forever) — quarantine it so drain() stays bounded
+        # the JAX package's backstop: there, a deferred doc still cold
+        # this long after its first deferral quarantines. The port's
+        # gate hydrates a doc inline on its second visit whenever that
+        # comes (a failure there quarantines, bounded by sync_wait_s),
+        # so no doc defers twice and the budget never applies; kept
+        # for the JAX package's signature
         self.defer_budget_s = float(defer_budget_s)
         # how long flush_gate waits for an in-flight hydration before
         # deferring — bounds the requeue spin during force-drains
@@ -111,7 +119,16 @@ class Hydrator:
         self._evicting: Set[str] = set()
         self._touched: Dict[str, float] = {}    # doc -> last resolve ts
         self._defers: Dict[str, Tuple[int, float]] = {}
+        # doc -> times evicted to its home (port-only): a load that began
+        # before the doc's latest eviction read a home that eviction
+        # rewrote, so `_finish` discards it
+        self._evicted: Dict[str, int] = {}
         self.counters = {k: 0 for k in HYDRATION_KEYS}
+        # `edit` calls that found the doc evicted under them, and loads
+        # discarded as stale (port-only; HYDRATION_KEYS stays the JAX
+        # package's)
+        self.edit_retries = 0
+        self.stale_loads = 0
         self._counter_lock = threading.Lock()
         self.cold_start = Histogram()
         # plain condvar used ONLY as a wakeup signal (never guards
@@ -209,6 +226,7 @@ class Hydrator:
 
     def _hydrate(self, doc_id: str, deadline: float) -> None:
         t0 = time.monotonic()
+        gen = self._evicted.get(doc_id, 0)
         try:
             ol = self._load_with_retries(doc_id, deadline)
         except DocQuarantined:
@@ -216,14 +234,15 @@ class Hydrator:
             return
         if ol is None:
             # deadline/attempts exhausted without a permanent verdict:
-            # leave the doc COLD — the flush gate re-prefetches on the
-            # next defer (fresh budget), and only the defer budget or a
-            # sync resolve turns persistent failure into a quarantine
+            # leave the doc COLD — the flush gate hydrates it inline on
+            # its next visit, and only a sync resolve turns persistent
+            # failure into a quarantine
             self._bump("hydrate_gave_up")
             with self._hydrate_lock:
                 self._pending.pop(doc_id, None)
             return
-        self._finish(doc_id, self._maybe_remote_fill(doc_id, ol), t0)
+        # a stale load leaves the doc cold: the gate prefetches it again
+        self._finish(doc_id, self._maybe_remote_fill(doc_id, ol), t0, gen)
 
     def _load_with_retries(self, doc_id: str, deadline: float):
         """One bounded retry ladder. Returns the hydrated OpLog, None
@@ -286,27 +305,40 @@ class Hydrator:
         with self._warm_cv:
             self._warm_cv.notify_all()
 
-    def _finish(self, doc_id: str, ol, t0: float):
+    def _finish(self, doc_id: str, ol, t0: float, gen: int):
         """Install a hydration result. NEVER overwrites an oplog that
         is already warm — a concurrent sync resolve may have installed
         (and begun appending to) its own copy; the first install wins
-        and this one is discarded. Returns the canonical warm oplog."""
+        and this one is discarded. Returns the canonical warm oplog, or
+        None when the doc was evicted to its home since the load began
+        (`gen`, its eviction count then; port-only): another resolve
+        installed, extended and evicted it meanwhile, so this load may
+        lack ops the home now holds, and an agent's next op appended to
+        it would reuse one of their ids, which the next save drops as
+        already persisted. Nothing is installed then."""
         victims: List[str] = []
         with self._hydrate_lock:
             self._pending.pop(doc_id, None)
-            # _defers is NOT cleared here: under thrash a doc can
-            # hydrate and be evicted again between two gate visits,
-            # and a reset visit count would keep it deferring forever
-            # — only passing a gate (or quarantine) clears the entry
-            self._evicting.discard(doc_id)
-            self._touched[doc_id] = time.monotonic()
             have = self._warm.get(doc_id)
-            if have is not None:
-                self._warm.move_to_end(doc_id)
-                ol = have
-            else:
-                self._warm[doc_id] = ol
-                victims = self._pick_victims_locked(exclude=doc_id)
+            stale = have is None and self._evicted.get(doc_id, 0) != gen
+            if not stale:
+                # _defers is NOT cleared here: under thrash a doc can
+                # hydrate and be evicted again between two gate visits,
+                # and a reset visit count would keep it deferring
+                # forever — only passing a gate (or quarantine) clears
+                # the entry
+                self._evicting.discard(doc_id)
+                self._touched[doc_id] = time.monotonic()
+                if have is not None:
+                    self._warm.move_to_end(doc_id)
+                    ol = have
+                else:
+                    self._warm[doc_id] = ol
+                    victims = self._pick_victims_locked(exclude=doc_id)
+        if stale:
+            with self._counter_lock:
+                self.stale_loads += 1
+            return None
         self._bump("hydrations")
         self._observe_cold_start(time.monotonic() - t0)
         with self._warm_cv:
@@ -325,8 +357,8 @@ class Hydrator:
     def resolve(self, doc_id: str):
         """`MergeScheduler(resolve=...)` entry point. Warm hit returns
         the resident oplog (and aborts any in-flight eviction of it);
-        cold miss hydrates synchronously; quarantined raises the typed
-        DocQuarantined."""
+        cold miss hydrates synchronously, again when the load went stale
+        (`_finish`); quarantined raises the typed DocQuarantined."""
         reason = self.store.is_quarantined(doc_id)
         if reason is not None:
             raise DocQuarantined(doc_id, reason)
@@ -338,6 +370,7 @@ class Hydrator:
                 # claim it back from a mid-save eviction: the saver
                 # sees the mark gone and keeps the entry resident
                 self._evicting.discard(doc_id)
+            gen = self._evicted.get(doc_id, 0)
         if ol is not None:
             self._bump("warm_hits")
             return ol
@@ -358,8 +391,37 @@ class Hydrator:
             self._bump("quarantined")
             self._note_quarantined(doc_id)
             raise DocQuarantined(doc_id, "hydration_timeout")
-        return self._finish(doc_id, self._maybe_remote_fill(doc_id, ol),
-                            t0)
+        ol = self._finish(doc_id, self._maybe_remote_fill(doc_id, ol), t0,
+                          gen)
+        # None: the load went stale (`_finish`); resolve again
+        return ol if ol is not None else self.resolve(doc_id)
+
+    def warm_oplog(self, doc_id: str):
+        """The doc's warm OpLog, or None when it is not warm: a peek that
+        neither touches the LRU order nor takes a lock (one dict read),
+        so it may run under the oplog guard."""
+        return self._warm.get(doc_id)
+
+    def edit(self, doc_id: str, fn):
+        """`fn(oplog)` on the doc's warm oplog under the oplog guard, for
+        a writer appending ops: resolve, take the guard, and run `fn` only
+        if that oplog is still the warm one, else resolve again. Between
+        a resolve and the guard the doc can be evicted to its snapshot
+        (a writer that waits past `evict_grace_s` for the guard is no
+        longer protected by the grace), and ops appended to the evicted
+        oplog would be in no home and no warm map. Under the guard no
+        eviction can pop the doc, and one that saved before the append
+        aborts on the unsaved-suffix recheck. Returns what `fn`
+        returns."""
+        olock = self.oplog_lock if self.oplog_lock is not None \
+            else contextlib.nullcontext()
+        while True:
+            ol = self.resolve(doc_id)
+            with olock:
+                if self.warm_oplog(doc_id) is ol:
+                    return fn(ol)
+            with self._counter_lock:
+                self.edit_retries += 1
 
     def wait_warm(self, doc_id: str, timeout_s: float) -> bool:
         """Wait (briefly) for an in-flight hydration to land. True when
@@ -383,9 +445,9 @@ class Hydrator:
         """Classify one taken bucket right after the lease fence:
         returns (keep, defer, dropped). Warm docs flush now; a
         quarantined doc is dropped HERE, before its rows can join a
-        batch; a cold doc defers (the scheduler requeues it — a
-        delayed flush) with a fresh prefetch, until the defer budget
-        turns a stuck doc into a quarantine."""
+        batch; a cold doc defers once (the scheduler requeues it — a
+        delayed flush) with a fresh prefetch, and on its next visit
+        hydrates inline, where a failure quarantines it."""
         keep, defer, dropped = [], [], []
         now = time.monotonic()
         for it in items:
@@ -412,13 +474,6 @@ class Hydrator:
             with self._hydrate_lock:
                 n, first = self._defers.get(d, (0, now))
                 self._defers[d] = (n + 1, first)
-            if now - first > self.defer_budget_s:
-                self.store.quarantine(d, "hydration_stuck")
-                self._bump("defer_gave_up")
-                self._bump("quarantined")
-                self._note_quarantined(d)
-                dropped.append(it)
-                continue
             if n >= 1:
                 # second visit: the async path had its round and the
                 # doc is STILL cold at gate time. Deferring again can
@@ -430,6 +485,11 @@ class Hydrator:
                 # drain. (The visit count survives hydrate/evict
                 # thrash between visits — it clears only on a gate
                 # pass or quarantine — so the escalation is certain.)
+                # However long the requeued item waited: the JAX
+                # package first quarantines a doc whose second visit
+                # comes `defer_budget_s` after its first deferral
+                # ("hydration_stuck"), which a long queue alone brings
+                # about for a healthy doc, and drops its merge work.
                 try:
                     self.resolve(d)
                 except DocQuarantined:
@@ -516,7 +576,13 @@ class Hydrator:
             # the oplog guard nests inside (io -> oplog) and freezes
             # len(ol) for the unsaved-suffix recheck below
             with olock:
-                if doc_id not in self._evicting:
+                if self._warm.get(doc_id) is not ol:
+                    # another eviction popped the oplog this saved, and
+                    # the doc may be warm again in a new one that holds
+                    # ops no home has: never pop that (port-only), and
+                    # leave the mark to the eviction that made it
+                    aborted = True
+                elif doc_id not in self._evicting:
                     aborted = True      # resolve() claimed it mid-save
                 elif saved and len(ol) != saved_len:
                     # a handler appended between the snapshot encode
@@ -530,6 +596,7 @@ class Hydrator:
                     self._evicting.discard(doc_id)
                     self._warm.pop(doc_id, None)
                     self._touched.pop(doc_id, None)
+                    self._evicted[doc_id] = self._evicted.get(doc_id, 0) + 1
         if aborted:
             self._bump("eviction_aborts")
             return False

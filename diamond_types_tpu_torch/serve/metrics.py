@@ -27,7 +27,13 @@ linearizer they ran (the linearize kernel on a card, or the plain chain
 on the CPU). Since version 7: the zone-session bank's `zone` block
 (`ZONE_COUNTS`, `gpu/zone_session.py`: syncs continued and resynced,
 resyncs by cause, X8 launches and the launched tapes' shapes; all zero on
-the fused engine) and the zone sync's three phases.
+the fused engine) and the zone sync's three phases. Since version 8:
+the residency tier's phases (`build`, a session build inside a flush;
+`gate`, the hydration gate with its inline hydrations) and its own block,
+`residency` (`RESIDENCY_TIMERS`: the durable homes' loads and saves and
+the oplog lock held inside a save, seconds and counts on `perf_counter`,
+fed by `storage/tier.py` `TieredStore` through `record_residency`; zero
+until a Hydrator is attached).
 
 Schema (snapshot()):
 
@@ -65,6 +71,8 @@ Schema (snapshot()):
                     "oplog_wait_s": s,   # blocked before taking the lock
                     "oplog_hold_s": s, "oplog_holds": n},
    "zone": {<ZONE_COUNTS>: n},      # zone sessions (record_zone)
+   "residency": {"load_s", "loads", "save_s", "saves",
+                 "save_hold_s", "save_holds"},   # RESIDENCY_TIMERS
    "max_depth_seen": d,
    "queue_bound_violations": 0,     # depth observed above max_pending
    "latencies": {"flush": hist,     # obs.hist snapshot w/ p50/p90/p99
@@ -159,10 +167,22 @@ TRANSFORM_KEYS = ("device_docs", "host_docs", "fallbacks", "batches") \
 #            the X8 launch
 #   zone_resync   a zone session's rebuild: `prepare_zone`, the rebuild
 #            tape and its launch
+#   build    a session built inside a flush (`SessionBank.session` on a
+#            miss: the evictions that make room and the build), carved out
+#            of the phase it interrupts (`extract`, or `serial`)
+#   gate     the residency tier's flush gate (`Hydrator.flush_gate`, its
+#            inline hydrations included), before the flush proper; timed
+#            only with a Hydrator attached
 # The wait to take the oplog lock is in no phase (`oplog_wait_s`).
 FLUSH_PHASES = ("extract", "resolve", "plan", "pack", "fence", "adopt",
-                "serial", "zone_compose", "zone_tape", "zone_resync")
+                "serial", "zone_compose", "zone_tape", "zone_resync",
+                "build", "gate")
 _SPAN_NAMES = {p: f"bank.{p}" for p in FLUSH_PHASES}
+
+# the residency tier's timers (`storage/tier.py` `TieredStore` records them
+# through `record_residency`): a home's load, a save, and the oplog lock
+# held inside a save (the unsaved suffix's encode)
+RESIDENCY_TIMERS = ("load", "save", "save_hold")
 
 
 class FlushClock:
@@ -192,9 +212,12 @@ class FlushClock:
         self._t = 0.0
         self._span = NOOP_SPAN
 
-    def enter_phase(self, phase: Optional[str]) -> None:
-        if phase == self._phase:
-            return
+    def enter_phase(self, phase: Optional[str]) -> Optional[str]:
+        """End the running phase and start `phase`; returns the phase that
+        was running, so a phase that interrupts another can hand back."""
+        prev = self._phase
+        if phase == prev:
+            return prev
         now = time.perf_counter()
         if self._phase is not None:
             self.seconds[self._phase] += now - self._t
@@ -206,6 +229,7 @@ class FlushClock:
             self._span = self._tracer.start(_SPAN_NAMES[phase],
                                             parent=self._parent,
                                             attrs=self._attrs)
+        return prev
 
     def end(self) -> None:
         """Stop the running phase."""
@@ -247,8 +271,9 @@ class ServeMetrics:
     # 5: the `flush_phases` block, `latencies.oplog_hold` and
     # `latencies.admit_wait`, per_shard times derived from the phases;
     # 6: the transform block's `linearized_kernel` and `linearized_plain`;
-    # 7: the `zone` block and the zone sync's phases)
-    SCHEMA_VERSION = 7
+    # 7: the `zone` block and the zone sync's phases; 8: the `build` and
+    # `gate` phases and the `residency` block)
+    SCHEMA_VERSION = 8
 
     def __init__(self, n_shards: int, flush_docs: int,
                  max_pending: int) -> None:
@@ -306,6 +331,11 @@ class ServeMetrics:
         self.oplog_holds = 0
         # the zone-session bank's counters (record_zone)
         self.zone: Dict[str, int] = dict.fromkeys(ZONE_COUNTS, 0)
+        # the residency tier's timers (record_residency)
+        self.residency_s: Dict[str, float] = dict.fromkeys(
+            RESIDENCY_TIMERS, 0.0)
+        self.residency_n: Dict[str, int] = dict.fromkeys(
+            RESIDENCY_TIMERS, 0)
         # obs.recorder.FlightRecorder, wired by
         # MergeScheduler.attach_obs; only rare events touch it
         self.recorder = None
@@ -416,6 +446,14 @@ class ServeMetrics:
             z = self.zone
             for k, n in counts.items():
                 z[k] += n
+
+    def record_residency(self, timer: str, seconds: float) -> None:
+        """One timed step of the residency tier (a `RESIDENCY_TIMERS` key:
+        a home's load, a save, the oplog lock held inside a save); an
+        undeclared key raises."""
+        with self._lock:
+            self.residency_s[timer] += seconds
+            self.residency_n[timer] += 1
 
     def observe_queue(self, shard: int, depth: int) -> None:
         with self._lock:
@@ -549,6 +587,10 @@ class ServeMetrics:
                     "oplog_holds": self.oplog_holds,
                 },
                 "zone": dict(self.zone),
+                "residency": {
+                    k: v for t in RESIDENCY_TIMERS
+                    for k, v in ((f"{t}_s", round(self.residency_s[t], 6)),
+                                 (f"{t}s", self.residency_n[t]))},
                 "max_depth_seen": self.max_depth_seen,
                 "queue_bound_violations": self.queue_bound_violations,
                 "latencies": {"flush": flush_hist,

@@ -71,7 +71,9 @@ spans on the admit → flush → device-sync path (`serve.admit`,
 `serve.ownership_gate`, `serve.flush`, `serve.device_sync`; in the window
 `serve.mesh_window` and one `serve.mesh_dispatch` per class), and below
 them the bank's phase spans (`bank.extract`, `bank.resolve`, `bank.plan`,
-`bank.pack`, `bank.fence`, `bank.adopt`, `bank.serial`). With
+`bank.pack`, `bank.fence`, `bank.adopt`, `bank.serial`, `bank.build`;
+with a Hydrator, `bank.gate` under the flush's span, and the store's
+`hydrate.load` and `hydrate.save` roots on the tier's threads). With
 `trace_flushes` every flush is traced, sampled item or not. The
 journey's `queued` stamp at submit (the bank stamps the rest), a flush
 exemplar when the flush rode a sampled trace, per-doc ops and device-time
@@ -83,10 +85,11 @@ evictions, fence failures). The window reports each class's replay to
 touchpoint is one attribute check.
 
 Flush timing (always on, `serve/metrics.py`): each flush's phases
-(`FLUSH_PHASES`, timed by the bank's `FlushClock`), the oplog lock's wait
-and holds, and per item the wait from admit to flush start
-(`latencies.admit_wait`) and from admit to commit
-(`latencies.queue_wait`).
+(`FLUSH_PHASES`, timed by the bank's `FlushClock`; the hydration gate by
+the scheduler's own, in "gate"), the oplog lock's wait and holds, the
+residency tier's loads and saves (`residency`), and per item the wait
+from admit to flush start (`latencies.admit_wait`) and from admit to
+commit (`latencies.queue_wait`).
 
 Replication (`replicate.attach_replication`, as `tools/server.serve`
 wires it): `admit` is the node's lease gate (`ReplicaNode.owns`) and
@@ -249,8 +252,10 @@ class MergeScheduler:
         # (`serve.flush`, or `serve.mesh_window`) as a forced root when no
         # item's trace is sampled, so each flush's phase spans land in the
         # tracer's ring (a profiling run; size the ring with
-        # `Tracer.resize`). False: flushes follow their items' sampling
-        self.trace_flushes = False
+        # `Tracer.resize`), and with a Hydrator attached its store's loads
+        # and saves open theirs. False: flushes follow their items'
+        # sampling, and the store opens no span
+        self._trace_flushes = False
 
     def attach_obs(self, obs) -> None:
         """Wire an obs.Observability bundle into the admit→flush path:
@@ -274,6 +279,25 @@ class MergeScheduler:
         if self.hydrator is not None:
             self.hydrator.recorder = obs.recorder
             self.hydrator.attrib = getattr(obs, "attrib", None)
+        self._wire_store_tracer()
+
+    @property
+    def trace_flushes(self) -> bool:
+        return self._trace_flushes
+
+    @trace_flushes.setter
+    def trace_flushes(self, on: bool) -> None:
+        self._trace_flushes = bool(on)
+        self._wire_store_tracer()
+
+    def _wire_store_tracer(self) -> None:
+        """The residency tier's store opens its `hydrate.load` and
+        `hydrate.save` spans on the bundle's tracer while `trace_flushes`
+        is on, and none otherwise."""
+        hyd = self.hydrator
+        if hyd is not None:
+            hyd.store.tracer = self.obs.tracer \
+                if self.obs is not None and self._trace_flushes else None
 
     def attach_hydrator(self, hydrator) -> None:
         """Wire the residency tier in: `submit` prefetches on a doc's
@@ -281,17 +305,22 @@ class MergeScheduler:
         paths gate on warmth right after the lease fence (cold docs
         requeue, quarantined docs drop before they can join a batch), and
         every bank eviction routes through the hydrator's snapshot queue.
-        The scheduler's `resolve` should be `hydrator.resolve`;
+        The store's loads and saves are timed into this scheduler's
+        metrics (`residency`) unless it already has metrics. The
+        scheduler's `resolve` should be `hydrator.resolve`;
         `attach_hydrator` does not rebind it."""
         self.hydrator = hydrator
         if hydrator.metrics is None:
             hydrator.metrics = self.metrics
+        if hydrator.store.metrics is None:
+            hydrator.store.metrics = self.metrics
         if hydrator.oplog_lock is None and not isinstance(
                 self._sync_lock, contextlib.nullcontext):
             hydrator.oplog_lock = self._sync_lock
         if self.obs is not None:
             hydrator.recorder = self.obs.recorder
             hydrator.attrib = getattr(self.obs, "attrib", None)
+        self._wire_store_tracer()
         for bank in self.banks:
             bank.snapshot_hook = hydrator.request_snapshot
 
@@ -543,15 +572,24 @@ class MergeScheduler:
                 self.hydrator.note_flush_leak(doc_id, e)
             raise
 
-    def _hydration_gate(self, shard: int, items) -> list:
+    def _hydration_gate(self, shard: int, items, trace=None) -> list:
         """Residency recheck right after the lease fence: keep warm docs,
         drop quarantined ones (they never join a batch) and requeue
         still-cold ones, a delayed flush on a later pump once hydration
-        lands, never a batch stalled on disk."""
+        lands, never a batch stalled on disk. Timed as the shard's flush
+        phase "gate" (inline hydrations included); `trace`, the flush's
+        span context, makes it a `bank.gate` span under it."""
         hyd = self.hydrator
         if hyd is None:
             return items
+        obs = self.obs
+        clock = FlushClock(obs.tracer if obs is not None else None, trace,
+                           None if trace is None else
+                           {"shard": shard, "docs": len(items)})
+        clock.enter_phase("gate")
         keep, defer, dropped = hyd.flush_gate(shard, items)
+        clock.end()
+        self.metrics.record_phases(shard, clock.seconds)
         if defer:
             now = time.monotonic()
             with self.lock:
@@ -580,7 +618,6 @@ class MergeScheduler:
         sync (the whole bucket is at best one K1 launch)."""
         obs = self.obs
         items = self._fence(shard, items)
-        items = self._hydration_gate(shard, items)
         if not items:
             return
         fspan = NOOP_SPAN
@@ -597,6 +634,10 @@ class MergeScheduler:
                     "serve.flush", force=True,
                     attrs={"shard": shard, "reason": reason,
                            "docs": len(items)})
+        items = self._hydration_gate(shard, items, fspan.context())
+        if not items:
+            fspan.end(kept=0)
+            return
         now_m = time.monotonic()
         for it in items:
             self.metrics.observe_admit_wait(
@@ -658,7 +699,7 @@ class MergeScheduler:
         across all shards, in one window on the calling thread.
 
           1. the lease-epoch recheck (window assembly is merge time) and
-             the hydration gate;
+             the hydration gate (inside the window's span);
           2. planning in three steps: each shard's `extract_window` under
              the oplog lock, ONE `resolve_windows` for the whole window (a
              K2 resolve per device, where the JAX window resolves once per
@@ -693,15 +734,17 @@ class MergeScheduler:
         entries = []        # (shard, reason, items), post-fencing
         for shard, reason, items in taken:
             items = self._fence(shard, items)
-            items = self._hydration_gate(shard, items)
             if items:
                 entries.append((shard, reason, items))
-        if not entries:
+
+        def all_fenced() -> int:
             # an all-fenced window still counts (dispatches 0 keeps it
             # out of the device_calls_per_window denominator)
             self.metrics.record_window(0, 0,
                                        len({s for s, _r, _i in taken}))
             return 0
+        if not entries:
+            return all_fenced()
         obs = self.obs
         mesh = self._get_mesh()     # takes self.lock: before shard locks
         shards = sorted({s for s, _r, _i in entries})
@@ -719,6 +762,14 @@ class MergeScheduler:
                     "serve.mesh_window", force=True,
                     attrs={"shards": len(shards), "docs": n_docs})
         ctx = fspan.context()
+        if self.hydrator is not None:
+            entries = [(s, r, kept) for s, r, items in entries
+                       if (kept := self._hydration_gate(s, items, ctx))]
+            if not entries:
+                fspan.end(kept=0)
+                return all_fenced()
+            shards = sorted({s for s, _r, _i in entries})
+            n_docs = sum(len(i) for _s, _r, i in entries)
         wclock = FlushClock(
             obs.tracer if obs is not None else None, ctx,
             None if ctx is None else {"shards": len(shards),

@@ -386,13 +386,23 @@ class PagedDocFile:
 
     def append_from(self, src_oplog) -> None:
         """Persist everything `src_oplog` has that this file hasn't."""
+        self.append_patch(self.patch_from(src_oplog))
+
+    def patch_from(self, src_oplog) -> bytes:
+        """The patch of everything `src_oplog` has that this file hasn't:
+        the one step of `append_from` that reads `src_oplog` (port-only,
+        so a caller can hold a lock on it for this step alone)."""
         from ..causalgraph.summary import (intersect_with_summary,
                                            summarize_versions)
-        from ..encoding.decode import decode_into
         from ..encoding.encode import ENCODE_PATCH, encode_oplog
         common, _ = intersect_with_summary(
             src_oplog.cg, summarize_versions(self.oplog.cg))
-        patch = encode_oplog(src_oplog, ENCODE_PATCH, from_version=common)
+        return encode_oplog(src_oplog, ENCODE_PATCH, from_version=common)
+
+    def append_patch(self, patch: bytes) -> None:
+        """Append `patch` (from `patch_from`) to the patch stream, a page
+        write and its fsync, and fold it into this file's own op log."""
+        from ..encoding.decode import decode_into
         self.store.append(self.PATCHES, patch)
         decode_into(self.oplog, patch)
 

@@ -23,7 +23,18 @@ and is never held across disk IO; `tier.doc[...]` (io rung) serializes
 one doc's file operations. The serve tier's oplog guard is taken
 INSIDE the doc lock around encode — the documented io -> oplog order
 (analysis/rules/locks.py) — so a snapshot never races a handler
-appending ops.
+appending ops. In the port it covers the encode alone: the page write
+and its fsync run after it, under the doc lock, so the serve tier's
+flushes and appends never wait on the disk.
+
+Timing (port-only): with `metrics` set (a `ServeMetrics`; the scheduler's
+`attach_hydrator` sets it) every load and save is timed on
+`perf_counter`, and inside a save the oplog lock's hold (the unsaved
+suffix's encode), through `ServeMetrics.record_residency` (the
+`residency` block of `metrics_json()`). With `tracer` set (an obs
+`Tracer`; the scheduler sets it while its `trace_flushes` is on), each
+load and save opens a forced root span, `hydrate.load` or
+`hydrate.save`, on the thread that runs it.
 
 `StorageFaults` is the seeded fault injector the storage soak drives:
 slow-disk delays on load, deterministic per seed.
@@ -43,6 +54,7 @@ from typing import Callable, Dict, Optional
 
 from ..analysis.witness import make_lock
 from ..encoding.decode import decode_into
+from ..obs.trace import NOOP_SPAN
 from ..text.oplog import OpLog
 from .pages import PAGE_SIZE, PagedDocFile, PagedStore
 from .store import StorageError
@@ -110,14 +122,19 @@ class TieredStore:
         os.makedirs(root, exist_ok=True)
         self.compact_patch_records = max(int(compact_patch_records), 1)
         self.faults = faults
-        # on_persist(doc_id, home_oplog) fires under the oplog guard
-        # right after a save lands — the soak uses it to track each
-        # doc's durable frontier for crash-recovery parity checks
+        # on_persist(doc_id, home_oplog) fires right after a save lands,
+        # under the doc lock (the JAX package's fires under the oplog
+        # guard) — the soak uses it to track each doc's durable frontier
+        # for crash-recovery parity checks
         self.on_persist = on_persist
         self._tier_lock = make_lock("tier.table", "io")
         self._doc_locks: Dict[str, object] = {}
         self.quarantined: Dict[str, str] = {}
         self._counters = {k: 0 for k in TIER_KEYS}
+        # ServeMetrics and obs Tracer (module docstring: timing); None
+        # times nothing and opens no span
+        self.metrics = None
+        self.tracer = None
 
     # ---- bookkeeping -----------------------------------------------------
 
@@ -130,6 +147,11 @@ class TieredStore:
             out = dict(self._counters)
             out["quarantined_docs"] = len(self.quarantined)
             return out
+
+    def _span(self, name: str, doc_id: str):
+        if self.tracer is None:
+            return NOOP_SPAN
+        return self.tracer.start(name, attrs={"doc": doc_id}, force=True)
 
     def path(self, doc_id: str) -> str:
         return os.path.join(self.root, doc_id + ".pages")
@@ -164,7 +186,10 @@ class TieredStore:
         """Append `oplog`'s unsaved suffix to the doc's home; compact
         when the per-doc patch chain grows past the policy threshold.
         `oplog_lock` (the serve tier's oplog guard) is taken INSIDE
-        the per-doc io lock — the documented io -> oplog order.
+        the per-doc io lock — the documented io -> oplog order — for
+        the suffix's encode alone; the patch's page write and fsync run
+        after it is released (port-only: the JAX package holds it
+        through the write).
         Returns the persisted op count (len(oplog) at encode time,
         under the guard) so eviction can detect a suffix that raced
         in after the snapshot and abort instead of dropping it."""
@@ -173,21 +198,35 @@ class TieredStore:
             raise DocQuarantined(doc_id, reason)
         olock = oplog_lock if oplog_lock is not None \
             else contextlib.nullcontext()
-        with self._doc_lock(doc_id):
+        t0 = time.perf_counter()
+        with self._span("hydrate.save", doc_id) as span, \
+                self._doc_lock(doc_id):
             f = PagedDocFile(self.path(doc_id))
             try:
+                # the guard covers what reads the live oplog, the suffix's
+                # encode; the page write, its fsync and the home's own
+                # decode of the patch follow outside it (port-only), still
+                # under the doc lock, so no flush or append waits on disk
                 with olock:
-                    f.append_from(oplog)
+                    t_hold = time.perf_counter()
+                    patch = f.patch_from(oplog)
                     persisted = len(oplog)
-                    if self.on_persist is not None:
-                        self.on_persist(doc_id, f.oplog)
+                    if self.metrics is not None:
+                        self.metrics.record_residency(
+                            "save_hold", time.perf_counter() - t_hold)
+                f.append_patch(patch)
+                if self.on_persist is not None:
+                    self.on_persist(doc_id, f.oplog)
                 patches = sum(1 for _ in f.store.records(f.PATCHES))
                 if patches >= self.compact_patch_records:
                     f.compact()
                     self._bump("compactions")
             finally:
                 f.close()
+            span.annotate(ops=persisted)
         self._bump("saves")
+        if self.metrics is not None:
+            self.metrics.record_residency("save", time.perf_counter() - t0)
         return persisted
 
     def load(self, doc_id: str,
@@ -200,6 +239,13 @@ class TieredStore:
         reason = self.is_quarantined(doc_id)
         if reason is not None:
             raise DocQuarantined(doc_id, reason)
+        with self._span("hydrate.load", doc_id):
+            return self._load(doc_id, timeout_s)
+
+    def _load(self, doc_id: str, timeout_s: Optional[float]) -> OpLog:
+        """`load` past the quarantine check; times a home decoded (a
+        missing home, a fresh doc, is not a load)."""
+        t0 = time.perf_counter()
         if self.faults is not None:
             delay = self.faults.load_delay(doc_id)
             if delay:
@@ -250,6 +296,8 @@ class TieredStore:
                              f"undecodable: {e.__class__.__name__}")
             self._bump("salvaged_wal")
         self._bump("loads")
+        if self.metrics is not None:
+            self.metrics.record_residency("load", time.perf_counter() - t0)
         return ol
 
     def compact_doc(self, doc_id: str, _crash=None) -> None:

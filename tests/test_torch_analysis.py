@@ -70,6 +70,8 @@ PHASE_FIXTURE = REPO / "tests" / "fixtures" / "analysis_torch" / \
     "bad_phase_drift.py"
 TRANSFORM_FIXTURE = REPO / "tests" / "fixtures" / "analysis_torch" / \
     "bad_transform_drift.py"
+RESIDENCY_FIXTURE = REPO / "tests" / "fixtures" / "analysis_torch" / \
+    "bad_residency_drift.py"
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -93,6 +95,7 @@ def test_rule_module_is_a_byte_identical_copy(rel):
     assert 'name == "record_phases"' in added
     assert 'name == "enter_phase"' in added
     assert 'name == "record_transform"' in added
+    assert 'name == "record_residency"' in added
 
 
 def test_phase_drift_fires_only_in_the_port():
@@ -119,6 +122,18 @@ def test_transform_counter_drift_fires_only_in_the_port():
     assert [(v["rule"], v["line"]) for v in t["violations"]] == \
         [("metrics-schema-drift", 14)]
     assert "'linearized_gpu'" in t["violations"][0]["message"]
+
+
+def test_residency_drift_fires_only_in_the_port():
+    """A port-only check: a literal residency timer outside
+    RESIDENCY_TIMERS at `record_residency` is drift; the declared timers
+    and a timer in a variable pass. JAX's rule has no such timers."""
+    path = [str(RESIDENCY_FIXTURE)]
+    assert jlint.run_lint(paths=path)["ok"]
+    t = tlint.run_lint(paths=path)
+    assert [(v["rule"], v["line"]) for v in t["violations"]] == \
+        [("metrics-schema-drift", 14)]
+    assert "'compact'" in t["violations"][0]["message"]
 
 
 def test_lint_differs_only_in_its_package_list_and_docstrings():

@@ -378,6 +378,6 @@ def test_record_phases_counts_phases_that_ran():
     assert snap["latencies"]["oplog_hold"]["count"] == 2
     assert [r["flush_wall_s"] for r in snap["per_shard"]] == [0.25, 1.5]
     assert [r["device_sync_s"] for r in snap["per_shard"]] == [0.0, 1.0]
-    assert snap["version"] == ServeMetrics.SCHEMA_VERSION == 7
+    assert snap["version"] == ServeMetrics.SCHEMA_VERSION == 8
     with pytest.raises(KeyError):
         m.record_phases(0, {"replay": 0.1})

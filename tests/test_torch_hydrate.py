@@ -204,6 +204,13 @@ def test_second_gate_visit_escalates_to_sync_hydration(tmp_path):
 
 
 def test_defer_budget_exhaustion_quarantines(tmp_path):
+    """A doc whose every load times out is dropped on its second gate
+    visit in both packages. The JAX package quarantines it by the defer
+    budget ("hydration_stuck"); the port hydrates it inline on that visit
+    whenever it comes, so the failed inline load quarantines it
+    ("hydration_timeout") and the budget never applies (a divergence:
+    ROADMAP section 1, pinned with a healthy doc in
+    test_torch_tiered_bank.py)."""
     def case(pkg, root):
         store = _store_with_doc(pkg, root, doc="stuck")
         store.faults = _slow_n_times(pkg, 100)
@@ -222,8 +229,8 @@ def test_defer_budget_exhaustion_quarantines(tmp_path):
         finally:
             hyd.stop(checkpoint=False)
     out = _each(tmp_path, case)
-    assert out["port"] == out["jax"] == (
-        [(0, 1, 0), (0, 0, 1)], "hydration_stuck", 1)
+    assert out["jax"] == ([(0, 1, 0), (0, 0, 1)], "hydration_stuck", 1)
+    assert out["port"] == ([(0, 1, 0), (0, 0, 1)], "hydration_timeout", 0)
 
 
 def test_eviction_churn_byte_parity_vs_resident_control(tmp_path):
@@ -373,7 +380,7 @@ def test_metrics_hydration_block_matches_jax_keys():
     assert tmetrics.HYDRATION_KEYS == jmetrics.HYDRATION_KEYS
     m = tmetrics.ServeMetrics(2, 4, 64)
     snap0 = m.snapshot()
-    assert snap0["version"] == 7
+    assert snap0["version"] == 8
     assert tuple(snap0["hydration"]) == jmetrics.HYDRATION_KEYS
     assert set(snap0["hydration"].values()) == {0}
     m.record_hydration("prefetches")

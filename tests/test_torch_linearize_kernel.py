@@ -173,4 +173,4 @@ def test_resolve_windows_counts_resolves_by_linearizer():
     t = m.snapshot()["transform"]
     assert (t["batches"], t["linearized_plain"], t["linearized_kernel"]) \
         == (1, 1, 0)
-    assert t["device_docs"] == 2 and m.snapshot()["version"] == 7
+    assert t["device_docs"] == 2 and m.snapshot()["version"] == 8

@@ -363,7 +363,7 @@ def test_metrics_read_block_matches_jax_keys():
     """The serve block's `read`: null until a ReadPath is attached, then
     the ReadMetrics snapshot, key for key JAX's; every other key of the
     snapshot is JAX's but the Pallas rung's fallback counter, and the port
-    adds its `flush_phases` and `zone` blocks."""
+    adds its `flush_phases`, `zone` and `residency` blocks."""
     snaps = {}
     for root in ROOTS:
         sm = _mod(root, "serve.metrics").ServeMetrics(2, 4, 64)
@@ -375,14 +375,14 @@ def test_metrics_read_block_matches_jax_keys():
     assert jb["read"] is None and tb["read"] is None
     # the port's own blocks (the flush's phases, schema version 5; the
     # transform block's linearizer counters, version 6; the zone-session
-    # counters, version 7)
-    assert set(ta) - set(ja) == {"flush_phases", "zone"} \
+    # counters, version 7; the residency tier's timers, version 8)
+    assert set(ta) - set(ja) == {"flush_phases", "zone", "residency"} \
         and set(ja) <= set(ta)
     assert set(ta["read"]) == set(ja["read"])
     assert set(ta["read"]["counters"]) == set(ja["read"]["counters"])
     assert ta["read"]["counters"] == ja["read"]["counters"]
     assert set(ja["totals"]) - set(ta["totals"]) == {"pallas_fallbacks"}
-    assert ta["version"] == 7
+    assert ta["version"] == 8
 
 
 # ---- two-server acceptance ----------------------------------------------------------

@@ -64,11 +64,13 @@ JIT_PROM_ONLY_IN_JAX = {"dt_devprof_jit_hits_total",
                         "dt_devprof_jit_misses_total",
                         "dt_devprof_jit_hit_rate"}
 # the port's flush timing (serve/metrics.py, schema version 5), its
-# linearizer counters (6) and its zone-session counters (7): the key paths
-# under these prefixes and these families are the port's alone
+# linearizer counters (6), its zone-session counters (7) and its residency
+# tier's timers (8): the key paths under these prefixes and these families
+# are the port's alone
 SERVE_ONLY_IN_PORT = ("serve.flush_phases", "serve.latencies.admit_wait",
                       "serve.latencies.oplog_hold",
-                      "serve.transform.linearized_", "serve.zone")
+                      "serve.transform.linearized_", "serve.zone",
+                      "serve.residency")
 PROM_ONLY_IN_PORT = {"dt_serve_flush_phase_seconds_total",
                      "dt_serve_oplog_wait_seconds_total",
                      "dt_admit_wait_latency_seconds",

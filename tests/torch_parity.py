@@ -384,11 +384,14 @@ def clock_modules(monkeypatch, root: str, clock: FakeClock,
         monkeypatch.setattr(mod, "time", FakeTime(clock))
 
 
-# the port's own leaf spans, one a phase of a bank flush
-# (serve/metrics.py FLUSH_PHASES): the JAX package has none
+# the port's own spans, one a phase of a bank flush (serve/metrics.py
+# FLUSH_PHASES), and the residency tier's loads and saves
+# (storage/tier.py): the JAX package has none
 PORT_ONLY_SPANS = ("bank.extract", "bank.resolve", "bank.plan", "bank.pack",
                    "bank.fence", "bank.adopt", "bank.serial",
-                   "bank.zone_compose", "bank.zone_tape", "bank.zone_resync")
+                   "bank.zone_compose", "bank.zone_tape", "bank.zone_resync",
+                   "bank.build", "bank.gate", "hydrate.load",
+                   "hydrate.save")
 
 
 def span_forest(spans: List[dict], drop: Sequence[str] = ()) -> list:
